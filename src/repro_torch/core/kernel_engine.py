@@ -1,0 +1,261 @@
+"""DF/DF-P engine on the frontier-gated SpMV kernel (twin of
+``repro.core.kernel_engine``).
+
+Contributions come from the blocked, window-gated SpMV in f32 instead of
+the f64 edge-list sum; frontier marking still uses the edge-list
+``push_or``.  Two precision regimes, kept exactly as the reference has
+them so that parity can be measured:
+
+  * ``kernel_pagerank_loop`` — pure f32 with f32-appropriate tolerances;
+    the rank buffer stays padded to NW·VB and each iteration computes
+    ``active_window`` once for the kernel.
+  * ``hybrid_pagerank`` — the serving ladder: f32 kernel iterations to
+    ``tol_f32``, then the f64 loop (``core.pagerank``) seeded with the
+    kernel phase's ``affected_ever`` set, down to the paper's τ.
+
+Work accounting follows the kernel's granularity: per iteration,
+``edges_processed`` adds the live-edge counts of active entries and
+``vertices_processed`` adds VB per active window.
+
+Sync policy: one boolean read (``delta > tol``) per iteration, as in the
+f64 loop; the fused step adds one read of the dropped-insertion count.
+Results carry the count in ``host_syncs``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import pagerank as pr
+from repro_torch.core.pagerank import ALPHA, initial_affected
+from repro_torch.graph.structure import EdgeListGraph
+from repro_torch.kernels.pagerank_spmv.ops import PackedGraph, gated_contrib
+
+F32 = torch.float32
+
+
+class KernelPRResult(NamedTuple):
+    ranks: torch.Tensor               # f32[V]
+    iterations: int
+    delta: torch.Tensor               # f32[]
+    affected_ever: torch.Tensor       # bool[V]
+    edges_processed: torch.Tensor     # i64[] Σ live edges of active entries
+    vertices_processed: torch.Tensor  # i64[] Σ VB per active window
+    host_syncs: int = 0
+
+
+class _Loop:
+    """The f32 loop's constants and body, shared by the plain and fused
+    entry points so that both run the identical iteration."""
+
+    def __init__(self, graph, packed, *, alpha, tol, frontier_tol,
+                 prune_tol, max_iter, closed_form, prune, expand):
+        V = graph.num_vertices
+        nw, vb = packed.num_windows, packed.vb
+        self.graph, self.packed = graph, packed
+        self.V, self.nw, self.vb, self.v_pad = V, nw, vb, nw * vb
+        deg = graph.out_degree(include_self_loop=True)
+        # 1/deg in f64, then rounded to f32, as the reference computes it
+        self.inv_deg_pad = self._pad((1.0 / deg.to(torch.float64)).to(F32))
+        # per-entry live-edge counts: constant across the loop
+        self.entry_edges = (packed.valid > 0).sum(dim=1)
+        dev = graph.device
+        self.c0 = torch.tensor((1.0 - alpha) / V, dtype=F32, device=dev)
+        self.a32 = torch.tensor(alpha, dtype=F32, device=dev)
+        self.tol, self.max_iter = tol, max_iter
+        self.frontier_tol, self.prune_tol = frontier_tol, prune_tol
+        self.closed_form, self.prune, self.expand = closed_form, prune, expand
+
+    def _pad(self, x):
+        return torch.cat([x, x.new_zeros(self.v_pad - x.shape[0])])
+
+    def state0(self, init_ranks, init_affected):
+        dev = self.graph.device
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return [self._pad(init_ranks.to(F32)), init_affected, init_affected,
+                torch.tensor(float("inf"), dtype=F32, device=dev), 0, zero,
+                zero]
+
+    def body(self, state):
+        ranks_pad, affected, ever, _, it, edges, verts = state
+        V, packed = self.V, self.packed
+        aff_pad = torch.cat([affected, affected.new_zeros(self.v_pad - V)])
+        active_window = aff_pad.reshape(self.nw, self.vb).any(dim=1)
+        contrib = gated_contrib(packed, ranks_pad, self.inv_deg_pad,
+                                active_window=active_window, pad_out=True)
+        c0, a32, inv = self.c0, self.a32, self.inv_deg_pad
+        if self.closed_form:
+            r_new_all = (c0 + a32 * contrib) / (1.0 - a32 * inv)
+        else:
+            r_new_all = c0 + a32 * (contrib + ranks_pad * inv)
+        r_new = torch.where(aff_pad, r_new_all, ranks_pad)
+        dr = (r_new - ranks_pad).abs()[:V]
+        rel = dr / torch.maximum(torch.maximum(r_new[:V], ranks_pad[:V]),
+                                 torch.full((), 1e-30, dtype=F32,
+                                            device=dr.device))
+        delta = torch.where(affected, dr, torch.zeros((), dtype=F32,
+                                                      device=dr.device)).max()
+        new_affected = affected
+        if self.prune:
+            new_affected = new_affected & ~(affected & (rel <= self.prune_tol))
+        if self.expand:
+            big = affected & (rel > self.frontier_tol)
+            new_affected = new_affected | self.graph.push_or(big) | big
+        edges = edges + torch.where(active_window[packed.window.long()],
+                                    self.entry_edges,
+                                    torch.zeros_like(self.entry_edges)).sum()
+        verts = verts + active_window.sum(dtype=torch.int64) * self.vb
+        return [r_new, new_affected, ever | new_affected, delta, it + 1,
+                edges, verts]
+
+    def run(self, state, syncs: int = 0,
+            check_first: bool = False) -> KernelPRResult:
+        """Iterate from ``state`` while ``delta > tol`` and under
+        ``max_iter``: one host read after each iteration.  ``state0``'s
+        delta is inf, so the first test needs no read unless the caller
+        already ran a sweep (``check_first``)."""
+        while state[4] < self.max_iter:
+            if check_first:
+                syncs += 1
+                if not bool(state[3] > self.tol):
+                    break
+            check_first = True
+            state = self.body(state)
+        ranks_pad, _, ever, delta, it, edges, verts = state
+        return KernelPRResult(ranks_pad[:self.V], it, delta, ever, edges,
+                              verts, syncs)
+
+
+def kernel_pagerank_loop(graph: EdgeListGraph, packed: PackedGraph,
+                         init_ranks: torch.Tensor,
+                         init_affected: torch.Tensor, *,
+                         alpha: float = ALPHA, tol: float = 1e-7,
+                         frontier_tol: float = 1e-5, prune_tol: float = 1e-5,
+                         max_iter: int = 500, closed_form: bool = False,
+                         prune: bool = False, expand: bool = True
+                         ) -> KernelPRResult:
+    loop = _Loop(graph, packed, alpha=alpha, tol=tol,
+                 frontier_tol=frontier_tol, prune_tol=prune_tol,
+                 max_iter=max_iter, closed_form=closed_form, prune=prune,
+                 expand=expand)
+    return loop.run(loop.state0(init_ranks, init_affected))
+
+
+def _fused_update_loop(graph_new: EdgeListGraph, packed: PackedGraph,
+                       update, init_ranks: torch.Tensor,
+                       init_affected: torch.Tensor, *,
+                       alpha: float = ALPHA, tol: float = 1e-7,
+                       frontier_tol: float = 1e-5, prune_tol: float = 1e-5,
+                       max_iter: int = 500, closed_form: bool = False,
+                       prune: bool = False, expand: bool = True):
+    """Packed micro-batch maintenance, then the f32 loop with its first
+    sweep peeled (``delta`` starts at inf, so the peel cannot change the
+    iteration sequence).  Returns ``(new_packed, KernelPRResult)``.
+
+    A spill/overlay overflow raises the checked ``PackedSpillError`` right
+    after maintenance, before any sweep.  Re-running after a repack is
+    safe: the update's deletions are already absent and its insertions
+    already live, so maintenance is a no-op and only the solve repeats.
+    """
+    from repro_torch.kernels.pagerank_spmv.update import (
+        SPILL_ERROR, PackedSpillError, _apply_batch_packed)
+    new_packed, dropped = _apply_batch_packed(packed, update)
+    n = int(dropped)
+    if n:
+        raise PackedSpillError(SPILL_ERROR.format(n=n))
+    loop = _Loop(graph_new, new_packed, alpha=alpha, tol=tol,
+                 frontier_tol=frontier_tol, prune_tol=prune_tol,
+                 max_iter=max_iter, closed_form=closed_form, prune=prune,
+                 expand=expand)
+    state = loop.state0(init_ranks, init_affected)
+    if max_iter > 0:
+        state = loop.body(state)
+    return new_packed, loop.run(state, syncs=1, check_first=True)
+
+
+def _ladder(graph, k: KernelPRResult, *, alpha, tol, frontier_tol,
+            prune_tol, max_iter, closed_form, prune, expand,
+            polish) -> pr.PageRankResult:
+    """f64 result of the ladder from its f32 phase ``k``."""
+    if not polish:
+        return pr.PageRankResult(
+            k.ranks.to(torch.float64), k.iterations,
+            k.delta.to(torch.float64), k.affected_ever, k.edges_processed,
+            k.vertices_processed, k.host_syncs)
+    p = pr._pagerank_loop(graph, k.ranks.to(torch.float64), k.affected_ever,
+                          alpha=alpha, tol=tol, frontier_tol=frontier_tol,
+                          prune_tol=prune_tol, max_iter=max_iter,
+                          closed_form=closed_form, prune=prune,
+                          expand=expand)
+    return pr.PageRankResult(
+        p.ranks, k.iterations + p.iterations, p.delta,
+        k.affected_ever | p.affected_ever,
+        k.edges_processed + p.edges_processed,
+        k.vertices_processed + p.vertices_processed,
+        k.host_syncs + p.host_syncs)
+
+
+def fused_hybrid_pagerank(graph_new: EdgeListGraph, packed: PackedGraph,
+                          update, init_ranks: torch.Tensor,
+                          init_affected: torch.Tensor, *,
+                          alpha: float = ALPHA, tol: float = pr.TOL,
+                          tol_f32: float = 1e-7,
+                          frontier_tol: float = pr.FRONTIER_TOL,
+                          prune_tol: float = pr.PRUNE_TOL,
+                          kernel_frontier_tol: float = 1e-5,
+                          kernel_prune_tol: float = 1e-5,
+                          max_iter: int = pr.MAX_ITER,
+                          closed_form: bool = False, prune: bool = False,
+                          expand: bool = True, polish: bool = True):
+    """Serving step: ``(new_packed, PageRankResult)`` — packed maintenance
+    plus the whole f32 phase, then the f64 polish when ``polish=True``.
+
+    Spill/overlay exhaustion raises the same checked ``PackedSpillError`` as
+    ``apply_batch_packed``; the caller repacks at the pinned shapes and
+    re-invokes with the SAME update.
+    """
+    new_packed, k = _fused_update_loop(
+        graph_new, packed, update, init_ranks, init_affected, alpha=alpha,
+        tol=tol_f32, frontier_tol=kernel_frontier_tol,
+        prune_tol=kernel_prune_tol, max_iter=max_iter,
+        closed_form=closed_form, prune=prune, expand=expand)
+    return new_packed, _ladder(
+        graph_new, k, alpha=alpha, tol=tol, frontier_tol=frontier_tol,
+        prune_tol=prune_tol, max_iter=max_iter, closed_form=closed_form,
+        prune=prune, expand=expand, polish=polish)
+
+
+def hybrid_pagerank(graph: EdgeListGraph, packed: PackedGraph,
+                    init_ranks: torch.Tensor, init_affected: torch.Tensor, *,
+                    alpha: float = ALPHA, tol: float = pr.TOL,
+                    tol_f32: float = 1e-7,
+                    frontier_tol: float = pr.FRONTIER_TOL,
+                    prune_tol: float = pr.PRUNE_TOL,
+                    kernel_frontier_tol: float = 1e-5,
+                    kernel_prune_tol: float = 1e-5,
+                    max_iter: int = pr.MAX_ITER, closed_form: bool = False,
+                    prune: bool = False, expand: bool = True,
+                    polish: bool = True) -> pr.PageRankResult:
+    """Precision ladder: f32 kernel iterations to ``tol_f32``, then an
+    optional f64 polish seeded from the kernel phase's affected_ever set
+    down to ``tol`` — same fixed point and result type as the f64 loop."""
+    k = kernel_pagerank_loop(graph, packed, init_ranks, init_affected,
+                             alpha=alpha, tol=tol_f32,
+                             frontier_tol=kernel_frontier_tol,
+                             prune_tol=kernel_prune_tol, max_iter=max_iter,
+                             closed_form=closed_form, prune=prune,
+                             expand=expand)
+    return _ladder(graph, k, alpha=alpha, tol=tol, frontier_tol=frontier_tol,
+                   prune_tol=prune_tol, max_iter=max_iter,
+                   closed_form=closed_form, prune=prune, expand=expand,
+                   polish=polish)
+
+
+def df_pagerank_kernel(graph_prev: EdgeListGraph, graph_new: EdgeListGraph,
+                       packed_new: PackedGraph, touched: torch.Tensor,
+                       prev_ranks: torch.Tensor, *, prune: bool = False,
+                       **kw) -> KernelPRResult:
+    aff = initial_affected(graph_prev, graph_new, touched)
+    return kernel_pagerank_loop(graph_new, packed_new, prev_ranks, aff,
+                                prune=prune, closed_form=prune, **kw)

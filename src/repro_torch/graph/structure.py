@@ -1,0 +1,162 @@
+"""Capacity-padded edge-list graph (twin of ``repro.graph.structure``).
+
+A graph is a *capacity padded edge list* so that one set of buffers
+serves a whole update stream:
+
+  * ``src``, ``dst``: int32[E_cap] endpoints (free and deleted slots carry
+    ``valid = False``);
+  * ``valid``: bool[E_cap] liveness — deletions flip it, insertions claim
+    free slots;
+  * degrees are derived from ``valid`` on demand, never stored stale.
+
+Every vertex carries an implicit **self-loop** (paper §3.1): out-degree is
+``valid_out_degree + 1`` and the self contribution is folded into the rank
+update, so no self-loop edges are materialised.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+class CSRView(NamedTuple):
+    """Compressed out-adjacency over the valid edges of an EdgeListGraph.
+
+    ``deg`` excludes the implicit self-loop.
+    """
+
+    indptr: torch.Tensor    # int32[V + 1]
+    indices: torch.Tensor   # int32[E_cap]  (valid prefix per segment only)
+    deg: torch.Tensor       # int32[V]
+
+
+def _count(index: torch.Tensor, weight: torch.Tensor, n: int) -> torch.Tensor:
+    """int32[n] sums of ``weight`` per ``index`` (a segment sum)."""
+    out = torch.zeros(n, dtype=torch.int32, device=index.device)
+    return out.index_add_(0, index.long(), weight.to(torch.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeListGraph:
+    """Capacity-padded directed graph; all tensors on one device."""
+
+    src: torch.Tensor          # int32[E_cap]
+    dst: torch.Tensor          # int32[E_cap]
+    valid: torch.Tensor        # bool[E_cap]
+    num_vertices: int
+    # number of slots ever claimed (live + dead)
+    num_edges: Optional[torch.Tensor] = None   # int32[]
+
+    @property
+    def edge_capacity(self) -> int:
+        return self.src.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    # ---- derived quantities (masked by `valid`) --------------------------
+    def out_degree(self, include_self_loop: bool = True) -> torch.Tensor:
+        """int32[V] out-degree; +1 for the implicit self-loop."""
+        deg = _count(self.src, self.valid, self.num_vertices)
+        return deg + 1 if include_self_loop else deg
+
+    def in_degree(self, include_self_loop: bool = True) -> torch.Tensor:
+        deg = _count(self.dst, self.valid, self.num_vertices)
+        return deg + 1 if include_self_loop else deg
+
+    def num_valid_edges(self) -> torch.Tensor:
+        return self.valid.sum(dtype=torch.int32)
+
+    # ---- message passing primitives --------------------------------------
+    def push(self, values: torch.Tensor) -> torch.Tensor:
+        """sum_{(u,v) in E} values[u] -> out[v]."""
+        contrib = torch.where(self.valid, values[self.src.long()],
+                              torch.zeros((), dtype=values.dtype,
+                                          device=values.device))
+        out = torch.zeros(self.num_vertices, dtype=values.dtype,
+                          device=values.device)
+        return out.index_add_(0, self.dst.long(), contrib)
+
+    def push_or(self, flags: torch.Tensor) -> torch.Tensor:
+        """Boolean frontier propagation: out[v] |= flags[u] for (u,v) in E."""
+        hit = self.valid & flags[self.src.long()]
+        return _count(self.dst, hit, self.num_vertices) > 0
+
+    def to_device_csr(self) -> CSRView:
+        """CSR view over valid edges, neighbour order stable in slot order.
+
+        ``indices[indptr[u] : indptr[u] + deg[u]]`` are u's out-neighbours;
+        entries past ``indptr[V]`` are garbage and must never be read.
+        """
+        V = self.num_vertices
+        key = torch.where(self.valid, self.src,
+                          torch.full_like(self.src, V))
+        order = torch.argsort(key, stable=True)
+        deg = _count(self.src, self.valid, V)
+        indptr = torch.cat([torch.zeros(1, dtype=torch.int32,
+                                        device=deg.device),
+                            torch.cumsum(deg, 0, dtype=torch.int32)])
+        return CSRView(indptr=indptr, indices=self.dst[order], deg=deg)
+
+    def to_host_csr(self):
+        """NumPy CSR (indptr, indices) over valid edges."""
+        src = self.src.cpu().numpy()
+        dst = self.dst.cpu().numpy()
+        valid = self.valid.cpu().numpy()
+        s, d = src[valid], dst[valid]
+        order = np.argsort(s, kind="stable")
+        s, d = s[order], d[order]
+        indptr = np.zeros(self.num_vertices + 1, dtype=np.int64)
+        np.add.at(indptr, s + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        return indptr, d
+
+
+def sort_edges_by_dst(graph: EdgeListGraph) -> EdgeListGraph:
+    """An equivalent graph whose slots are dst-sorted (invalid slots last)."""
+    key = torch.where(graph.valid, graph.dst,
+                      torch.full_like(graph.dst, graph.num_vertices))
+    order = torch.argsort(key, stable=True)
+    return dataclasses.replace(
+        graph, src=graph.src[order], dst=graph.dst[order],
+        valid=graph.valid[order])
+
+
+def unique_edges(src: np.ndarray, dst: np.ndarray, num_vertices: int):
+    """Sorted unique (src, dst) pairs; the same set and order as
+    ``np.unique(np.stack([src, dst], 1), axis=0)``, via a 1-D int64 key
+    (much faster at tens of millions of edges)."""
+    key = np.unique(src.astype(np.int64) * num_vertices + dst)
+    return ((key // num_vertices).astype(np.int32),
+            (key % num_vertices).astype(np.int32))
+
+
+def from_coo(src: np.ndarray, dst: np.ndarray, num_vertices: int,
+             edge_capacity: Optional[int] = None,
+             dedup: bool = True, device: DeviceLike = None) -> EdgeListGraph:
+    """Build a graph from host COO arrays (deduplicated, capacity padded)."""
+    device = resolve_device(device)
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    if dedup and len(src):
+        src, dst = unique_edges(src, dst, int(num_vertices))
+    e = len(src)
+    if edge_capacity is None:
+        edge_capacity = max(16, int(e * 1.5))
+    if e > edge_capacity:
+        raise ValueError(f"{e} edges exceed capacity {edge_capacity}")
+    pad = edge_capacity - e
+    as_t = lambda a: torch.from_numpy(a).to(device)
+    return EdgeListGraph(
+        src=as_t(np.concatenate([src, np.zeros(pad, np.int32)])),
+        dst=as_t(np.concatenate([dst, np.zeros(pad, np.int32)])),
+        valid=as_t(np.concatenate([np.ones(e, bool), np.zeros(pad, bool)])),
+        num_vertices=int(num_vertices),
+        num_edges=torch.tensor(e, dtype=torch.int32, device=device),
+    )

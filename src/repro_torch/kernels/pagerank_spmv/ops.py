@@ -1,0 +1,46 @@
+"""Public wrapper for the frontier-gated SpMV (twin of
+``repro.kernels.pagerank_spmv.ops``).
+
+Dispatch is by device, not by a switch: a CPU tensor runs the plain
+version, a CUDA tensor launches the kernel (``frontier_spmv_padded``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.pagerank_spmv.pagerank_spmv import (
+    DEFAULT_BE, DEFAULT_VB, PackedGraph, frontier_spmv_padded, pack_blocks)
+
+__all__ = ["PackedGraph", "pack_blocks", "gated_contrib", "DEFAULT_BE",
+           "DEFAULT_VB"]
+
+
+def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x if x.shape[0] == n else torch.cat(
+        [x, x.new_zeros(n - x.shape[0])])
+
+
+def gated_contrib(packed: PackedGraph, ranks: torch.Tensor,
+                  inv_deg: torch.Tensor,
+                  affected: Optional[torch.Tensor] = None, *,
+                  active_window: Optional[torch.Tensor] = None,
+                  pad_out: bool = False) -> torch.Tensor:
+    """contrib[v] = Σ_{u→v, u≠v} R[u]/d_u for v in active windows, else 0.
+
+    Gating is either ``affected`` (bool[V], reduced to windows here) or a
+    precomputed ``active_window`` (bool[NW]).  An iteration loop passes
+    ``active_window`` plus pre-padded ``ranks``/``inv_deg`` (length
+    NW*VB) and ``pad_out=True``.
+    """
+    nw, vb = packed.num_windows, packed.vb
+    v_pad = nw * vb
+    if active_window is None:
+        if affected is None:
+            raise ValueError("need affected or active_window")
+        active_window = _pad(affected, v_pad).reshape(nw, vb).any(dim=1)
+    # frontier_spmv_padded zero-pads a short rsc itself
+    rsc = (ranks * inv_deg).to(torch.float32)
+    out = frontier_spmv_padded(packed, rsc, active_window)
+    return out if pad_out else out[: packed.num_vertices]
