@@ -1,7 +1,7 @@
 """NumPy arrays → the port's structures.
 
 This system has no weights; its state is the graph, the packed structure,
-the update batch and the ranks.  These functions build each of them from
+the update batch, the ranks and the PPR walk index.  These functions build each of them from
 plain NumPy arrays and ints (for example arrays read out of the JAX
 package with ``np.asarray``), so two implementations can be handed the
 same state.  Arrays are copied to ``device`` with their dtypes fixed to
@@ -14,8 +14,9 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.dynamic import BatchUpdate
-from repro_torch.graph.structure import EdgeListGraph
+from repro_torch.graph.structure import CSRView, EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import PackedGraph
+from repro_torch.ppr.walks import WalkIndex
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -70,3 +71,19 @@ def batch_update_from_numpy(del_src, del_dst, del_mask, ins_src, ins_dst,
 def ranks_from_numpy(ranks, device: DeviceLike = None) -> torch.Tensor:
     """f64[V] ranks."""
     return _t(ranks, np.float64, resolve_device(device))
+
+
+def walk_index_from_numpy(steps, indptr, indices, deg, key, num_walks: int,
+                          max_len: int, alpha: float,
+                          device: DeviceLike = None) -> WalkIndex:
+    """A ``WalkIndex`` from its steps ``[V, R, L]``, its CSR and its base
+    PRNG key (two uint32 words, as ``jax.random.PRNGKey`` holds them)."""
+    device = resolve_device(device)
+    k = np.asarray(key, np.uint32).reshape(2)
+    return WalkIndex(
+        steps=_t(steps, np.int32, device),
+        csr=CSRView(indptr=_t(indptr, np.int32, device),
+                    indices=_t(indices, np.int32, device),
+                    deg=_t(deg, np.int32, device)),
+        key=(int(k[0]), int(k[1])), num_walks=int(num_walks),
+        max_len=int(max_len), alpha=float(alpha))

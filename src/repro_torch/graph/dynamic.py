@@ -139,9 +139,13 @@ def apply_batch(graph: EdgeListGraph, update: BatchUpdate) -> EdgeListGraph:
 
 def touched_vertices_mask(update: BatchUpdate,
                           num_vertices: int) -> torch.Tensor:
-    """bool[V]: u-endpoints of every edge in Δ — seeds for frontier marking."""
-    m = torch.zeros(num_vertices, dtype=torch.bool,
+    """bool[V]: u-endpoints of every edge in Δ — seeds for frontier marking.
+
+    Masked-out slots are sent to a spare slot V rather than filtered out,
+    so no host read sizes the index."""
+    m = torch.zeros(num_vertices + 1, dtype=torch.bool,
                     device=update.del_src.device)
-    m[update.del_src[update.del_mask].long()] = True
-    m[update.ins_src[update.ins_mask].long()] = True
-    return m
+    for src, mask in ((update.del_src, update.del_mask),
+                      (update.ins_src, update.ins_mask)):
+        m[torch.where(mask, src, num_vertices).long()] = True
+    return m[:num_vertices]

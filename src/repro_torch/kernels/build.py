@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each kernel is one ``.cu`` file with a plain C interface, compiled for
-Hopper (``sm_90a``) into a shared library under ``repro_torch/_build/``
+Hopper (``sm_90a``) into its own shared library under ``repro_torch/_build/``
 (listed in ``.gitignore``).  The library's file name carries a digest of
 its source and flags, so an edited source is rebuilt and an unchanged one
 is reused.  Nothing is built when a module is imported: the first call
@@ -19,13 +19,14 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parent / "_build"
 SOURCES = {
     "frontier_spmv": _KERNELS_DIR / "pagerank_spmv" / "csrc"
     / "frontier_spmv.cu",
+    "walk_repair": _KERNELS_DIR / "walk_repair" / "csrc" / "walk_repair.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,28 +60,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> dict:
-    """Compile the named kernel unless it is built already.
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named kernels (default: all of ``SOURCES``) unless they
+    are built already, one ``nvcc`` per source, all started together.
 
-    Returns ``dict(path, seconds, log)``; ``seconds`` is 0 and ``log``
-    empty for a library that was already built.  Raises ``RuntimeError``
-    with the compiler output on failure.
+    Returns ``{name: dict(path, seconds, log)}``; ``seconds`` is 0 and
+    ``log`` empty for a library that was already built.  Raises
+    ``RuntimeError`` with the compiler output of every failed build.
     """
-    path = library_path(name)
-    if path.exists():
-        return dict(path=path, seconds=0.0, log="")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc exit "
-                           f"{proc.returncode})\n{proc.stdout}")
-    os.replace(tmp, path)              # atomic: concurrent builds agree
-    return dict(path=path, seconds=time.perf_counter() - t0,
-                log=proc.stdout)
+    names = list(SOURCES if names is None else names)
+    out, jobs = {}, {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = dict(path=path, seconds=0.0, log="")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, path, t0) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, path)          # atomic: concurrent builds agree
+        out[name] = dict(path=path, seconds=time.perf_counter() - t0,
+                         log=log)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -88,6 +100,6 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)["path"]))
+            lib = ctypes.CDLL(str(build([name])[name]["path"]))
             _LIBS[name] = lib
         return lib

@@ -5,17 +5,18 @@ queries (twin of ``repro.launch.serve``).
 The first 90% of the temporal edges preload G⁰ (paper §5.1.4); the rest
 arrive one event at a time through the ingest queue (optionally paced at
 ``--rate`` events/s), the engine micro-batches them, and every
-``--query-every`` events a query burst (point ranks + top-k) is served
-from the current snapshot.  Prints the metrics summary and ``serve
-complete``; exits non-zero if fewer than ``--min-queries`` queries were
-served.
+``--query-every`` events a query burst (point ranks + top-k, and with
+``--ppr-walks`` a personalized top-k) is served from the current snapshot.
+Prints the metrics summary and ``serve complete``; exits non-zero if fewer
+than ``--min-queries`` queries were served.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --dataset sx-mathoverflow --events 5000 --engine kernel
+        --dataset sx-mathoverflow --events 5000 --engine kernel \
+        --ppr-walks 64
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The reference
-driver's mesh, PPR, monitor, trace, metrics-export and checkpoint flags
-are not ported yet.
+driver's mesh, monitor, trace, metrics-export and checkpoint flags are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 from repro_torch.core.api import ENGINES, METHODS
 from repro_torch.data.snap import PAPER_TABLE1, load_temporal
 from repro_torch.device import resolve_device
+from repro_torch.ppr import IndexConfig
 from repro_torch.serve import IngestQueue, QueryClient, RankStore, \
     ServeEngine, ServeMetrics, preload_graph_and_feed
 
@@ -55,6 +57,12 @@ def main(argv=None):
                     help="issue a query burst every K submitted events")
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--static-fallback-frac", type=float, default=0.25)
+    ap.add_argument("--ppr-walks", type=int, default=0,
+                    help="maintain a PPR walk index with R walks/vertex "
+                         "(0 = off); query bursts then include a "
+                         "personalized top-k")
+    ap.add_argument("--ppr-len", type=int, default=16,
+                    help="walk-index max length L (with --ppr-walks)")
     ap.add_argument("--min-queries", type=int, default=0,
                     help="exit non-zero unless this many queries were served")
     ap.add_argument("--seed", type=int, default=0)
@@ -73,9 +81,13 @@ def main(argv=None):
     ingest = IngestQueue(flush_size=args.flush_size,
                          flush_interval=args.flush_interval_ms * 1e-3,
                          device=device)
+    ppr_cfg = (IndexConfig(num_walks=args.ppr_walks, max_len=args.ppr_len,
+                           seed=args.seed)
+               if args.ppr_walks > 0 else None)
     engine = ServeEngine(graph, ingest, store, metrics=metrics,
                          method=args.method, engine=args.engine,
-                         static_fallback_frac=args.static_fallback_frac)
+                         static_fallback_frac=args.static_fallback_frac,
+                         ppr_index=ppr_cfg)
     engine.bootstrap()
     client = QueryClient(store, ingest, metrics)
     rng = np.random.default_rng(args.seed)
@@ -95,9 +107,15 @@ def main(argv=None):
             verts = rng.integers(0, ds.num_vertices, size=4)
             client.get_ranks(verts)
             r = client.top_k(args.topk)
+            ppr_note = ""
+            if args.ppr_walks > 0:
+                p = client.personalized_top_k(
+                    [int(verts[0])], args.topk, mode="auto")
+                ppr_note = f" ppr_top1={p.vertices[0]}"
             print(f"event {i + 1:6d}: gen={r.generation:5d} "
                   f"stale={r.staleness_events:4d}ev "
-                  f"top1={r.vertices[0]} ({r.ranks[0]:.3e})", flush=True)
+                  f"top1={r.vertices[0]} ({r.ranks[0]:.3e})"
+                  f"{ppr_note}", flush=True)
     engine.drain()
     wall = time.perf_counter() - t0
     engine.close()

@@ -1,8 +1,9 @@
 """repro_torch.serve — online rank serving on the DF/DF-P engines (twin of
 ``repro.serve``): an event queue that coalesces edge events into
 capacity-padded micro-batches (``ingest``), a double-buffered snapshot
-store (``state``), the update loop (``engine``), point and top-k queries
-(``query``) and per-batch counters (``metrics``).
+store (``state``), the update loop (``engine``, optionally keeping a PPR
+walk index), point, top-k and personalized top-k queries (``query``) and
+per-batch counters (``metrics``).
 """
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.ingest import CoalescedBatch, EdgeEvent, IngestQueue, \

@@ -24,14 +24,25 @@ the pinned shapes (``metrics.packed_rebuilds`` counts these).
 ``kernel_opts`` takes pack sizing (``be``, ``vb``,
 ``spill_lanes_per_window``, ``num_entries``, ``extra_entries``,
 ``overlay_capacity``), ``tune=False`` and any ``hybrid_pagerank`` keyword
-(``tol_f32``, ``polish``, ...).  The reference's geometry tuner, mesh,
-PPR walk index, correctness monitor, iteration budget and telemetry are
-not ported yet; asking for them raises.
+(``tol_f32``, ``polish``, ...).
+
+``ppr_index=`` (a ``repro_torch.ppr.IndexConfig`` or a prebuilt
+``WalkIndex``) makes the engine keep a random-walk PPR index beside the
+ranks: built at bootstrap, repaired in every step from the batch's
+``touched_vertices_mask`` (only walks that visit a touched vertex are
+re-walked, by the ``walk_repair`` kernel on the card) and published in
+each snapshot, so index-backed ``personalized_top_k`` answers match the
+served graph.  ``metrics.walks_resampled`` counts the re-walked walks.
+
+The reference's geometry tuner, mesh (and with it the sharded walk
+index), correctness monitor, iteration budget and telemetry are not
+ported yet; asking for them raises.
 
 Each batch records its host syncs (``metrics.batch_host_syncs``): one
 per solver iteration, one for the fallback check, one for the fused
-step's overflow check and one read of the batch's counters, which also
-waits for the device so that the latency is honest.
+step's overflow check, one for the walk repair's stale count when an
+index is kept, and one read of the batch's counters, which also waits
+for the device (repair kernels included) so that the latency is honest.
 """
 from __future__ import annotations
 
@@ -47,10 +58,12 @@ from repro_torch.core.api import ENGINES, KERNEL_FLAGS, LOOP_FLAGS, Method, \
     build_initial_state
 from repro_torch.core.kernel_engine import fused_hybrid_pagerank, \
     hybrid_pagerank
-from repro_torch.graph.dynamic import apply_batch
+from repro_torch.graph.dynamic import apply_batch, touched_vertices_mask
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.update import PackedSpillError, \
     apply_batch_packed, pack_graph
+from repro_torch.ppr import IndexConfig, WalkIndex, build_walk_index, \
+    repair_walk_index
 from repro_torch.serve.ingest import IngestQueue
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.state import RankStore
@@ -79,8 +92,7 @@ class ServeEngine:
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; options {ENGINES}")
         unported = [name for name, v in (
-            ("mesh", mesh), ("ppr_index", ppr_index),
-            ("telemetry", telemetry), ("monitor", monitor),
+            ("mesh", mesh), ("telemetry", telemetry), ("monitor", monitor),
             ("iteration_budget", iteration_budget)) if v is not None]
         opts = dict(kernel_opts or {})
         if opts.pop("tune", False):
@@ -90,6 +102,17 @@ class ServeEngine:
         if unported:
             raise NotImplementedError(
                 f"ServeEngine: {', '.join(unported)} not ported yet")
+        # opt-in walk index: an IndexConfig to build at bootstrap, or a
+        # prebuilt WalkIndex to adopt
+        self._ppr_cfg: Optional[IndexConfig] = None
+        self._ppr: Optional[WalkIndex] = None
+        if isinstance(ppr_index, IndexConfig):
+            self._ppr_cfg = ppr_index
+        elif isinstance(ppr_index, WalkIndex):
+            self._ppr = ppr_index
+        elif ppr_index is not None:
+            raise TypeError("ppr_index must be an IndexConfig or a "
+                            f"WalkIndex, got {type(ppr_index).__name__}")
         self.ingest = ingest
         self.store = store
         self.metrics = metrics if metrics is not None else ServeMetrics()
@@ -114,9 +137,16 @@ class ServeEngine:
         return self._packed
 
     # ---- lifecycle -------------------------------------------------------
+    @property
+    def ppr_index(self) -> Optional[WalkIndex]:
+        """The walk index the engine keeps (None without one, or before
+        bootstrap builds it)."""
+        return self._ppr
+
     def bootstrap(self, ranks: Optional[torch.Tensor] = None,
                   last_seq: Optional[int] = None) -> int:
-        """Publish generation 0: a cold static f64 solve, or given ranks."""
+        """Publish generation 0: a cold static f64 solve, or given ranks.
+        Builds the walk index if one was asked for."""
         if ranks is None:
             ranks = self._solve("static", self._graph, None, None).ranks
         if self.engine == "kernel" and self._packed is None:
@@ -140,9 +170,12 @@ class ServeEngine:
             self._pack_kw.pop("extra_entries", None)
             self._packed = dataclasses.replace(
                 self._packed, max_entries_per_window=cap)
+        if self._ppr_cfg is not None and self._ppr is None:
+            self._ppr = build_walk_index(self._graph, self._ppr_cfg)
         self._ranks = ranks
         seq = self.ingest.start_seq - 1 if last_seq is None else last_seq
-        return self.store.publish(self._graph, ranks, seq)
+        return self.store.publish(self._graph, ranks, seq,
+                                  ppr_index=self._ppr)
 
     # ---- one micro-batch -------------------------------------------------
     def step(self, force: bool = False) -> bool:
@@ -194,6 +227,15 @@ class ServeEngine:
         else:
             res = self._solve(method, graph_new, batch.update, self._ranks,
                               graph_prev=self._graph, init_state=init_state)
+        resampled = 0
+        if self._ppr is not None:
+            # the touched signal that seeds the DF frontier also marks the
+            # stale walks; the stale count is the repair's one host read
+            touched = touched_vertices_mask(batch.update,
+                                            graph_new.num_vertices)
+            self._ppr, resampled = repair_walk_index(self._ppr, graph_new,
+                                                     touched)
+            syncs += 1
         # one read of the batch's counters; it also waits for the device
         affected, edges, verts = torch.stack([
             res.affected_ever.sum(dtype=torch.int64), res.edges_processed,
@@ -201,10 +243,12 @@ class ServeEngine:
         syncs += 1 + res.host_syncs
         latency = self._clock() - t0
         self._graph, self._ranks = graph_new, res.ranks
-        self.store.publish(graph_new, res.ranks, batch.last_seq)
+        self.store.publish(graph_new, res.ranks, batch.last_seq,
+                           ppr_index=self._ppr)
         self.metrics.record_batch(
             latency, batch.num_events, batch.num_coalesced,
             affected=affected, iterations=res.iterations, fallback=fallback,
+            walks_resampled=resampled,
             edges_processed=edges, vertices_processed=verts,
             host_syncs=syncs)
         self.metrics.set_gauge(

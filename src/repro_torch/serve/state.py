@@ -7,7 +7,9 @@ the pointer copy, so a query never observes a torn (graph, ranks) pair.
 
 ``generation`` increments on every publish and is the serving system's
 logical clock; ``last_seq`` records the newest ingest event folded into
-the snapshot.  Checkpointed restart (``ckpt_dir``) is not ported yet.
+the snapshot.  A PPR walk index, when the engine keeps one, rides in the
+same snapshot, so index queries see the graph the ranks were solved on.
+Checkpointed restart (``ckpt_dir``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ class Snapshot(NamedTuple):
     ranks: torch.Tensor  # f64[V]
     generation: int      # publish counter, monotone from 0
     last_seq: int        # newest ingest seq reflected in `ranks`
+    # walk index maintained for THIS graph (repro_torch.ppr), or None when
+    # the engine runs without one
+    ppr_index: Optional[object] = None
 
 
 class RankStore:
@@ -44,12 +49,13 @@ class RankStore:
             self._next_gen = generation
 
     def publish(self, graph: EdgeListGraph, ranks: torch.Tensor,
-                last_seq: int) -> int:
+                last_seq: int, ppr_index=None) -> int:
         """Swap in a new front snapshot; returns its generation."""
         with self._lock:
             gen = self._next_gen
             self._next_gen += 1
-            self._snap = Snapshot(graph, ranks, gen, int(last_seq))
+            self._snap = Snapshot(graph, ranks, gen, int(last_seq),
+                                  ppr_index)
         return gen
 
     def snapshot(self) -> Snapshot:

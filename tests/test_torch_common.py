@@ -16,6 +16,13 @@ from repro_torch import convert
 
 CPU = "cpu"
 
+# The suite runs in several pytest-xdist workers on the host's cores, and
+# torch's default of one intra-op thread per core then oversubscribes the
+# CPU: small ops wait in thread barriers, and the serve-driver tests ran
+# ten times slower under load than alone.  These inputs are small; one
+# thread per worker is enough.
+torch.set_num_threads(1)
+
 
 def np_(x):
     """NumPy view of a torch tensor or a JAX array."""
@@ -86,6 +93,9 @@ def _entry_points():
         "edge_list_from_numpy": lambda: convert.edge_list_from_numpy(
             e[:, 0], e[:, 1], np.ones(2, bool), 4, 2),
         "ranks_from_numpy": lambda: convert.ranks_from_numpy(np.ones(4)),
+        "walk_index_from_numpy": lambda: convert.walk_index_from_numpy(
+            np.zeros((4, 1, 2)), np.zeros(5), np.zeros(2), np.zeros(4),
+            (0, 0), 1, 2, 0.85),
         "launch.serve": lambda: serve_main(["--events", "10"]),
     }
 

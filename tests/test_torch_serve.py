@@ -21,6 +21,7 @@ from repro.serve import RankStore as JStore
 from repro.serve import ServeEngine as JEngine
 from repro.serve.ingest import coalesce_events as j_coalesce
 
+from repro_torch.ppr import IndexConfig
 from repro_torch.serve import IngestQueue, QueryClient, RankStore, \
     ServeEngine, ServeMetrics
 from repro_torch.serve.ingest import EdgeEvent, coalesce_events
@@ -175,7 +176,8 @@ def test_queries_answer_from_the_snapshot():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(mesh=object()), dict(ppr_index=object()), dict(monitor=object()),
+    dict(mesh=object()), dict(mesh=object(), ppr_index=IndexConfig()),
+    dict(monitor=object()),
     dict(iteration_budget=4), dict(telemetry=True),
     dict(kernel_opts=dict(tune=True)), dict(kernel_opts=dict(use_kernel=1)),
     dict(kernel_opts=dict(delta_budget=8))])
