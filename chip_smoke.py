@@ -42,17 +42,37 @@ It exits non-zero on the first failed check; no failure is passed over.
              version bit for bit; ``walks_resampled`` equals the summed
              stale counts; the served index equals a fresh build on the
              final graph bit for bit.
-6. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+6. GNN     — incremental GraphSAGE embedding refresh on the same graph
+             and the first 3 batches of its feed, at the full width of
+             ``graphsage-reddit`` (d_in 602, d_hidden 128, 41 classes, 2
+             layers; random features and parameters from the seed, 5.05 GB
+             of features).  Per batch:
+             ``apply_batch``, ``apply_batch_packed``,
+             ``touched_vertices_mask``, ``incremental_refresh`` with
+             ``sage_forward``, then ``aggregate_features`` (the gated_spmm
+             kernel) on ``touched | push_or(touched)``; prints latency, its
+             device split, the kernel's time, nodes recomputed, the share
+             of active windows and host syncs.  Checks: (a) the kernel ==
+             its plain version; (b) its active rows == ``sage_forward``'s
+             layer-1 neighbour sum; (c) the refreshed embeddings == a full
+             forward on ``affected_ever``; (d) inactive windows exactly 0;
+             (e) one launch per batch.  Then kernel cases at 0 %, ~5 %,
+             100 % and the batch's own active windows: kernel, plain and
+             cuSPARSE times, bytes bound, bitwise equality run to run.
+7. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
              launches on its serve path, max error and times; then, last,
              ``{"ok": true, "device": {...}}``.
 
 frontier_spmv is not deterministic (float atomics), so every comparison
 with its plain version is a tolerance: rtol 1e-4 / atol 1e-6 on f32 sums.
 walk_repair has no atomics and no float sums: it is compared bit for bit.
+gated_spmm sums in a fixed order, but not the plain version's: rtol 1e-4 /
+atol 1e-5 relative to the output's largest magnitude.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -76,6 +96,10 @@ BF16_RTOL, BF16_ATOL = 1e-2, 1e-2
 PPR_WALKS, PPR_LEN, PPR_SEEDS, PPR_MIN_DEG = 64, 16, 4, 8
 # kernel engine vs xla engine, L∞ over the largest rank (PERF.md, Findings)
 REL_LINF_LIMIT = 1e-6
+# the GNN phase: gated_spmm and the refresh against their plain versions,
+# the tolerance of tests/test_kernels.py held relative to the largest output
+GNN_RTOL, GNN_ATOL = 1e-4, 1e-5
+GNN_BATCHES = 3          # the GNN phase's batches (fewer if --batches is)
 
 
 class CheckFailed(RuntimeError):
@@ -692,6 +716,317 @@ def ppr_checks(args, torch, dev, edges, n, graph):
                 peak_bytes_stream=stream_peak, peak_bytes=peak)
 
 
+@contextlib.contextmanager
+def recording_syncs(torch):
+    """Yields a list that, after the block, holds one warning for each
+    synchronizing CUDA call torch made inside it
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+    syncs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield syncs
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs.extend(w for w in caught if "synchroniz" in str(w.message))
+
+
+def compare_rows(out, ref, rows=None, chunk=1 << 18):
+    """(max abs err, largest |ref|, elements out of tolerance) of ``out``
+    against ``ref`` on the rows where ``rows`` holds (all rows if None):
+    |out - ref| <= GNN_ATOL * largest |ref| + GNN_RTOL * |ref|.  Taken
+    ``chunk`` rows at a time, so no full-size temporary is made."""
+    def parts():
+        for s in range(0, ref.shape[0], chunk):
+            a, b = out[s:s + chunk], ref[s:s + chunk]
+            if rows is not None:
+                a, b = a[rows[s:s + chunk]], b[rows[s:s + chunk]]
+            if b.numel():
+                yield a, b
+    big = max((float(b.abs().max()) for _, b in parts()), default=0.0)
+    err, bad = 0.0, 0
+    for a, b in parts():
+        diff = (a - b).abs()
+        err = max(err, float(diff.max()))
+        bad += int((diff > GNN_ATOL * big + GNN_RTOL * b.abs()).sum())
+    return err, big, bad
+
+
+def zero_rows(out, rows, chunk=1 << 18) -> bool:
+    """True iff ``out`` is exactly 0 on the rows where ``rows`` holds."""
+    return all(bool((out[s:s + chunk][rows[s:s + chunk]] == 0).all())
+               for s in range(0, out.shape[0], chunk))
+
+
+def spmm_bound(torch, packed, awin, d):
+    """(bound_ms, bound_by, detail) for one gated segment-SpMM on these
+    inputs: 8 B of src/dst_rel for each live lane of an active entry, 4 B
+    of valid for each lane of an active entry, 4*D B for each distinct
+    source row those lanes read, entry_start and active_window once, and
+    the f32 [num_vertices, D] output written once."""
+    ne, be = packed.src.shape
+    nw, n = packed.num_windows, packed.num_vertices
+    entry_active = awin[packed.window.long()]
+    n_act = int(entry_active.sum())
+    live = (packed.valid > 0) & entry_active[:, None]
+    n_live = int(live.sum())
+    n_src = int(torch.unique(packed.src[live]).numel()) if n_live else 0
+    nbytes = (8 * n_live + 4 * be * n_act + 4 * d * n_src
+              + 4 * (nw + 1) + nw + 4 * d * n)
+    flops = 2 * d * n_live                       # scale by valid, add
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, dict(bytes=nbytes, flops=flops,
+                                         active_entries=n_act,
+                                         live_lanes=n_live,
+                                         distinct_sources=n_src)
+
+
+def library_spmm(torch, packed, awin):
+    """The same gated aggregation as one cuSPARSE call: a CSR matrix of the
+    active entries' live lanes (rows: dst, columns: src, values 1) times
+    X, built here, outside any timed region."""
+    vb, n = packed.vb, packed.num_vertices
+    live = (packed.valid > 0) & awin[packed.window.long()][:, None]
+    rows = (packed.window.long()[:, None] * vb + packed.dst_rel.long())[live]
+    cols = packed.src.long()[live]
+    a = torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                torch.ones_like(rows, dtype=torch.float32),
+                                (n, n)).coalesce().to_sparse_csr()
+    return lambda x: torch.sparse.mm(a, x)
+
+
+def spmm_cases(torch, packed, feats, gen, batch_awin, plain):
+    """gated_spmm at this shape, as phase 3 has frontier_spmv: windows
+    active at random at 0 %, ~5 % and 100 %, and the last batch's own
+    ``batch_awin``.  Each case is checked against the plain version
+    (``plain(packed, active_window)``), for exact zeros and for bitwise
+    equality run to run, then timed beside the plain version and one
+    cuSPARSE call, with its bytes bound."""
+    from repro_torch.kernels.segment_ops import segment_matmul as sm
+    n, d = packed.num_vertices, feats.shape[1]
+    cases = []
+    for tag, frac in (("0 %", 0.0), ("~5 %", 0.05), ("100 %", 1.0),
+                      ("batch", None)):
+        aw = batch_awin if frac is None else torch.rand(
+            packed.num_windows, generator=gen, device=feats.device) < frac
+        out = sm.gated_spmm(packed, feats, aw)
+        ref = plain(packed, aw)
+        err, _, bad = compare_rows(out, ref)
+        check(bad == 0, f"{tag}: kernel == plain (max abs err {err:.3e})")
+        check(zero_rows(out, ~aw.repeat_interleave(packed.vb)[:n]),
+              f"{tag}: inactive windows exactly 0")
+        check(torch.equal(sm.gated_spmm(packed, feats, aw), out),
+              f"{tag}: bitwise equal run to run")
+        del out
+        ms = time_ms(torch, lambda: sm.gated_spmm(packed, feats, aw),
+                     reps=5, warmup=1)
+        plain_ms = time_ms(torch, lambda: plain(packed, aw), reps=2,
+                           warmup=1)
+        bound_ms, bound_by, detail = spmm_bound(torch, packed, aw, d)
+        library_ms = None
+        try:
+            lib = library_spmm(torch, packed, aw)
+            lib_out = lib(feats)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            library_note = (f"torch.sparse.mm refused: "
+                            f"{str(e).splitlines()[0]}")
+        else:
+            lerr, _, bad = compare_rows(lib_out, ref)
+            del lib_out
+            if bad:
+                library_note = (f"cuSPARSE product disagrees with the plain "
+                                f"version (max abs err {lerr:.3e})")
+            else:
+                library_ms = time_ms(torch, lambda: lib(feats), reps=5,
+                                     warmup=1)
+                library_note = "cuSPARSE CSR SpMM (torch.sparse.mm)"
+            del lib
+        del ref
+        case = dict(case=tag, active_windows=int(aw.sum()), max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=library_ms,
+                    library_note=library_note, **detail)
+        cases.append(case)
+        print(f"  gated_spmm {tag}: kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"library_ms="
+              f"{'-' if library_ms is None else f'{library_ms:.4f}'} "
+              f"({library_note}) active_windows={case['active_windows']:,} "
+              f"live_lanes={detail['live_lanes']:,} distinct_sources="
+              f"{detail['distinct_sources']:,}", flush=True)
+    return cases
+
+
+def gnn_checks(args, torch, dev, edges, n, graph):
+    """Phase 6: incremental GraphSAGE refresh at graphsage-reddit width,
+    and gated_spmm on each batch's affected set."""
+    phase("6. GNN refresh at scale (gated_spmm)")
+    import numpy as np
+    from repro_torch.configs.graphsage_reddit import CONFIG
+    from repro_torch.core.incremental_gnn import incremental_refresh
+    from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
+        touched_vertices_mask
+    from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed, \
+        pack_graph
+    from repro_torch.kernels.segment_ops import segment_matmul as sm
+    from repro_torch.kernels.segment_ops.ops import aggregate_features
+    from repro_torch.kernels.segment_ops.ref import gated_spmm_ref
+    from repro_torch.models.gnn import GraphBatch, init_sage, neighbor_sum, \
+        sage_forward
+    from repro_torch.serve.engine import KERNEL_PACK_DEFAULTS
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    d = CONFIG.d_in
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    feats = torch.randn(n, d, generator=gen, device=dev)
+    params = init_sage(CONFIG, gen)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def layer_fn(g, x):
+        return sage_forward(CONFIG, params,
+                            GraphBatch(x, g.src, g.dst, g.valid, every))
+
+    t0 = time.perf_counter()
+    emb = layer_fn(graph, feats)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the serve engine's geometry and locator overlay (64 batches)
+    packed = pack_graph(graph, **KERNEL_PACK_DEFAULTS,
+                        overlay_capacity=64 * FLUSH)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    owned = packed.entry_start[1:] - packed.entry_start[:-1]
+    hub = int(torch.argmax(owned))
+    hub_live = int((packed.valid[int(packed.entry_start[hub]):
+                                 int(packed.entry_start[hub + 1])] > 0).sum())
+    print(f"  {CONFIG.name}: d_in={d} d_hidden={CONFIG.d_hidden} "
+          f"classes={CONFIG.n_classes} layers={CONFIG.n_layers}; features "
+          f"f32[{n:,}, {d}] = {feats.numel() * 4 / 1e9:.2f} GB")
+    print(f"  bootstrap forward {fwd_s:.2f} s, embeddings "
+          f"{tuple(emb.shape)}; pack {pack_s:.2f} s: "
+          f"NE={packed.num_entries:,} NW={packed.num_windows:,} "
+          f"BE={packed.be} VB={packed.vb}; largest window {hub} owns "
+          f"{int(owned[hub]):,} entries ({hub_live:,} live lanes; mean "
+          f"{packed.num_entries / packed.num_windows:.1f} entries)",
+          flush=True)
+
+    def plain(p, aw):
+        return gated_spmm_ref(p.src, p.dst_rel, p.valid, p.window, feats,
+                              aw, p.num_vertices, p.vb)
+
+    feed = make_feed(args, edges, n)[:GNN_BATCHES]
+    rows, max_err = [], 0.0
+    sm.LAUNCH_COUNTS.clear()                  # counts of this run only
+    for b, events in enumerate(feed):
+        dele = np.asarray([(u, v) for k, u, v in events if k == "delete"],
+                          np.int32).reshape(-1, 2)
+        ins = np.asarray([(u, v) for k, u, v in events if k == "insert"],
+                         np.int32).reshape(-1, 2)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        with recording_syncs(torch) as syncs:
+            t0 = time.perf_counter()
+            ev[0].record()
+            upd = make_batch_update(dele, ins, FLUSH, FLUSH, device=dev)
+            graph2 = apply_batch(graph, upd)
+            ev[1].record()
+            packed2 = apply_batch_packed(packed, upd)
+            ev[2].record()
+            touched = touched_vertices_mask(upd, n)
+            res = incremental_refresh(graph2, feats, emb, touched,
+                                      layer_fn=layer_fn,
+                                      n_layers=CONFIG.n_layers)
+            affected = touched | graph2.push_or(touched)
+            ev[3].record()
+            agg = aggregate_features(packed2, feats, affected)
+            ev[4].record()
+            recomputed = int(res.nodes_recomputed)   # the batch's read
+            latency_ms = (time.perf_counter() - t0) * 1e3
+        if b == 0:                     # where the first batch's syncs are
+            sites = collections.Counter(
+                f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                for w in syncs)
+            print(f"  [gnn] batch 0 host syncs by call site: "
+                  f"{dict(sites.most_common())}")
+        split = [a.elapsed_time(z) for a, z in zip(ev[:-1], ev[1:])]
+        awin = packed2.active_windows(affected)
+        vmask = awin.repeat_interleave(packed2.vb)[:n]
+        ever = int(res.affected_ever.sum())
+        row = dict(batch=b, latency_ms=latency_ms, kernel_ms=split[3],
+                   update_ms=split[0], packed_update_ms=split[1],
+                   refresh_ms=split[2], nodes_recomputed=recomputed,
+                   affected_ever=ever, affected=int(affected.sum()),
+                   active_windows=int(awin.sum()),
+                   active_share=float(awin.float().mean()),
+                   host_syncs=len(syncs))
+        print(f"  [gnn] batch {b}: latency_ms={latency_ms:.2f} "
+              f"(update {split[0]:.2f}, packed {split[1]:.2f}, refresh "
+              f"{split[2]:.2f}, gated_spmm {split[3]:.3f} ms device) "
+              f"nodes_recomputed={recomputed:,} affected_ever={ever:,} "
+              f"kernel affected={row['affected']:,} active windows "
+              f"{row['active_windows']:,}/{packed2.num_windows:,} "
+              f"({100 * row['active_share']:.1f} %) host_syncs={len(syncs)}",
+              flush=True)
+        # (a) the kernel against its plain version on the same inputs
+        ref = plain(packed2, awin)
+        err, big, bad = compare_rows(agg, ref)
+        max_err = max(max_err, err)
+        del ref
+        check(bad == 0, f"[gnn] batch {b}: (a) kernel == plain (max abs err "
+              f"{err:.3e}, largest {big:.3e})")
+        # (b) its active rows against sage_forward's layer-1 neighbour sum
+        nsum = neighbor_sum(feats, graph2.src, graph2.dst, graph2.valid, n)
+        err_b, big_b, bad = compare_rows(agg, nsum, vmask)
+        del nsum
+        check(bad == 0, f"[gnn] batch {b}: (b) kernel == layer-1 neighbour "
+              f"sum on active windows (max abs err {err_b:.3e}, largest "
+              f"{big_b:.3e})")
+        # (c) the refreshed embeddings against a full forward, where
+        # refreshed
+        exact = layer_fn(graph2, feats)
+        err_c, big_c, bad = compare_rows(res.embeddings, exact,
+                                         res.affected_ever)
+        stale = float((res.embeddings - exact).abs().max())
+        check(bad == 0, f"[gnn] batch {b}: (c) refreshed embeddings == full "
+              f"forward on affected_ever (max abs err {err_c:.3e}, largest "
+              f"{big_c:.3e}; elsewhere stale by up to {stale:.3e})")
+        # (d) inactive windows exactly 0
+        check(zero_rows(agg, ~vmask),
+              f"[gnn] batch {b}: (d) inactive windows exactly 0")
+        row.update(err_plain=err, err_neighbor_sum=err_b,
+                   err_refresh=err_c, stale_elsewhere=stale)
+        rows.append(row)
+        del agg, exact
+        graph, packed, emb = graph2, packed2, res.embeddings
+        del res, graph2, packed2
+    launches = sm.LAUNCH_COUNTS["gated_spmm"]   # read right after the run
+    stream_peak = torch.cuda.max_memory_allocated()
+    check(launches == len(feed) and launches > 0,
+          f"[gnn] (e) gated_spmm launched {launches} times for "
+          f"{len(feed)} calls")
+
+    cases = spmm_cases(torch, packed, feats, gen, awin, plain)
+    max_err = max([max_err] + [c["max_abs_err"] for c in cases])
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    print(f"  peak device memory: {stream_peak / 2**30:.2f} GiB in the "
+          f"stream, {peak / 2**30:.2f} GiB in the phase; phase "
+          f"{phase_s:.1f} s")
+    return dict(forward_s=fwd_s, pack_s=pack_s, hub_window=hub,
+                hub_entries=int(owned[hub]), hub_live_lanes=hub_live,
+                rows=rows, launches=launches, max_abs_err=max_err,
+                cases=cases, peak_bytes_stream=stream_peak,
+                peak_bytes=peak, phase_s=phase_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=5)
@@ -725,8 +1060,10 @@ def main(argv=None) -> int:
     serve = serve_checks(args, torch, dev, edges, n, graph)
     torch.cuda.empty_cache()              # phase 4's engines are gone
     ppr = ppr_checks(args, torch, dev, edges, n, graph)
+    torch.cuda.empty_cache()              # phase 5's walk index is gone
+    gnn = gnn_checks(args, torch, dev, edges, n, graph)
 
-    phase("6. summary")
+    phase("7. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -746,6 +1083,15 @@ def main(argv=None) -> int:
         plain_ms=ppr["kernel"]["plain_ms"],
         bound_ms=ppr["kernel"]["bound_ms"],
         bound_by=ppr["kernel"]["bound_by"], library_ms=None)]
+    gnn_case = next(c for c in gnn["cases"] if c["case"] == "batch")
+    kernels.append(dict(
+        name="gated_spmm", route="cuda",
+        source="src/repro_torch/kernels/segment_ops/csrc/gated_spmm.cu",
+        replaces="src/repro/kernels/segment_ops/segment_matmul.py:55",
+        launches=gnn["launches"], max_abs_err=gnn["max_abs_err"],
+        ms=gnn_case["ms"], plain_ms=gnn_case["plain_ms"],
+        bound_ms=gnn_case["bound_ms"], bound_by=gnn_case["bound_by"],
+        library_ms=gnn_case["library_ms"]))
     wall = time.perf_counter() - t_start
     print(f"  wall {wall:.1f} s; card: {smi}")
     if args.out:
@@ -757,6 +1103,7 @@ def main(argv=None) -> int:
                                           log=v["log"])
                                   for k, v in builds.items()},
                            spmv_cases=cases, serve=serve, ppr=ppr,
+                           gnn=gnn,
                            kernels=kernels,
                            wall_s=wall), f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

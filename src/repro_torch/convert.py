@@ -1,7 +1,8 @@
 """NumPy arrays → the port's structures.
 
-This system has no weights; its state is the graph, the packed structure,
-the update batch, the ranks and the PPR walk index.  These functions build each of them from
+The rank service has no weights; its state is the graph, the packed
+structure, the update batch, the ranks and the PPR walk index.  The GNN
+refresh adds GraphSAGE parameters.  These functions build each of them from
 plain NumPy arrays and ints (for example arrays read out of the JAX
 package with ``np.asarray``), so two implementations can be handed the
 same state.  Arrays are copied to ``device`` with their dtypes fixed to
@@ -16,6 +17,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.dynamic import BatchUpdate
 from repro_torch.graph.structure import CSRView, EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import PackedGraph
+from repro_torch.models.gnn import SAGE
 from repro_torch.ppr.walks import WalkIndex
 
 
@@ -87,3 +89,11 @@ def walk_index_from_numpy(steps, indptr, indices, deg, key, num_walks: int,
                     deg=_t(deg, np.int32, device)),
         key=(int(k[0]), int(k[1])), num_walks=int(num_walks),
         max_len=int(max_len), alpha=float(alpha))
+
+
+def sage_params_from_numpy(params, device: DeviceLike = None) -> SAGE:
+    """GraphSAGE parameters from the reference's ``init_sage`` pytree: one
+    ``dict(w_self=(w, b), w_neigh=(w, b))`` of arrays per layer."""
+    device = resolve_device(device)
+    return SAGE([{k: tuple(_t(a, np.float32, device) for a in lp[k])
+                  for k in ("w_self", "w_neigh")} for lp in params])

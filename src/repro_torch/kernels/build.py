@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA kernels with ``nvcc``, load them with ctypes, and
+check the tensors a wrapper hands to one.
 
 Each kernel is one ``.cu`` file with a plain C interface, compiled for
 Hopper (``sm_90a``) into its own shared library under ``repro_torch/_build/``
@@ -21,12 +22,15 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parent / "_build"
 SOURCES = {
     "frontier_spmv": _KERNELS_DIR / "pagerank_spmv" / "csrc"
     / "frontier_spmv.cu",
     "walk_repair": _KERNELS_DIR / "walk_repair" / "csrc" / "walk_repair.cu",
+    "gated_spmm": _KERNELS_DIR / "segment_ops" / "csrc" / "gated_spmm.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -103,3 +107,20 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]["path"]))
             _LIBS[name] = lib
         return lib
+
+
+def check_arg(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
+              shape, device: torch.device) -> None:
+    """Raise unless ``t`` has the dtype, shape and device a kernel's raw
+    pointer needs, and is contiguous (``TypeError`` for the dtype,
+    ``ValueError`` for the rest)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} must have shape "
+                         f"{tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                         f"{device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")

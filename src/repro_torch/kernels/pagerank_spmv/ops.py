@@ -17,11 +17,6 @@ __all__ = ["PackedGraph", "pack_blocks", "gated_contrib", "DEFAULT_BE",
            "DEFAULT_VB"]
 
 
-def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x if x.shape[0] == n else torch.cat(
-        [x, x.new_zeros(n - x.shape[0])])
-
-
 def gated_contrib(packed: PackedGraph, ranks: torch.Tensor,
                   inv_deg: torch.Tensor,
                   affected: Optional[torch.Tensor] = None, *,
@@ -34,12 +29,10 @@ def gated_contrib(packed: PackedGraph, ranks: torch.Tensor,
     ``active_window`` plus pre-padded ``ranks``/``inv_deg`` (length
     NW*VB) and ``pad_out=True``.
     """
-    nw, vb = packed.num_windows, packed.vb
-    v_pad = nw * vb
     if active_window is None:
         if affected is None:
             raise ValueError("need affected or active_window")
-        active_window = _pad(affected, v_pad).reshape(nw, vb).any(dim=1)
+        active_window = packed.active_windows(affected)
     # frontier_spmv_padded zero-pads a short rsc itself
     rsc = (ranks * inv_deg).to(torch.float32)
     out = frontier_spmv_padded(packed, rsc, active_window)

@@ -21,11 +21,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
 
 DEFAULT_BE = 2048     # edges per entry (paper's OpenMP chunk size)
@@ -80,6 +82,15 @@ class PackedGraph:
     @property
     def device(self) -> torch.device:
         return self.src.device
+
+    def active_windows(self, affected: torch.Tensor) -> torch.Tensor:
+        """bool[NW]: the windows that hold any ``affected`` vertex
+        (``affected``: bool[num_vertices] or bool[NW*VB])."""
+        nw, vb = self.num_windows, self.vb
+        if affected.shape[0] < nw * vb:
+            affected = torch.cat([affected, affected.new_zeros(
+                nw * vb - affected.shape[0])])
+        return affected.reshape(nw, vb).any(dim=1)
 
     def to(self, device) -> "PackedGraph":
         """The same structure with every tensor on ``device``."""
@@ -182,6 +193,7 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
              + [ctypes.c_int, ctypes.c_void_p]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _MAX_VB = 12 * 1024      # VB f32 accumulators fit the default 48 KB smem
+_check = functools.partial(check_arg, "frontier_spmv")
 
 
 def _kernel_lib():
@@ -191,20 +203,6 @@ def _kernel_lib():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"frontier_spmv: {name} must be {dtype}, "
-                        f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"frontier_spmv: {name} must have shape "
-                         f"{tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"frontier_spmv: {name} is on {t.device}, "
-                         f"expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"frontier_spmv: {name} must be contiguous")
 
 
 def _launch_kernel(packed: PackedGraph, rsc: torch.Tensor,

@@ -16,16 +16,19 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.graph.structure import CSRView
+from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.walk_repair.ref import resample_rows_ref
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
              + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+_check = functools.partial(check_arg, "walk_repair")
 
 
 def _kernel_fn():
@@ -34,19 +37,6 @@ def _kernel_fn():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"walk_repair: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"walk_repair: {name} must have shape "
-                         f"{tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"walk_repair: {name} is on {t.device}, expected "
-                         f"{device}")
-    if not t.is_contiguous():
-        raise ValueError(f"walk_repair: {name} must be contiguous")
 
 
 def _launch_kernel(csr: CSRView, rows: torch.Tensor, t0: torch.Tensor,

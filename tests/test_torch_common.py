@@ -97,6 +97,9 @@ def _entry_points():
             np.zeros((4, 1, 2)), np.zeros(5), np.zeros(2), np.zeros(4),
             (0, 0), 1, 2, 0.85),
         "launch.serve": lambda: serve_main(["--events", "10"]),
+        "sage_params_from_numpy": lambda: convert.sage_params_from_numpy(
+            [dict(w_self=(np.ones((2, 2)), np.zeros(2)),
+                  w_neigh=(np.ones((2, 2)), np.zeros(2)))]),
     }
 
 

@@ -8,8 +8,13 @@ only the port, torch and numpy, so it also runs on a machine without JAX:
 The SpMV kernel uses float atomics, so it is held to the plain version
 at rtol 1e-4 / atol 1e-6 (f32 summation order), never bitwise.  The
 walk-repair kernel has no atomics and no float sums: it is held to its
-plain version bit for bit.
+plain version bit for bit.  The segment-SpMM kernel sums in a fixed order
+(bitwise equal from run to run) but not in the order of the plain
+version's CUDA ``index_add_``: rtol 1e-4 / atol 1e-5 times the output's
+largest magnitude.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +25,9 @@ from repro_torch.graph.generators import random_batch_update, rmat_edges
 from repro_torch.graph.structure import from_coo
 from repro_torch.kernels.pagerank_spmv import pagerank_spmv as spmv
 from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
+from repro_torch.kernels.segment_ops import segment_matmul as sm
+from repro_torch.kernels.segment_ops.ops import aggregate_features
+from repro_torch.kernels.segment_ops.ref import gated_spmm_ref
 from repro_torch.kernels.walk_repair import walk_repair as wr
 from repro_torch.kernels.walk_repair.ref import resample_rows_ref
 from repro_torch.ppr import IndexConfig, build_walk_index
@@ -185,3 +193,130 @@ def test_serve_engine_keeps_walk_index_on_card(cuda):
     assert eng.metrics.walks_resampled > 0
     fresh = build_walk_index(snap.graph, cfg)
     assert torch.equal(snap.ppr_index.steps, fresh.steps)
+
+
+# ---------------------------------------------------------------------------
+# gated segment-SpMM (GNN aggregation)
+# ---------------------------------------------------------------------------
+
+def _spmm_inputs(dev, d, frac, seed=11, vb=256):
+    packed = _packed(dev, vb=vb, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    feats = torch.randn(packed.num_vertices, d, generator=gen, device=dev)
+    awin = torch.rand(packed.num_windows, generator=gen, device=dev) < frac
+    return packed, feats, awin
+
+
+def _spmm_plain(packed, feats, awin):
+    return gated_spmm_ref(packed.src, packed.dst_rel, packed.valid,
+                          packed.window, feats, awin, packed.num_vertices,
+                          packed.vb)
+
+
+def _assert_spmm_close(out, ref):
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("d", [16, 130, 602])
+@pytest.mark.parametrize("frac", [0.0, 0.05, 1.0])
+def test_gated_spmm_kernel_matches_plain(cuda, frac, d):
+    packed, feats, awin = _spmm_inputs(cuda, d, frac)
+    before = sm.LAUNCH_COUNTS["gated_spmm"]
+    out = sm.gated_spmm(packed, feats, awin)
+    torch.cuda.synchronize()
+    assert sm.LAUNCH_COUNTS["gated_spmm"] == before + 1
+    assert out.shape == (packed.num_vertices, d)
+    _assert_spmm_close(out, _spmm_plain(packed, feats, awin))
+    inactive = ~awin.repeat_interleave(packed.vb)[:packed.num_vertices]
+    assert bool((out[inactive] == 0).all())
+
+
+def test_gated_spmm_kernel_is_deterministic(cuda):
+    packed, feats, awin = _spmm_inputs(cuda, 130, 1.0)
+    first = sm.gated_spmm(packed, feats, awin)
+    for _ in range(3):
+        assert torch.equal(sm.gated_spmm(packed, feats, awin), first)
+
+
+def test_gated_spmm_kernel_empty_graph_is_zero(cuda):
+    none = np.zeros(0, np.int32)
+    packed = spmv.pack_blocks(none, none, none.astype(bool), 1000, be=128,
+                              vb=256, device=cuda)
+    out = aggregate_features(packed, torch.ones(1000, 37, device=cuda),
+                             torch.ones(1000, dtype=torch.bool, device=cuda))
+    torch.cuda.synchronize()
+    assert out.shape == (1000, 37) and float(out.abs().max()) == 0.0
+
+
+def test_gated_spmm_kernel_hub_window(cuda):
+    # every vertex points at vertex 3: window 0 owns 64 entries of 128 lanes
+    n = 8192
+    rng = np.random.default_rng(0)
+    other = rng.integers(0, n, size=(20000, 2))
+    src = np.concatenate([np.arange(4, n), other[:, 0]])
+    dst = np.concatenate([np.full(n - 4, 3), other[:, 1]])
+    packed = spmv.pack_blocks(src, dst, np.ones(len(src), bool), n, be=128,
+                              vb=256, device=cuda)
+    assert packed.max_entries_per_window >= 64
+    feats = torch.randn(n, 130, device=cuda)
+    awin = torch.ones(packed.num_windows, dtype=torch.bool, device=cuda)
+    out = sm.gated_spmm(packed, feats, awin)
+    _assert_spmm_close(out, _spmm_plain(packed, feats, awin))
+
+
+def test_gated_spmm_wrapper_checks_inputs(cuda):
+    packed, feats, awin = _spmm_inputs(cuda, 16, 1.0)
+    with pytest.raises(ValueError, match="feats must be contiguous"):
+        sm.gated_spmm(packed, feats.t().contiguous().t(), awin)
+    with pytest.raises(ValueError, match="active_window must have shape"):
+        sm.gated_spmm(packed, feats, awin[:-1])
+    with pytest.raises(TypeError, match="active_window must be torch.bool"):
+        sm.gated_spmm(packed, feats, awin.int())
+    with pytest.raises(ValueError, match="src is on cpu"):
+        sm.gated_spmm(dataclasses.replace(packed, src=packed.src.cpu()),
+                      feats, awin)
+    wide = _packed(cuda, vb=1024)
+    with pytest.raises(ValueError, match="vb 1024 outside"):
+        sm.gated_spmm(wide, torch.ones(wide.num_vertices, 4, device=cuda),
+                      torch.ones(wide.num_windows, dtype=torch.bool,
+                                 device=cuda))
+
+
+def test_gnn_refresh_on_card(cuda):
+    from repro_torch.configs.graphsage_reddit import SMOKE as cfg
+    from repro_torch.core.incremental_gnn import incremental_refresh
+    from repro_torch.models.gnn import GraphBatch, init_sage, sage_forward
+    edges, n = rmat_edges(10, 8, seed=3)
+    dele, ins = random_batch_update(edges, n, 64, seed=4)
+    feats = np.random.default_rng(5).standard_normal(
+        (n, cfg.d_in)).astype(np.float32)
+    params = init_sage(cfg, torch.Generator().manual_seed(0))
+    old = {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        x = torch.from_numpy(feats).to(dev)
+
+        def fwd(g, h):
+            return sage_forward(cfg, p, GraphBatch(
+                h, g.src, g.dst, g.valid,
+                torch.ones(n, dtype=torch.bool, device=dev)))
+        graph = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+        old[str(dev)] = fwd(graph, x)
+    # the forward on the card against the CPU's
+    scale = float(old["cpu"].abs().max())
+    torch.testing.assert_close(old[str(cuda)].cpu(), old["cpu"], rtol=1e-4,
+                               atol=1e-5 * scale)
+    # the refresh on the card: exact on what it refreshed, work skipped
+    upd = make_batch_update(dele, ins, 64, 64, device=cuda)
+    graph2 = apply_batch(graph, upd)
+    res = incremental_refresh(graph2, x, old[str(cuda)],
+                              touched_vertices_mask(upd, n), layer_fn=fwd,
+                              n_layers=cfg.n_layers)
+    full = fwd(graph2, x)
+    ever = res.affected_ever
+    torch.testing.assert_close(res.embeddings[ever], full[ever], rtol=1e-4,
+                               atol=1e-5 * scale)
+    assert res.nodes_recomputed.device.type == "cuda"
+    assert 0 < int(res.nodes_recomputed) < n
