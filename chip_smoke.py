@@ -4,6 +4,11 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--batches 5] [--out FILE] [--profile]
+    python3 chip_smoke.py --gnn-kernels-only [--out FILE]
+
+The second form runs only the set-up (build, device, graph) and phase 6's
+gated_spmm kernel cases, on the first batch's packed graph, and prints no
+summary: the quick loop for work on that kernel.
 
 It exits non-zero on the first failed check; no failure is passed over.
 
@@ -57,8 +62,11 @@ It exits non-zero on the first failed check; no failure is passed over.
              layer-1 neighbour sum; (c) the refreshed embeddings == a full
              forward on ``affected_ever``; (d) inactive windows exactly 0;
              (e) one launch per batch.  Then kernel cases at 0 %, ~5 %,
-             100 % and the batch's own active windows: kernel, plain and
-             cuSPARSE times, bytes bound, bitwise equality run to run.
+             100 %, the batch's own active windows, only the widest
+             window (``hub``) and all but it (``rest``): kernel, plain and
+             cuSPARSE times, bytes bound, bitwise equality run to run;
+             and the kernel's K, scratch, shared memory, blocks a SM and
+             registers.
 7. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
              launches on its serve path, max error and times; then, last,
              ``{"ok": true, "device": {...}}``.
@@ -782,7 +790,8 @@ def spmm_bound(torch, packed, awin, d):
     return max(t_bytes, t_ops), by, dict(bytes=nbytes, flops=flops,
                                          active_entries=n_act,
                                          live_lanes=n_live,
-                                         distinct_sources=n_src)
+                                         distinct_sources=n_src,
+                                         gathered_bytes=4 * d * n_live)
 
 
 def library_spmm(torch, packed, awin):
@@ -799,20 +808,50 @@ def library_spmm(torch, packed, awin):
     return lambda x: torch.sparse.mm(a, x)
 
 
+def widest_window(torch, packed):
+    """(window id, entries, live lanes) of the window owning most entries."""
+    owned = packed.entry_start[1:] - packed.entry_start[:-1]
+    hub = int(torch.argmax(owned))
+    e0, e1 = int(packed.entry_start[hub]), int(packed.entry_start[hub + 1])
+    return hub, e1 - e0, int((packed.valid[e0:e1] > 0).sum())
+
+
+def spmm_info(packed, d):
+    """Prints and returns what gated_spmm holds on the card at this shape:
+    K, the scratch bytes (allocated and used), shared memory a block,
+    blocks a SM, registers."""
+    from repro_torch.kernels.segment_ops import segment_matmul as sm
+    info = sm.kernel_info(packed, d)
+    print(f"  gated_spmm: K={info['chunk_entries']} entries a chunk, scratch "
+          f"{info['scratch_bytes']:,} B ({info['scratch_bytes_used']:,} B "
+          f"used by the split windows), shared memory "
+          f"{info['smem_per_block']:,} B a block, {info['blocks_per_sm']} "
+          f"blocks a SM, {info['registers']} registers a thread, "
+          f"{info['lanes_in_flight']} lanes in flight a warp, up to "
+          f"{info['inflight_bytes_per_sm']:,} B of X in flight a SM",
+          flush=True)
+    return info
+
+
 def spmm_cases(torch, packed, feats, gen, batch_awin, plain):
     """gated_spmm at this shape, as phase 3 has frontier_spmv: windows
-    active at random at 0 %, ~5 % and 100 %, and the last batch's own
-    ``batch_awin``.  Each case is checked against the plain version
+    active at random at 0 %, ~5 % and 100 %, the last batch's own
+    ``batch_awin``, only the widest window (``hub``) and every window but
+    it (``rest``).  Each case is checked against the plain version
     (``plain(packed, active_window)``), for exact zeros and for bitwise
     equality run to run, then timed beside the plain version and one
     cuSPARSE call, with its bytes bound."""
     from repro_torch.kernels.segment_ops import segment_matmul as sm
-    n, d = packed.num_vertices, feats.shape[1]
+    n, d, nw = packed.num_vertices, feats.shape[1], packed.num_windows
+    hub, _, _ = widest_window(torch, packed)
+    only_hub = torch.arange(nw, device=feats.device) == hub
     cases = []
     for tag, frac in (("0 %", 0.0), ("~5 %", 0.05), ("100 %", 1.0),
-                      ("batch", None)):
-        aw = batch_awin if frac is None else torch.rand(
-            packed.num_windows, generator=gen, device=feats.device) < frac
+                      ("batch", None), ("hub", None), ("rest", None)):
+        aw = {"batch": batch_awin, "hub": only_hub,
+              "rest": ~only_hub}.get(tag)
+        if aw is None:
+            aw = torch.rand(nw, generator=gen, device=feats.device) < frac
         out = sm.gated_spmm(packed, feats, aw)
         ref = plain(packed, aw)
         err, _, bad = compare_rows(out, ref)
@@ -858,31 +897,21 @@ def spmm_cases(torch, packed, feats, gen, batch_awin, plain):
               f"{'-' if library_ms is None else f'{library_ms:.4f}'} "
               f"({library_note}) active_windows={case['active_windows']:,} "
               f"live_lanes={detail['live_lanes']:,} distinct_sources="
-              f"{detail['distinct_sources']:,}", flush=True)
+              f"{detail['distinct_sources']:,} bytes={detail['bytes']:,} "
+              f"gathered_bytes={detail['gathered_bytes']:,}", flush=True)
     return cases
 
 
-def gnn_checks(args, torch, dev, edges, n, graph):
-    """Phase 6: incremental GraphSAGE refresh at graphsage-reddit width,
-    and gated_spmm on each batch's affected set."""
-    phase("6. GNN refresh at scale (gated_spmm)")
-    import numpy as np
+def gnn_setup(torch, dev, graph, n, forward=True):
+    """Phase 6's inputs: graphsage-reddit features and parameters from the
+    seed, the bootstrap forward (if ``forward``) and the packed graph at
+    the serve engine's geometry and overlay."""
     from repro_torch.configs.graphsage_reddit import CONFIG
-    from repro_torch.core.incremental_gnn import incremental_refresh
-    from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
-        touched_vertices_mask
-    from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed, \
-        pack_graph
-    from repro_torch.kernels.segment_ops import segment_matmul as sm
-    from repro_torch.kernels.segment_ops.ops import aggregate_features
+    from repro_torch.kernels.pagerank_spmv.update import pack_graph
     from repro_torch.kernels.segment_ops.ref import gated_spmm_ref
-    from repro_torch.models.gnn import GraphBatch, init_sage, neighbor_sum, \
-        sage_forward
+    from repro_torch.models.gnn import GraphBatch, init_sage, sage_forward
     from repro_torch.serve.engine import KERNEL_PACK_DEFAULTS
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t_phase = time.perf_counter()
     d = CONFIG.d_in
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -894,34 +923,58 @@ def gnn_checks(args, torch, dev, edges, n, graph):
         return sage_forward(CONFIG, params,
                             GraphBatch(x, g.src, g.dst, g.valid, every))
 
-    t0 = time.perf_counter()
-    emb = layer_fn(graph, feats)
-    torch.cuda.synchronize()
-    fwd_s = time.perf_counter() - t0
+    def plain(p, aw):
+        return gated_spmm_ref(p.src, p.dst_rel, p.valid, p.window, feats,
+                              aw, p.num_vertices, p.vb)
+
+    emb, fwd_s = None, 0.0
+    if forward:
+        t0 = time.perf_counter()
+        emb = layer_fn(graph, feats)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     # the serve engine's geometry and locator overlay (64 batches)
     packed = pack_graph(graph, **KERNEL_PACK_DEFAULTS,
                         overlay_capacity=64 * FLUSH)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
-    owned = packed.entry_start[1:] - packed.entry_start[:-1]
-    hub = int(torch.argmax(owned))
-    hub_live = int((packed.valid[int(packed.entry_start[hub]):
-                                 int(packed.entry_start[hub + 1])] > 0).sum())
+    hub, hub_entries, hub_live = widest_window(torch, packed)
     print(f"  {CONFIG.name}: d_in={d} d_hidden={CONFIG.d_hidden} "
           f"classes={CONFIG.n_classes} layers={CONFIG.n_layers}; features "
           f"f32[{n:,}, {d}] = {feats.numel() * 4 / 1e9:.2f} GB")
-    print(f"  bootstrap forward {fwd_s:.2f} s, embeddings "
-          f"{tuple(emb.shape)}; pack {pack_s:.2f} s: "
+    print(f"  bootstrap forward {fwd_s:.2f} s; pack {pack_s:.2f} s: "
           f"NE={packed.num_entries:,} NW={packed.num_windows:,} "
           f"BE={packed.be} VB={packed.vb}; largest window {hub} owns "
-          f"{int(owned[hub]):,} entries ({hub_live:,} live lanes; mean "
+          f"{hub_entries:,} entries ({hub_live:,} live lanes; mean "
           f"{packed.num_entries / packed.num_windows:.1f} entries)",
           flush=True)
+    return dict(config=CONFIG, feats=feats, gen=gen, layer_fn=layer_fn,
+                plain=plain, emb=emb, packed=packed, forward_s=fwd_s,
+                pack_s=pack_s, hub_window=hub, hub_entries=hub_entries,
+                hub_live_lanes=hub_live)
 
-    def plain(p, aw):
-        return gated_spmm_ref(p.src, p.dst_rel, p.valid, p.window, feats,
-                              aw, p.num_vertices, p.vb)
+
+def gnn_checks(args, torch, dev, edges, n, graph):
+    """Phase 6: incremental GraphSAGE refresh at graphsage-reddit width,
+    and gated_spmm on each batch's affected set."""
+    phase("6. GNN refresh at scale (gated_spmm)")
+    import numpy as np
+    from repro_torch.core.incremental_gnn import incremental_refresh
+    from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
+        touched_vertices_mask
+    from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed
+    from repro_torch.kernels.segment_ops import segment_matmul as sm
+    from repro_torch.kernels.segment_ops.ops import aggregate_features
+    from repro_torch.models.gnn import neighbor_sum
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    setup = gnn_setup(torch, dev, graph, n)
+    cfg, feats, gen = setup["config"], setup["feats"], setup["gen"]
+    layer_fn, plain = setup["layer_fn"], setup["plain"]
+    emb, packed = setup["emb"], setup["packed"]
 
     feed = make_feed(args, edges, n)[:GNN_BATCHES]
     rows, max_err = [], 0.0
@@ -943,7 +996,7 @@ def gnn_checks(args, torch, dev, edges, n, graph):
             touched = touched_vertices_mask(upd, n)
             res = incremental_refresh(graph2, feats, emb, touched,
                                       layer_fn=layer_fn,
-                                      n_layers=CONFIG.n_layers)
+                                      n_layers=cfg.n_layers)
             affected = touched | graph2.push_or(touched)
             ev[3].record()
             agg = aggregate_features(packed2, feats, affected)
@@ -1013,6 +1066,7 @@ def gnn_checks(args, torch, dev, edges, n, graph):
           f"[gnn] (e) gated_spmm launched {launches} times for "
           f"{len(feed)} calls")
 
+    info = spmm_info(packed, feats.shape[1])
     cases = spmm_cases(torch, packed, feats, gen, awin, plain)
     max_err = max([max_err] + [c["max_abs_err"] for c in cases])
     peak = torch.cuda.max_memory_allocated()
@@ -1020,11 +1074,49 @@ def gnn_checks(args, torch, dev, edges, n, graph):
     print(f"  peak device memory: {stream_peak / 2**30:.2f} GiB in the "
           f"stream, {peak / 2**30:.2f} GiB in the phase; phase "
           f"{phase_s:.1f} s")
-    return dict(forward_s=fwd_s, pack_s=pack_s, hub_window=hub,
-                hub_entries=int(owned[hub]), hub_live_lanes=hub_live,
-                rows=rows, launches=launches, max_abs_err=max_err,
-                cases=cases, peak_bytes_stream=stream_peak,
-                peak_bytes=peak, phase_s=phase_s)
+    return dict(**{k: setup[k] for k in (
+        "forward_s", "pack_s", "hub_window", "hub_entries",
+        "hub_live_lanes")}, spmm=info, rows=rows, launches=launches,
+        max_abs_err=max_err, cases=cases, peak_bytes_stream=stream_peak,
+        peak_bytes=peak, phase_s=phase_s)
+
+
+def gnn_kernel_cases(args, torch, dev, edges, n, graph):
+    """``--gnn-kernels-only``: phase 6's set-up and its gated_spmm cases,
+    the ``batch`` case on the first batch's affected set, with no stream
+    and no refresh (for iterating on the kernel)."""
+    phase("6. gated_spmm kernel cases only")
+    from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
+        touched_vertices_mask
+    from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed
+    import numpy as np
+    setup = gnn_setup(torch, dev, graph, n, forward=False)
+    events = make_feed(args, edges, n)[0]
+    pairs = {k: np.asarray([(u, v) for kind, u, v in events if kind == k],
+                           np.int32).reshape(-1, 2)
+             for k in ("delete", "insert")}
+    upd = make_batch_update(pairs["delete"], pairs["insert"], FLUSH, FLUSH,
+                            device=dev)
+    graph2 = apply_batch(graph, upd)
+    packed = apply_batch_packed(setup["packed"], upd)
+    touched = touched_vertices_mask(upd, n)
+    awin = packed.active_windows(touched | graph2.push_or(touched))
+    del graph2
+    info = spmm_info(packed, setup["feats"].shape[1])
+    cases = spmm_cases(torch, packed, setup["feats"], setup["gen"], awin,
+                       setup["plain"])
+    return dict(**{k: setup[k] for k in (
+        "pack_s", "hub_window", "hub_entries", "hub_live_lanes")},
+        spmm=info, cases=cases)
+
+
+def write_out(args, record) -> None:
+    """``--out FILE``: every measurement of the run as JSON."""
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(record, f, indent=1, default=str)
 
 
 def main(argv=None) -> int:
@@ -1036,6 +1128,10 @@ def main(argv=None) -> int:
                     help="trace the last serve step of each engine and of "
                          "the PPR phase with torch.profiler (its latency "
                          "then includes the tracing)")
+    ap.add_argument("--gnn-kernels-only", action="store_true",
+                    help="run only the set-up and phase 6's gated_spmm "
+                         "kernel cases; prints their JSON last and no "
+                         "summary")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1056,6 +1152,13 @@ def main(argv=None) -> int:
     name, smi = device_info(torch)
     phase("setup: graph")
     edges, n, graph = make_graph(torch, dev)
+    if args.gnn_kernels_only:
+        only = gnn_kernel_cases(args, torch, dev, edges, n, graph)
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             gnn=only))
+        print(json.dumps({"gnn_cases": only["cases"]}))
+        return 0
     cases, max_err = kernel_checks(torch, dev, graph)
     serve = serve_checks(args, torch, dev, edges, n, graph)
     torch.cuda.empty_cache()              # phase 4's engines are gone
@@ -1094,18 +1197,11 @@ def main(argv=None) -> int:
         library_ms=gnn_case["library_ms"]))
     wall = time.perf_counter() - t_start
     print(f"  wall {wall:.1f} s; card: {smi}")
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(device=name, nvidia_smi=smi, args=vars(args),
-                           build={k: dict(seconds=v["seconds"],
-                                          log=v["log"])
-                                  for k, v in builds.items()},
-                           spmv_cases=cases, serve=serve, ppr=ppr,
-                           gnn=gnn,
-                           kernels=kernels,
-                           wall_s=wall), f, indent=1, default=str)
+    write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                         build={k: dict(seconds=v["seconds"], log=v["log"])
+                                for k, v in builds.items()},
+                         spmv_cases=cases, serve=serve, ppr=ppr, gnn=gnn,
+                         kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,9 @@ class PackedGraph:
 
     src: torch.Tensor        # int32[NE, BE]
     dst_rel: torch.Tensor    # int32[NE, BE]   dst - window*VB
-    valid: torch.Tensor      # f32[NE, BE]     1.0 live / 0.0 pad
+    # f32[NE, BE]: 1.0 live / 0.0 pad, no other value (the gated_spmm
+    # kernel skips a 0 lane and adds a live lane's row unscaled)
+    valid: torch.Tensor
     window: torch.Tensor     # int32[NE]       window id per entry
     entry_start: torch.Tensor  # int32[NW+1]   window w owns entries
     #                          [entry_start[w], entry_start[w+1])

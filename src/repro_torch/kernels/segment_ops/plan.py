@@ -1,0 +1,82 @@
+"""The chunk plan of the gated segment-SpMM: windows cut into chunks of at
+most ``k`` entries, so that no block of the kernel walks more than ``k``
+entries however many one window owns.
+
+Window ``w`` owns the entries ``[entry_start[w], entry_start[w+1])`` and
+``entry_start`` never changes after packing, so the plan is a function of
+``entry_start`` and ``k`` alone.  It is built on ``entry_start``'s device
+with no host read: its lengths are bounds that follow from the shapes, and
+the slots past the real count are marked surplus (window ``nw``).
+
+    chunks    C = nw + ne // k       window w gets max(1, ceil(n_w / k))
+    partials  P = ne // k            chunks 1.. of a split window
+    splits    S = min(nw, ne // (k + 1))   windows of more than k entries
+
+(``ne`` = ``entry_start[nw]``, the entry capacity.)  Chunk 0 of a window
+writes its rows to the output; chunk j >= 1 of a split window writes a
+partial tile to slot ``part``.  A second pass then adds a split window's
+partials to its rows in chunk order, so every sum has one fixed order.
+An empty window is one chunk of no entry: it writes zeros.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class ChunkPlan(NamedTuple):
+    window: torch.Tensor        # int32[C]  window of the chunk; nw: surplus
+    begin: torch.Tensor         # int32[C]  first entry
+    end: torch.Tensor           # int32[C]  one past the last entry
+    part: torch.Tensor          # int32[C]  partial slot; -1: writes out
+    split_window: torch.Tensor  # int32[S]  s-th split window; nw: surplus
+    split_part: torch.Tensor    # int32[S]  its first partial slot
+    split_count: torch.Tensor   # int32[S]  its partials (chunks - 1)
+    num_partials: int           # P: partial tiles the scratch holds
+
+
+def plan_sizes(nw: int, ne: int, k: int) -> tuple:
+    """(C, P, S): the plan's chunk, partial and split-window bounds."""
+    return nw + ne // k, ne // k, min(nw, ne // (k + 1))
+
+
+def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
+    """The plan for windows owning ``[entry_start[w], entry_start[w+1])``
+    (int32[NW+1], ``entry_start[NW] == ne``), cut into chunks of at most
+    ``k`` entries.  No host read: every length is a bound (module doc)."""
+    if k < 1:
+        raise ValueError(f"chunk_plan: k must be >= 1, got {k}")
+    nw = entry_start.shape[0] - 1
+    n_chunks, n_parts, n_splits = plan_sizes(nw, ne, k)
+    dev = entry_start.device
+    if nw == 0:
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        return ChunkPlan(none, none, none, none, none, none, none, 0)
+    start = entry_start.long()
+    owned = start[1:] - start[:-1]
+    per_window = torch.clamp((owned + k - 1) // k, min=1)
+    last = torch.cumsum(per_window, 0)            # one past each window's
+    c = torch.arange(n_chunks, device=dev)
+    w = torch.searchsorted(last, c, right=True)   # nw for surplus slots
+    wc = torch.clamp(w, max=nw - 1)
+    j = c - (last - per_window)[wc]               # chunk within its window
+    begin = start[wc] + j * k
+    end = torch.minimum(begin + k, start[wc + 1])
+    # partial slots: chunks 1.. of each window, in window then chunk order
+    parts = per_window - 1
+    part0 = torch.cumsum(parts, 0) - parts
+    part = torch.where(j > 0, part0[wc] + j - 1, torch.full_like(j, -1))
+    s = torch.arange(n_splits, device=dev)
+    sw = torch.searchsorted(torch.cumsum((parts > 0).long(), 0), s,
+                            right=True)
+    swc = torch.clamp(sw, max=nw - 1)
+
+    def i32(t, keep):
+        return torch.where(keep, t, torch.full_like(t, nw)).to(torch.int32)
+
+    return ChunkPlan(
+        window=i32(w, w < nw), begin=i32(begin, w < nw),
+        end=i32(end, w < nw), part=i32(part, w < nw),
+        split_window=i32(sw, sw < nw), split_part=i32(part0[swc], sw < nw),
+        split_count=i32(parts[swc], sw < nw), num_partials=n_parts)

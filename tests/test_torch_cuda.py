@@ -11,7 +11,9 @@ walk-repair kernel has no atomics and no float sums: it is held to its
 plain version bit for bit.  The segment-SpMM kernel sums in a fixed order
 (bitwise equal from run to run) but not in the order of the plain
 version's CUDA ``index_add_``: rtol 1e-4 / atol 1e-5 times the output's
-largest magnitude.
+largest magnitude.  Its split path (windows cut into chunks of at most
+``chunk_entries`` entries, partial tiles summed by a second pass) is
+forced at small K here: 1, 2, 7 and 64 entries a chunk.
 """
 import dataclasses
 
@@ -25,6 +27,8 @@ from repro_torch.graph.generators import random_batch_update, rmat_edges
 from repro_torch.graph.structure import from_coo
 from repro_torch.kernels.pagerank_spmv import pagerank_spmv as spmv
 from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
+from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed, \
+    pack_graph
 from repro_torch.kernels.segment_ops import segment_matmul as sm
 from repro_torch.kernels.segment_ops.ops import aggregate_features
 from repro_torch.kernels.segment_ops.ref import gated_spmm_ref
@@ -266,6 +270,119 @@ def test_gated_spmm_kernel_hub_window(cuda):
     _assert_spmm_close(out, _spmm_plain(packed, feats, awin))
 
 
+def _split_inputs(dev, d, frac, seed=11):
+    """Entries of 64 lanes and 5 tail entries: windows own 20-70 entries,
+    the last window the tail too."""
+    edges, n = rmat_edges(10, 8, seed=seed)
+    packed = spmv.pack_blocks(edges[:, 0], edges[:, 1],
+                              np.ones(len(edges), bool), n, be=64, vb=256,
+                              spill_lanes_per_window=64, extra_entries=5,
+                              device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    feats = torch.randn(n, d, generator=gen, device=dev)
+    awin = torch.rand(packed.num_windows, generator=gen, device=dev) < frac
+    awin[0] = True                               # the widest window
+    return packed, feats, awin
+
+
+def _check_split_call(packed, feats, awin, k):
+    before = sm.LAUNCH_COUNTS["gated_spmm"]
+    out = sm.gated_spmm(packed, feats, awin, chunk_entries=k)
+    torch.cuda.synchronize()
+    assert sm.LAUNCH_COUNTS["gated_spmm"] == before + 1    # one per call
+    _assert_spmm_close(out, _spmm_plain(packed, feats, awin))
+    inactive = ~awin.repeat_interleave(packed.vb)[:packed.num_vertices]
+    assert bool((out[inactive] == 0).all())
+    for _ in range(2):
+        assert torch.equal(sm.gated_spmm(packed, feats, awin,
+                                         chunk_entries=k), out)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 64, "widest"])
+@pytest.mark.parametrize("d", [16, 33, 130, 602])
+def test_gated_spmm_kernel_split_matches_plain(cuda, d, k):
+    packed, feats, awin = _split_inputs(cuda, d, 0.6)
+    owned = packed.entry_start[1:] - packed.entry_start[:-1]
+    widest = int(owned.max())
+    assert widest > 7
+    if k == "widest":
+        k = widest                      # no window splits
+    _check_split_call(packed, feats, awin, k)
+
+
+@pytest.mark.parametrize("k", [1, 7, 64])
+def test_gated_spmm_kernel_split_after_batch(cuda, k):
+    # lanes claimed through the overlay are no longer dst-sorted
+    edges, n = rmat_edges(10, 8, seed=5)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    packed = pack_graph(graph, be=16, vb=32, spill_lanes_per_window=16,
+                        extra_entries=3)
+    dele, ins = random_batch_update(edges, n, 16, seed=k)
+    upd = make_batch_update(dele, ins, 16, 16, device=cuda)
+    packed = apply_batch_packed(packed, upd)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    feats = torch.randn(n, 130, generator=gen, device=cuda)
+    awin = packed.active_windows(touched_vertices_mask(upd, n))
+    assert bool(awin.any()) and not bool(awin.all())
+    _check_split_call(packed, feats, awin, k)
+
+
+@pytest.mark.parametrize("k", [1, 64])
+def test_gated_spmm_kernel_split_empty_graph(cuda, k):
+    none = np.zeros(0, np.int32)
+    packed = spmv.pack_blocks(none, none, none.astype(bool), 1000, be=64,
+                              vb=256, extra_entries=9, device=cuda)
+    awin = torch.ones(packed.num_windows, dtype=torch.bool, device=cuda)
+    out = _check_split_call(packed, torch.ones(1000, 37, device=cuda),
+                            awin, k)
+    assert float(out.abs().max()) == 0.0
+
+
+def test_gated_spmm_kernel_unaligned_features(cuda):
+    # X one float past an 8-byte boundary: the kernel copies 4 B a thread
+    packed, feats, awin = _split_inputs(cuda, 130, 0.6)
+    flat = torch.empty(feats.numel() + 1, device=cuda)
+    flat[1:] = feats.reshape(-1)
+    shifted = flat[1:].view(feats.shape)
+    assert shifted.data_ptr() % 8 == 4
+    out = _check_split_call(packed, shifted, awin, 7)
+    assert torch.equal(out, sm.gated_spmm(packed, feats, awin,
+                                          chunk_entries=7))
+
+
+def test_gated_spmm_kernel_skips_dead_lanes(cuda):
+    # `valid` is 0 or 1, so the kernel skips a dead lane where the plain
+    # version adds 0 * X[src]: the two differ only for non-finite X
+    packed, feats, awin = _split_inputs(cuda, 130, 0.6)
+    n = packed.num_vertices
+    dead = packed.valid == 0
+    assert bool((dead & awin[packed.window.long()][:, None]).any())
+    # every dead lane reads an extra row of NaN past the vertices
+    packed = dataclasses.replace(packed, src=torch.where(dead, n, packed.src))
+    nan_row = torch.full((1, 130), float("nan"), device=cuda)
+    with_nan = torch.cat([feats, nan_row])
+    out = sm.gated_spmm(packed, with_nan, awin, chunk_entries=7)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(sm.gated_spmm(packed, with_nan, awin,
+                                     chunk_entries=7), out)
+    with_zero = torch.cat([feats, torch.zeros_like(nan_row)])
+    _assert_spmm_close(out, _spmm_plain(packed, with_zero, awin))
+    assert bool(_spmm_plain(packed, with_nan, awin).isnan().any())
+
+
+def test_gated_spmm_kernel_info(cuda):
+    packed, _, _ = _split_inputs(cuda, 602, 1.0)
+    info = sm.kernel_info(packed, 602)
+    assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+    assert info["smem_per_block"] >= 0 and info["lanes_in_flight"] >= 1
+    assert info["scratch_bytes"] == sm.scratch_bytes(packed, 602)
+    assert info["scratch_bytes_used"] == sm.scratch_bytes_used(packed, 602)
+    assert 0 < info["scratch_bytes_used"] < info["scratch_bytes"]
+
+
 def test_gated_spmm_wrapper_checks_inputs(cuda):
     packed, feats, awin = _spmm_inputs(cuda, 16, 1.0)
     with pytest.raises(ValueError, match="feats must be contiguous"):
@@ -277,8 +394,8 @@ def test_gated_spmm_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="src is on cpu"):
         sm.gated_spmm(dataclasses.replace(packed, src=packed.src.cpu()),
                       feats, awin)
-    wide = _packed(cuda, vb=1024)
-    with pytest.raises(ValueError, match="vb 1024 outside"):
+    wide = _packed(cuda, vb=2048)
+    with pytest.raises(ValueError, match="vb 2048 outside"):
         sm.gated_spmm(wide, torch.ones(wide.num_vertices, 4, device=cuda),
                       torch.ones(wide.num_windows, dtype=torch.bool,
                                  device=cuda))
