@@ -4,11 +4,13 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--batches 5] [--out FILE] [--profile]
+    python3 chip_smoke.py --spmv-kernels-only [--out FILE]
     python3 chip_smoke.py --gnn-kernels-only [--out FILE]
 
-The second form runs only the set-up (build, device, graph) and phase 6's
-gated_spmm kernel cases, on the first batch's packed graph, and prints no
-summary: the quick loop for work on that kernel.
+The second form runs only the set-up (build, device, graph) and phase 3's
+frontier_spmv kernel cases; the third only the set-up and phase 6's
+gated_spmm kernel cases, on the first batch's packed graph.  Neither
+prints a summary: they are the quick loops for work on one kernel.
 
 It exits non-zero on the first failed check; no failure is passed over.
 
@@ -17,11 +19,16 @@ It exits non-zero on the first failed check; no failure is passed over.
 2. Device  — prints the card's name and ``nvidia-smi`` name/power limit.
 3. Kernels — holds frontier_spmv against its plain PyTorch version on
              the card, at the serve engine's own packed shapes: active-
-             window fractions 0, ~5 % and 100 %, f32 and bf16 ranks, and the
-             empty graph; times kernel, plain version and one library call
+             window fractions 0, ~5 % and 100 %, f32 and bf16 ranks; only
+             the last window (``tail``: it owns the capacity tail) and only
+             the widest other window (``hub``), f32; and the empty graph.
+             Every case is also checked bitwise equal run to run.  Prints
+             the kernel's K, plan, grid, shared memory, blocks a SM and
+             registers; times kernel, plain version and one library call
              (a cuSPARSE CSR product through ``torch.sparse``, with values
-             in the ranks' type) with CUDA events, and computes the bytes
-             bound.
+             in the ranks' type) with CUDA events, the host's time a call
+             of each, and the kernel's own device time (torch.profiler),
+             and computes the bytes bound.
 4. Serve   — the paper's §5.2.2 regime at the size of sx-stackoverflow: an
              R-MAT graph of 2**21 vertices and ~30 M edges, random
              80 % insert / 20 % delete batches.  ``ServeEngine(engine=
@@ -33,7 +40,11 @@ It exits non-zero on the first failed check; no failure is passed over.
              kernel launched during the kernel run; the two final snapshots
              agree to L∞ ≤ 1e-6 and, relative to the largest rank, to
              ≤ REL_LINF_LIMIT; both are within L1 ≤ 1e-4 of a static f64
-             solve of the final graph.
+             solve of the final graph.  Then the feed runs once more on
+             the kernel engine, and the script prints, without gating,
+             whether the two kernel runs' final snapshots are bitwise
+             equal, their L∞ difference, and whether their per-batch
+             iteration and affected counts agree.
 5. PPR     — the same graph and feed through ``ServeEngine(engine=
              "kernel", ppr_index=IndexConfig(num_walks=64, max_len=16))``:
              a 2**21 x 64 x 16 int32 walk index (8.6 GB) built at bootstrap
@@ -71,9 +82,9 @@ It exits non-zero on the first failed check; no failure is passed over.
              launches on its serve path, max error and times; then, last,
              ``{"ok": true, "device": {...}}``.
 
-frontier_spmv is not deterministic (float atomics), so every comparison
-with its plain version is a tolerance: rtol 1e-4 / atol 1e-6 on f32 sums.
-walk_repair has no atomics and no float sums: it is compared bit for bit.
+frontier_spmv sums in a fixed order (bitwise equal run to run), but not
+the plain version's: rtol 1e-4 / atol 1e-6 on f32 sums.  walk_repair has
+no atomics and no float sums: it is compared bit for bit.
 gated_spmm sums in a fixed order, but not the plain version's: rtol 1e-4 /
 atol 1e-5 relative to the output's largest magnitude.
 """
@@ -141,6 +152,39 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_ms(torch, fn, reps: int = 20) -> float:
+    """Mean host time of one ``fn()`` call over ``reps`` calls issued back
+    to back with no synchronisation (the device may still be running):
+    what a call costs the host.  When it exceeds the device time,
+    ``time_ms`` reads the host too."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
+def device_ms(torch, fn, names, reps: int = 20):
+    """Mean device time a call of the kernels whose names hold one of
+    ``names``, from a torch.profiler trace of ``reps`` calls: the card's
+    own time, without the host's.  None where the trace shows none."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):        # first session starts the tracer
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if any(n in e.key for n in names))
+    return us / reps / 1e3 if us > 0 else None
 
 
 def spmv_bound(torch, packed, rsc, awin):
@@ -230,6 +274,36 @@ def make_graph(torch, dev):
     return edges, n, graph
 
 
+def spmv_info(torch, packed):
+    """Prints and returns what frontier_spmv takes on the card at this
+    shape: K, the plan's slots and real chunks, the grid of each pass,
+    shared memory a block, blocks a SM, registers."""
+    from repro_torch.kernels.pagerank_spmv import pagerank_spmv as spmv
+    from repro_torch.kernels.segment_ops.plan import cached_plan
+    info = spmv.kernel_info(packed)
+    plan = cached_plan(packed.entry_start, packed.num_entries,
+                       info["chunk_entries"])
+    real = plan.window < packed.num_windows
+    last = plan.window == packed.num_windows - 1
+    info.update(real_chunks=int(real.sum()),
+                real_partials=int(((plan.part >= 0) & real).sum()),
+                last_window_chunks=int(last.sum()))
+    print(f"  frontier_spmv: K={info['chunk_entries']} entries a chunk; "
+          f"plan {info['chunk_slots']:,} chunk slots ({info['real_chunks']:,}"
+          f" real, {info['last_window_chunks']:,} of them the last "
+          f"window's), {info['partial_slots']:,} partial slots "
+          f"({info['real_partials']:,} real), {info['split_slots']:,} split "
+          f"slots; grid {info['grid']:,} blocks (chunk pass) + "
+          f"{info['reduce_grid']:,} (second pass) of 256 threads; shared "
+          f"memory {info['smem_per_block']:,} B dynamic + "
+          f"{info['static_smem_per_block']:,} B static a block; "
+          f"{info['blocks_per_sm']} blocks a SM on {info['sms']} SMs; "
+          f"{info['registers']} registers a thread ({info['reduce_registers']}"
+          f" in the second pass); scratch {info['scratch_bytes']:,} B",
+          flush=True)
+    return info
+
+
 def kernel_checks(torch, dev, graph):
     """Phase 3: frontier_spmv against its plain version on the card."""
     phase("3. kernels vs plain versions (frontier_spmv)")
@@ -248,8 +322,13 @@ def kernel_checks(torch, dev, graph):
     torch.cuda.synchronize()
     ne, be = packed.src.shape
     nw, vb = packed.num_windows, packed.vb
+    owned = packed.entry_start[1:] - packed.entry_start[:-1]
+    hub = int(torch.argmax(owned[:-1]))       # the widest but the last
     print(f"  packed: NE={ne:,} BE={be} NW={nw:,} VB={vb} "
-          f"lanes={ne * be:,} (pack {time.perf_counter() - t0:.1f} s)")
+          f"lanes={ne * be:,} (pack {time.perf_counter() - t0:.1f} s); "
+          f"last window owns {int(owned[-1]):,} entries, window {hub} "
+          f"(hub) {int(owned[hub]):,}")
+    info = spmv_info(torch, packed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     rsc32 = torch.rand(nw * vb, generator=gen, device=dev)
@@ -260,44 +339,62 @@ def kernel_checks(torch, dev, graph):
                                         packed.valid, packed.window, rsc,
                                         awin, vb)
 
-    for frac in (0.0, 0.05, 1.0):
+    runs = []
+    for name, frac in (("0 %", 0.0), ("~5 %", 0.05), ("100 %", 1.0)):
         awin = torch.rand(nw, generator=gen, device=dev) < frac
-        for dtype in (torch.float32, torch.bfloat16):
-            rsc = rsc32.to(dtype)
-            ref = plain(rsc, awin)
-            out = spmv.frontier_spmv_padded(packed, rsc, awin)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            max_err = max(max_err, err)
-            tag = f"frac={frac:g} {str(dtype)[6:]}"
-            check(bool(torch.allclose(out, ref, rtol=KERNEL_RTOL,
-                                      atol=KERNEL_ATOL)),
-                  f"{tag}: kernel == plain (max abs err {err:.3e})")
-            inactive = ~awin.repeat_interleave(vb)
-            check(bool((out[inactive] == 0).all()),
-                  f"{tag}: inactive windows exactly 0")
-            ms = time_ms(torch, lambda: spmv.frontier_spmv_padded(
-                packed, rsc, awin))
-            plain_ms = time_ms(torch, lambda: plain(rsc, awin))
-            bound_ms, bound_by, detail = spmv_bound(torch, packed, rsc,
-                                                    awin)
-            library_ms, library_note = library_case(torch, packed, awin,
-                                                    rsc, ref, tag)
-            case = dict(frac=frac, dtype=str(dtype)[6:],
-                        active_windows=int(awin.sum()), max_abs_err=err,
-                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=library_ms,
-                        library_note=library_note, **detail)
-            cases.append(case)
-            print(f"  {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
-                  f"{'-' if library_ms is None else f'{library_ms:.4f}'} "
-                  f"active_entries={detail['active_entries']:,}",
-                  flush=True)
+        runs += [(name, frac, awin, dtype)
+                 for dtype in (torch.float32, torch.bfloat16)]
+    windows = torch.arange(nw, device=dev)
+    runs += [("tail", None, windows == nw - 1, torch.float32),
+             ("hub", None, windows == hub, torch.float32)]
+    for name, frac, awin, dtype in runs:
+        tag = f"{name} {str(dtype)[6:]}"
+        rsc = rsc32.to(dtype)
+        ref = plain(rsc, awin)
+        out = spmv.frontier_spmv_padded(packed, rsc, awin)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        max_err = max(max_err, err)
+        check(bool(torch.allclose(out, ref, rtol=KERNEL_RTOL,
+                                  atol=KERNEL_ATOL)),
+              f"{tag}: kernel == plain (max abs err {err:.3e})")
+        inactive = ~awin.repeat_interleave(vb)
+        check(bool((out[inactive] == 0).all()),
+              f"{tag}: inactive windows exactly 0")
+        check(all(torch.equal(spmv.frontier_spmv_padded(packed, rsc, awin),
+                              out) for _ in range(3)),
+              f"{tag}: bitwise equal run to run (3 more calls)")
+        call = lambda: spmv.frontier_spmv_padded(packed, rsc, awin)
+        ms, kernel_host_ms = time_ms(torch, call), host_ms(torch, call)
+        kernel_device_ms = device_ms(torch, call,
+                                     ("spmv_chunks", "spmv_partials"))
+        plain_ms = time_ms(torch, lambda: plain(rsc, awin))
+        bound_ms, bound_by, detail = spmv_bound(torch, packed, rsc, awin)
+        library_ms, library_note, library_host_ms = library_case(
+            torch, packed, awin, rsc, ref, tag)
+        case = dict(case=name, frac=frac, dtype=str(dtype)[6:],
+                    active_windows=int(awin.sum()), max_abs_err=err, ms=ms,
+                    host_ms=kernel_host_ms, device_ms=kernel_device_ms,
+                    plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms, library_host_ms=library_host_ms,
+                    library_note=library_note, **detail)
+        cases.append(case)
+        dev_txt = ("not measured" if kernel_device_ms is None
+                   else f"{kernel_device_ms:.4f}")
+        lib_txt = ("-" if library_ms is None else
+                   f"{library_ms:.4f} (host {library_host_ms:.4f})")
+        print(f"  {tag}: kernel_ms={ms:.4f} (host {kernel_host_ms:.4f}, "
+              f"device {dev_txt}) "
+              f"plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={lib_txt} "
+              f"active_entries={detail['active_entries']:,} "
+              f"live_lanes={detail['live_lanes']:,} "
+              f"bytes={detail['bytes']:,}", flush=True)
     # the empty graph: every window active, nothing to sum
     none = np.zeros(0, np.int32)
     empty = spmv.pack_blocks(none, none, none.astype(bool), 4096, be=be,
-                             vb=vb, device=dev)
+                             vb=vb, extra_entries=64, device=dev)
     out = spmv.frontier_spmv_padded(
         empty, torch.ones(4096, device=dev),
         torch.ones(empty.num_windows, dtype=torch.bool, device=dev))
@@ -305,14 +402,15 @@ def kernel_checks(torch, dev, graph):
     check(float(out.abs().max()) == 0.0, "empty graph: output exactly 0")
     del eng, packed
     torch.cuda.empty_cache()
-    return cases, max_err
+    return cases, max_err, info
 
 
 def library_case(torch, packed, awin, rsc, ref, tag):
-    """(library_ms, note): the cuSPARSE CSR product in the ranks' type,
-    checked against the plain version and timed.  A type this torch's
-    sparse product refuses gives no time and the refusal as the note: the
-    library is only a yardstick, never part of the port."""
+    """(library_ms, note, host_ms): the cuSPARSE CSR product in the ranks'
+    type, checked against the plain version and timed (device and host).
+    A type this torch's sparse product refuses gives no time and the
+    refusal as the note: the library is only a yardstick, never part of
+    the port."""
     bf16 = rsc.dtype == torch.bfloat16
     try:
         lib = library_spmv(torch, packed, awin, rsc.dtype)
@@ -321,23 +419,24 @@ def library_case(torch, packed, awin, rsc, ref, tag):
     except (RuntimeError, NotImplementedError) as e:
         note = f"torch.sparse CSR product refused {rsc.dtype}: {e}"
         print(f"  {tag}: no library time ({note.splitlines()[0]})")
-        return None, note.splitlines()[0]
+        return None, note.splitlines()[0], None
+    call = lambda: lib(rsc)
     if not bf16:
         check(bool(torch.allclose(lib_out, ref, rtol=KERNEL_RTOL,
                                   atol=KERNEL_ATOL)),
               f"{tag}: library CSR product == plain")
-        return time_ms(torch, lambda: lib(rsc)), "cuSPARSE CSR"
+        return time_ms(torch, call), "cuSPARSE CSR", host_ms(torch, call)
     err = float((lib_out.float() - ref).abs().max())
     if not bool(torch.allclose(lib_out.float(), ref, rtol=BF16_RTOL,
                                atol=BF16_ATOL)):
         note = (f"torch.sparse bf16 CSR product disagrees with the plain "
                 f"version beyond bf16 rounding (max abs err {err:.3e})")
         print(f"  {tag}: no library time ({note})")
-        return None, note
+        return None, note, None
     print(f"  ok: {tag}: library CSR product == plain within bf16 output "
           f"rounding (max abs err {err:.3e})")
-    return time_ms(torch, lambda: lib(rsc)), \
-        "cuSPARSE CSR, bf16 values and output"
+    return (time_ms(torch, call), "cuSPARSE CSR, bf16 values and output",
+            host_ms(torch, call))
 
 
 def serve_run(args, torch, dev, graph, feed, engine_name):
@@ -475,7 +574,23 @@ def serve_checks(args, torch, dev, edges, n, graph):
           f"iterations, {time.perf_counter() - t0:.2f} s")
     check(l1_k <= 1e-4, f"kernel snapshot L1 vs static {l1_k:.3e} <= 1e-4")
     check(l1_x <= 1e-4, f"xla snapshot L1 vs static {l1_x:.3e} <= 1e-4")
-    return dict(kernel=kernel, xla=xla, linf_kernel_vs_xla=linf,
+    # the same feed again on the kernel engine: are served ranks the same
+    # bit for bit from run to run?  Printed, not gated (ROADMAP §3 fault 1)
+    again, snap_k2 = serve_run(args, torch, dev, graph, feed, "kernel")
+    repeat = dict(
+        snapshot_bitwise=bool(torch.equal(snap_k2.ranks, rk)),
+        linf=float((snap_k2.ranks - rk).abs().max()),
+        iterations_equal=[a["iterations"] for a in again["rows"]]
+        == [a["iterations"] for a in kernel["rows"]],
+        affected_equal=[a["affected"] for a in again["rows"]]
+        == [a["affected"] for a in kernel["rows"]])
+    print(f"  kernel engine run twice on one feed: final snapshots bitwise "
+          f"equal: {repeat['snapshot_bitwise']}; L_inf "
+          f"{repeat['linf']:.3e}; per-batch iterations equal: "
+          f"{repeat['iterations_equal']}; per-batch affected equal: "
+          f"{repeat['affected_equal']}", flush=True)
+    return dict(kernel=kernel, xla=xla, kernel_again=again,
+                kernel_repeat=repeat, linf_kernel_vs_xla=linf,
                 rel_linf_kernel_vs_xla=rel,
                 l1_kernel_vs_static=l1_k, l1_xla_vs_static=l1_x,
                 static_iterations=static.iterations)
@@ -1132,6 +1247,10 @@ def main(argv=None) -> int:
                     help="run only the set-up and phase 6's gated_spmm "
                          "kernel cases; prints their JSON last and no "
                          "summary")
+    ap.add_argument("--spmv-kernels-only", action="store_true",
+                    help="run only the set-up and phase 3's frontier_spmv "
+                         "kernel cases; prints their JSON last and no "
+                         "summary")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1159,7 +1278,16 @@ def main(argv=None) -> int:
                              gnn=only))
         print(json.dumps({"gnn_cases": only["cases"]}))
         return 0
-    cases, max_err = kernel_checks(torch, dev, graph)
+    cases, max_err, spmv_kernel = kernel_checks(torch, dev, graph)
+    if args.spmv_kernels_only:
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             build={k: dict(seconds=v["seconds"],
+                                            log=v["log"])
+                                    for k, v in builds.items()},
+                             spmv=spmv_kernel, spmv_cases=cases))
+        print(json.dumps({"spmv_cases": cases}))
+        return 0
     serve = serve_checks(args, torch, dev, edges, n, graph)
     torch.cuda.empty_cache()              # phase 4's engines are gone
     ppr = ppr_checks(args, torch, dev, edges, n, graph)
@@ -1200,7 +1328,8 @@ def main(argv=None) -> int:
     write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
                          build={k: dict(seconds=v["seconds"], log=v["log"])
                                 for k, v in builds.items()},
-                         spmv_cases=cases, serve=serve, ppr=ppr, gnn=gnn,
+                         spmv=spmv_kernel, spmv_cases=cases, serve=serve,
+                         ppr=ppr, gnn=gnn,
                          kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

@@ -9,12 +9,17 @@ whole dst *windows*:
     (``pack_blocks``, host NumPy, at bootstrap and on repack);
   * a window is *active* iff any of its VB vertices is affected;
   * the kernel reads only active entries and writes zeros for inactive
-    windows (``csrc/frontier_spmv.cu``, CUDA C++ for sm_90a).
+    windows (``csrc/frontier_spmv.cu``, CUDA C++ for sm_90a): windows cut
+    into chunks of at most ``CHUNK_ENTRIES`` entries by the chunk plan of
+    ``kernels/segment_ops/plan.py`` (built once per packed structure), a
+    second pass that adds a split window's partial rows in chunk order,
+    and no atomics, so its result is the same bit for bit from run to run.
 
 ``frontier_spmv_padded`` dispatches on where its tensors lie: on the CPU
 it runs the plain version (``ref.py``); on a CUDA device it launches the
 kernel, and a failed build or launch raises.  ``LAUNCH_COUNTS`` counts
-kernel launches, so a run can show that it went through the kernel.
+calls that launched the kernel, one per call whatever its device
+launches, so a run can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -29,13 +34,14 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
+from repro_torch.kernels.segment_ops.plan import cached_plan, plan_sizes
 
 DEFAULT_BE = 2048     # edges per entry (paper's OpenMP chunk size)
 DEFAULT_VB = 256      # vertices per dst window
 
 LANE_SENTINEL = np.iinfo(np.int64).max   # key of a never-live lane
 
-# kernel launches by kernel name, incremented once per launch
+# calls that launched the kernel, by kernel name
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 
@@ -191,24 +197,63 @@ def pack_blocks(src: np.ndarray, dst: np.ndarray, valid: np.ndarray,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-             + [ctypes.c_int, ctypes.c_void_p]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_MAX_VB = 12 * 1024      # VB f32 accumulators fit the default 48 KB smem
+# entries a block walks at most: 8,192 lanes at BE = 512, so the R-MAT hub
+# window of the smoke (1,518 entries) is 95 chunks
+CHUNK_ENTRIES = 16
+
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+             + [ctypes.c_int] + [ctypes.c_void_p] * 3
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# VB f32 rows a warp, 8 warps a block, in the default 48 KB of shared memory
+_MAX_VB = 1024
 _check = functools.partial(check_arg, "frontier_spmv")
 
 
-def _kernel_lib():
+@functools.lru_cache(maxsize=None)
+def _lib():
     from repro_torch.kernels.build import load
     lib = load("frontier_spmv")
-    fn = lib.frontier_spmv_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    lib.frontier_spmv_launch.argtypes = _ARGTYPES
+    lib.frontier_spmv_launch.restype = ctypes.c_int
+    lib.frontier_spmv_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+    lib.frontier_spmv_info.restype = ctypes.c_int
+    return lib
+
+
+def _scratch_floats(parts: int, vb: int) -> int:
+    """f32 words of a call's scratch: ``parts`` partial rows of VB floats,
+    then a byte a partial (did its chunk meet a live lane)."""
+    return parts * vb + -(-parts // 4)
+
+
+def kernel_info(packed: PackedGraph, chunk_entries: int = CHUNK_ENTRIES,
+                device=None) -> dict:
+    """What the kernel takes on the card at this packed shape (f32 rsc):
+    K, the plan's chunk, partial and split-window slots, the grid of each
+    pass, shared memory a block, resident blocks a SM and registers."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    info = (ctypes.c_int * 8)()
+    rc = _lib().frontier_spmv_info(index, packed.vb, ctypes.addressof(info))
+    if rc != 0:
+        raise RuntimeError(f"frontier_spmv_info failed: CUDA error {rc}")
+    chunks, parts, splits = plan_sizes(packed.num_windows,
+                                       packed.num_entries, chunk_entries)
+    return dict(chunk_entries=chunk_entries, chunk_slots=chunks,
+                partial_slots=parts, split_slots=splits,
+                grid=min(chunks, info[2] * info[4]),
+                reduce_grid=min(splits, info[7] * info[4]),
+                smem_per_block=info[0], static_smem_per_block=info[1],
+                blocks_per_sm=info[2], registers=info[3], sms=info[4],
+                reduce_registers=info[5], max_vb=info[6],
+                scratch_bytes=4 * _scratch_floats(parts, packed.vb))
 
 
 def _launch_kernel(packed: PackedGraph, rsc: torch.Tensor,
-                   active_window: torch.Tensor) -> torch.Tensor:
+                   active_window: torch.Tensor,
+                   chunk_entries: int) -> torch.Tensor:
     ne, be = packed.src.shape
     vb, nw = packed.vb, packed.num_windows
     dev = rsc.device
@@ -219,37 +264,54 @@ def _launch_kernel(packed: PackedGraph, rsc: torch.Tensor,
         raise ValueError("frontier_spmv: rsc must be a contiguous vector of "
                          f"length >= {nw * vb}, got {tuple(rsc.shape)}")
     if not 0 < vb <= _MAX_VB:
-        raise ValueError(f"frontier_spmv: vb {vb} outside (0, {_MAX_VB}]")
+        raise ValueError(f"frontier_spmv: vb {vb} outside (0, {_MAX_VB}]: "
+                         "the kernel keeps 8 rows of VB floats a block in "
+                         "shared memory")
+    if chunk_entries < 1:
+        raise ValueError(f"frontier_spmv: chunk_entries must be >= 1, got "
+                         f"{chunk_entries}")
     _check("src", packed.src, torch.int32, (ne, be), dev)
     _check("dst_rel", packed.dst_rel, torch.int32, (ne, be), dev)
     _check("valid", packed.valid, torch.float32, (ne, be), dev)
-    _check("window", packed.window, torch.int32, (ne,), dev)
+    _check("entry_start", packed.entry_start, torch.int32, (nw + 1,), dev)
     _check("active_window", active_window, torch.bool, (nw,), dev)
-    fn = _kernel_lib()
-    out = torch.empty(nw * vb, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(torch.cuda.current_device(), packed.src.data_ptr(), packed.dst_rel.data_ptr(),
-                packed.valid.data_ptr(), packed.window.data_ptr(),
-                active_window.data_ptr(), rsc.data_ptr(),
-                int(rsc.dtype == torch.bfloat16), out.data_ptr(),
-                ne, be, nw, vb, stream)
+    plan = cached_plan(packed.entry_start, ne, chunk_entries)
+    n_chunks, n_splits = plan.window.shape[0], plan.split_window.shape[0]
+    # one allocation, the output then the scratch; the caller gets the
+    # output's view
+    parts = plan.num_partials
+    buf = torch.empty(nw * vb + _scratch_floats(parts, vb),
+                      dtype=torch.float32, device=dev)
+    out = buf[:nw * vb]
+    partial = out.data_ptr() + 4 * nw * vb
+    # the C entry point selects the device itself; the stream is the raw
+    # handle of torch.cuda.current_stream(dev), read without building a
+    # Stream object (a few microseconds a call)
+    rc = _lib().frontier_spmv_launch(
+        dev.index, packed.src.data_ptr(), packed.dst_rel.data_ptr(),
+        packed.valid.data_ptr(), *(t.data_ptr() for t in plan[:7]),
+        active_window.data_ptr(), rsc.data_ptr(),
+        int(rsc.dtype == torch.bfloat16), out.data_ptr(), partial,
+        partial + 4 * parts * vb, n_chunks, n_splits, nw, be, vb,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"frontier_spmv kernel launch failed: CUDA "
                            f"error {rc}")
-    if ne > 0:
+    if n_chunks > 0:
         LAUNCH_COUNTS["frontier_spmv"] += 1
     return out
 
 
 def frontier_spmv_padded(packed: PackedGraph, rsc: torch.Tensor,
-                         active_window: torch.Tensor) -> torch.Tensor:
+                         active_window: torch.Tensor, *,
+                         chunk_entries: int = CHUNK_ENTRIES) -> torch.Tensor:
     """Gated blocked SpMV on pre-padded buffers.  Returns f32[NW*VB]
     contributions; inactive windows are exactly 0.
 
     rsc: f32/bf16[>= NW*VB] scaled ranks R/d (a shorter vector is
     zero-padded); active_window: bool[NW].  A CPU ``rsc`` runs the plain
-    version; a CUDA ``rsc`` launches the kernel.
+    version; a CUDA ``rsc`` launches the kernel, whose blocks walk at most
+    ``chunk_entries`` entries each (the plain version does not split).
     """
     v_pad = packed.num_windows * packed.vb
     if rsc.shape[0] < v_pad:
@@ -260,7 +322,7 @@ def frontier_spmv_padded(packed: PackedGraph, rsc: torch.Tensor,
                                         active_window, packed.vb)
     if rsc.device.type != "cuda":
         raise ValueError(f"frontier_spmv: no kernel for device {rsc.device}")
-    return _launch_kernel(packed, rsc, active_window)
+    return _launch_kernel(packed, rsc, active_window, chunk_entries)
 
 
 def frontier_spmv(packed: PackedGraph, rsc: torch.Tensor,

@@ -17,10 +17,15 @@ writes its rows to the output; chunk j >= 1 of a split window writes a
 partial tile to slot ``part``.  A second pass then adds a split window's
 partials to its rows in chunk order, so every sum has one fixed order.
 An empty window is one chunk of no entry: it writes zeros.
+
+``entry_start`` never changes after packing (``apply_batch_packed`` carries
+the same tensor on), so ``cached_plan`` builds a plan once per packed
+structure and K, and hands the same one back on every later call.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import weakref
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -80,3 +85,31 @@ def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
         end=i32(end, w < nw), part=i32(part, w < nw),
         split_window=i32(sw, sw < nw), split_part=i32(part0[swc], sw < nw),
         split_count=i32(parts[swc], sw < nw), num_partials=n_parts)
+
+
+# id(entry_start) -> (weak reference to it, {(ne, k): plan}); an entry goes
+# with its tensor, so a freed tensor's address cannot reach a stale plan
+_PLANS: Dict[int, Tuple[weakref.ref, Dict[Tuple[int, int], ChunkPlan]]] = {}
+
+
+def _forget(key: int, ref: weakref.ref) -> None:
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0] is ref:
+        del _PLANS[key]
+
+
+def cached_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
+    """``chunk_plan(entry_start, ne, k)``, built at the first call on this
+    ``entry_start`` tensor and then handed back as is: no launch and no
+    host read.  The plan is dropped when the tensor is freed (a repack
+    makes a new one)."""
+    key = id(entry_start)
+    hit = _PLANS.get(key)
+    if hit is None or hit[0]() is not entry_start:
+        ref = weakref.ref(entry_start, lambda r, key=key: _forget(key, r))
+        hit = _PLANS[key] = (ref, {})
+    plans = hit[1]
+    plan = plans.get((ne, k))
+    if plan is None:
+        plan = plans[(ne, k)] = chunk_plan(entry_start, ne, k)
+    return plan

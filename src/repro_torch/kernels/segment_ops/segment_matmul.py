@@ -13,11 +13,12 @@ behind ``core/incremental_gnn.py``'s frontier.
 plain version (``ref.gated_spmm_ref``); on a CUDA device it launches the
 hand-written kernel ``csrc/gated_spmm.cu``: one block per (chunk of at
 most ``chunk_entries`` entries, column block) of the chunk plan
-(``plan.py``), then a second pass that adds a split window's partial
-tiles in chunk order.  No atomics, so its result is the same bit for bit
-from run to run.  There is no fallback: a failed build or launch raises.
-``LAUNCH_COUNTS`` counts calls that launched the kernel, one per call
-whatever its device launches (plain-version calls are not counted).
+(``plan.py``, built once per packed structure), then a second pass that
+adds a split window's partial tiles in chunk order.  No atomics, so its
+result is the same bit for bit from run to run.  There is no fallback: a
+failed build or launch raises.  ``LAUNCH_COUNTS`` counts calls that
+launched the kernel, one per call whatever its device launches
+(plain-version calls are not counted).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import PackedGraph
-from repro_torch.kernels.segment_ops.plan import chunk_plan, plan_sizes
+from repro_torch.kernels.segment_ops.plan import cached_plan, plan_sizes
 from repro_torch.kernels.segment_ops.ref import gated_spmm_ref
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
@@ -68,7 +69,8 @@ def scratch_bytes_used(packed: PackedGraph, d: int,
                        chunk_entries: int = CHUNK_ENTRIES) -> int:
     """Bytes of the partial tiles the split windows write: one tile for
     each chunk after a window's first (a host read of the plan)."""
-    plan = chunk_plan(packed.entry_start, packed.num_entries, chunk_entries)
+    plan = cached_plan(packed.entry_start, packed.num_entries,
+                       chunk_entries)
     real = plan.window < packed.num_windows
     return int(((plan.part >= 0) & real).sum()) * packed.vb * d * 4
 
@@ -118,7 +120,7 @@ def _launch_kernel(packed: PackedGraph, feats: torch.Tensor,
     out = torch.empty(n, d, dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return out
-    plan = chunk_plan(packed.entry_start, ne, chunk_entries)
+    plan = cached_plan(packed.entry_start, ne, chunk_entries)
     partial = torch.empty(plan.num_partials * vb * d, dtype=torch.float32,
                           device=dev)
     fn = _lib().gated_spmm_launch

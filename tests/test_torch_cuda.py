@@ -5,8 +5,12 @@ only the port, torch and numpy, so it also runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The SpMV kernel uses float atomics, so it is held to the plain version
-at rtol 1e-4 / atol 1e-6 (f32 summation order), never bitwise.  The
+The SpMV kernel sums in a fixed order, so it is bitwise equal from run
+to run, but not in the plain version's order: rtol 1e-4 / atol 1e-6 (f32
+summation order) against the plain version and against its split-order
+plain version (``frontier_spmv_split_ref``).  Its split path (windows cut
+into chunks of at most ``chunk_entries`` entries, partial rows summed by
+a second pass) is forced at small K: 1, 2, 7 and the widest window.  The
 walk-repair kernel has no atomics and no float sums: it is held to its
 plain version bit for bit.  The segment-SpMM kernel sums in a fixed order
 (bitwise equal from run to run) but not in the order of the plain
@@ -26,7 +30,8 @@ from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
 from repro_torch.graph.generators import random_batch_update, rmat_edges
 from repro_torch.graph.structure import from_coo
 from repro_torch.kernels.pagerank_spmv import pagerank_spmv as spmv
-from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
+from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded, \
+    frontier_spmv_split_ref
 from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed, \
     pack_graph
 from repro_torch.kernels.segment_ops import segment_matmul as sm
@@ -121,6 +126,175 @@ def test_serve_engine_kernel_matches_xla_on_card(cuda):
         snaps[name] = store.snapshot().ranks
     assert launches["kernel"] > 0 and launches["xla"] == 0
     assert float((snaps["kernel"] - snaps["xla"]).abs().max()) <= 1e-6
+
+
+def _spmv_split_pack(dev, kind):
+    """``tail``: R-MAT scale 10 in entries of 64 lanes with 200 empty tail
+    entries, which the last window owns; ``batched``: the same graph in
+    entries of 16 lanes after two batches (overlay lanes out of dst
+    order, holes from deletions)."""
+    edges, n = rmat_edges(10, 8, seed=11)
+    if kind == "tail":
+        return spmv.pack_blocks(edges[:, 0], edges[:, 1],
+                                np.ones(len(edges), bool), n, be=64, vb=256,
+                                spill_lanes_per_window=64,
+                                extra_entries=200, device=dev)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+    packed = pack_graph(graph, be=16, vb=32, spill_lanes_per_window=16,
+                        extra_entries=3)
+    for b in range(2):
+        dele, ins = random_batch_update(edges, n, 32, seed=b)
+        packed = apply_batch_packed(packed, make_batch_update(
+            dele, ins, 32, 32, device=dev))
+    return packed
+
+
+def _spmv_inputs(packed, dtype, frac, seed=3):
+    gen = torch.Generator(device=packed.device)
+    gen.manual_seed(seed)
+    nw, vb = packed.num_windows, packed.vb
+    rsc = torch.rand(nw * vb, generator=gen, device=packed.device).to(dtype)
+    awin = torch.rand(nw, generator=gen, device=packed.device) < frac
+    return rsc, awin
+
+
+def _check_spmv_call(packed, rsc, awin, k=spmv.CHUNK_ENTRIES):
+    """One kernel call against both plain versions; inactive windows
+    exactly 0; two more calls bitwise equal.  Returns the output."""
+    before = spmv.LAUNCH_COUNTS["frontier_spmv"]
+    out = spmv.frontier_spmv_padded(packed, rsc, awin, chunk_entries=k)
+    torch.cuda.synchronize()
+    assert spmv.LAUNCH_COUNTS["frontier_spmv"] == before + 1   # one a call
+    torch.testing.assert_close(
+        out, frontier_spmv_split_ref(packed, rsc, awin, k), rtol=1e-4,
+        atol=1e-6)
+    torch.testing.assert_close(
+        out, frontier_spmv_ref_padded(packed.src, packed.dst_rel,
+                                      packed.valid, packed.window, rsc, awin,
+                                      packed.vb), rtol=1e-4, atol=1e-6)
+    assert bool((out[~awin.repeat_interleave(packed.vb)] == 0).all())
+    for _ in range(2):
+        assert torch.equal(spmv.frontier_spmv_padded(
+            packed, rsc, awin, chunk_entries=k), out)
+    return out
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.4, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 7, "widest"])
+@pytest.mark.parametrize("kind", ["tail", "batched"])
+def test_kernel_split_matches_split_order_plain(cuda, kind, k, dtype, frac):
+    packed = _spmv_split_pack(cuda, kind)
+    owned = packed.entry_start[1:] - packed.entry_start[:-1]
+    widest = int(owned.max())
+    assert widest > 7
+    k = widest if k == "widest" else k
+    rsc, awin = _spmv_inputs(packed, dtype, frac)
+    if frac == 0.4:
+        awin[0] = awin[-1] = True      # the hub and the tail window
+    _check_spmv_call(packed, rsc, awin, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_bitwise_deterministic(cuda, dtype):
+    packed = _spmv_split_pack(cuda, "tail")
+    rsc, awin = _spmv_inputs(packed, dtype, 1.0)
+    first = spmv.frontier_spmv_padded(packed, rsc, awin)
+    for _ in range(5):
+        assert torch.equal(spmv.frontier_spmv_padded(packed, rsc, awin),
+                           first)
+
+
+@pytest.mark.parametrize("which", ["tail", "hub"])
+@pytest.mark.parametrize("k", [1, 16])
+def test_kernel_one_window_alone(cuda, which, k):
+    # only the last window (the capacity tail) or only window 0, the
+    # widest window of the graph itself
+    packed = _spmv_split_pack(cuda, "tail")
+    owned = (packed.entry_start[1:] - packed.entry_start[:-1]).cpu()
+    hub = int(owned[:-1].argmax())
+    assert int(owned[-1]) > 200 and int(owned[hub]) > 16
+    rsc, _ = _spmv_inputs(packed, torch.float32, 1.0)
+    awin = torch.zeros(packed.num_windows, dtype=torch.bool, device=cuda)
+    awin[-1 if which == "tail" else hub] = True
+    out = _check_spmv_call(packed, rsc, awin, k)
+    assert float(out.abs().max()) > 0
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_kernel_chunks_of_dead_lanes(cuda, k):
+    # every lane of window 1's entries and of the tail's is dead: chunk 0
+    # writes zeros, chunks 1.. flag their partials as holding no live lane
+    packed = _spmv_split_pack(cuda, "tail")
+    es = packed.entry_start.cpu()
+    valid = packed.valid.clone()
+    valid[int(es[1]):int(es[2])] = 0
+    packed = dataclasses.replace(packed, valid=valid)
+    assert int(es[2] - es[1]) > k
+    rsc, awin = _spmv_inputs(packed, torch.float32, 1.0)
+    out = _check_spmv_call(packed, rsc, awin, k)
+    vb = packed.vb
+    assert float(out[vb:2 * vb].abs().max()) == 0.0
+    assert float(out[:vb].abs().max()) > 0
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_kernel_empty_graph_with_tail_is_zero(cuda, k):
+    none = np.zeros(0, np.int32)
+    packed = spmv.pack_blocks(none, none, none.astype(bool), 1000, be=64,
+                              vb=256, extra_entries=40, device=cuda)
+    awin = torch.ones(packed.num_windows, dtype=torch.bool, device=cuda)
+    out = _check_spmv_call(packed, torch.ones(packed.num_windows * 256,
+                                              device=cuda), awin, k)
+    assert float(out.abs().max()) == 0.0
+
+
+def test_kernel_vb_limit_raises(cuda):
+    wide = _packed(cuda, vb=2048)
+    with pytest.raises(ValueError, match="vb 2048 outside"):
+        spmv.frontier_spmv_padded(
+            wide, torch.ones(wide.num_windows * 2048, device=cuda),
+            torch.ones(wide.num_windows, dtype=torch.bool, device=cuda))
+    # the geometries the engine and the tests use are inside it
+    for vb in (16, 32, 64, 128, 256, 1024):
+        packed = _packed(cuda, be=64, vb=vb)
+        rsc, awin = _spmv_inputs(packed, torch.float32, 0.5)
+        _check_spmv_call(packed, rsc, awin)
+
+
+def test_kernel_info(cuda):
+    packed = _spmv_split_pack(cuda, "tail")
+    info = spmv.kernel_info(packed)
+    assert info["chunk_entries"] == spmv.CHUNK_ENTRIES
+    assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+    assert info["smem_per_block"] == 8 * packed.vb * 4
+    assert 0 < info["grid"] <= info["chunk_slots"]
+    assert info["max_vb"] == 1024
+
+
+def test_kernel_pagerank_loop_is_bitwise_run_to_run(cuda):
+    from repro_torch.core.kernel_engine import kernel_pagerank_loop
+    from repro_torch.core.pagerank import initial_affected, static_pagerank
+    edges, n = rmat_edges(12, 8, seed=5)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    dele, ins = random_batch_update(edges, n, 256, seed=6)
+    upd = make_batch_update(dele, ins, 256, 256, device=cuda)
+    graph2 = apply_batch(graph, upd)
+    packed = pack_graph(graph2, be=512, vb=256, spill_lanes_per_window=64,
+                        extra_entries=50)
+    ranks = static_pagerank(graph).ranks.to(torch.float32)
+    aff = initial_affected(graph, graph2, touched_vertices_mask(upd, n))
+    before = spmv.LAUNCH_COUNTS["frontier_spmv"]
+    runs = [kernel_pagerank_loop(graph2, packed, ranks, aff)
+            for _ in range(2)]
+    assert spmv.LAUNCH_COUNTS["frontier_spmv"] - before == \
+        sum(r.iterations for r in runs) > 2
+    a, b = runs
+    assert a.iterations == b.iterations
+    assert torch.equal(a.ranks, b.ranks)
+    assert torch.equal(a.affected_ever, b.affected_ever)
+    assert torch.equal(a.delta, b.delta)
+    assert int(a.edges_processed) == int(b.edges_processed)
 
 
 def _stale_inputs(dev, max_len=16):
