@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --gnn-kernels-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
-frontier_spmv kernel cases; the third only the set-up and phase 6's
-gated_spmm kernel cases, on the first batch's packed graph.  Neither
-prints a summary: they are the quick loops for work on one kernel.
+frontier_spmv and phase 3b's pull_contrib kernel cases; the third only
+the set-up and phase 6's gated_spmm kernel cases, on the first batch's
+packed graph.  Neither prints a summary: they are the quick loops for
+work on one kernel.
 
 It exits non-zero on the first failed check; no failure is passed over.
 
@@ -29,6 +30,14 @@ It exits non-zero on the first failed check; no failure is passed over.
              in the ranks' type) with CUDA events, the host's time a call
              of each, and the kernel's own device time (torch.profiler),
              and computes the bytes bound.
+3b. Pull   — holds pull_contrib (the f64 loop's fixed-order pull sum, the
+             port's own kernel) on the smoke's graph bit for bit against
+             its plain version run on the CPU (whose ``index_add_`` adds
+             each vertex's terms in slot order, the kernel's contract),
+             within PULL_RTOL against the plain version on the card
+             (atomics), and bitwise run to run; the same for the longest
+             segment alone (``hub``); times kernel, plain version and
+             ``index_add_`` of the products, with its bound.
 4. Serve   — the paper's §5.2.2 regime at the size of sx-stackoverflow: an
              R-MAT graph of 2**21 vertices and ~30 M edges, random
              80 % insert / 20 % delete batches.  ``ServeEngine(engine=
@@ -40,24 +49,32 @@ It exits non-zero on the first failed check; no failure is passed over.
              kernel launched during the kernel run; the two final snapshots
              agree to L∞ ≤ 1e-6 and, relative to the largest rank, to
              ≤ REL_LINF_LIMIT; both are within L1 ≤ 1e-4 of a static f64
-             solve of the final graph.  Then the feed runs once more on
-             the kernel engine, and the script prints, without gating,
-             whether the two kernel runs' final snapshots are bitwise
-             equal, their L∞ difference, and whether their per-batch
-             iteration and affected counts agree.
+             solve of the final graph; frontier_spmv and pull_contrib
+             launched (pull_contrib on the xla run too).  Then the feed
+             runs once more on the kernel engine: the two kernel runs'
+             final snapshots must be bitwise equal, with equal per-batch
+             iteration and affected counts.  Every batch's
+             ``batch_host_syncs`` must equal the synchronizing calls
+             ``torch.cuda.set_sync_debug_mode("warn")`` reports for it.
 5. PPR     — the same graph and feed through ``ServeEngine(engine=
              "kernel", ppr_index=IndexConfig(num_walks=64, max_len=16))``:
              a 2**21 x 64 x 16 int32 walk index (8.6 GB) built at bootstrap
-             and repaired per batch by the walk_repair kernel.  Prints the
-             build time, per batch the latency, stale walks, repair and
-             kernel device time (CUDA events, no added host sync) and host
-             syncs, index-mode personalized top-10 latency for 4 seeds of
+             and repaired per batch by the walk_repair kernel, which makes
+             its own threefry draws.  Prints the build time, per batch the
+             latency, stale walks, the repair's device time split into
+             stale scan, draws + kernel, index copy + row gather +
+             scatter, and CSR build + stale-id compaction (CUDA events, no
+             added host sync), host syncs (reported and measured),
+             index-mode personalized top-10 latency for 4 seeds of
              out-degree >= 8, the exact PPR solve time and precision@10
-             against it, and the peak memory.  Checks: walk_repair
-             launched; its outputs on the last batch equal its plain
-             version bit for bit; ``walks_resampled`` equals the summed
-             stale counts; the served index equals a fresh build on the
-             final graph bit for bit.
+             against it, and the peak memory; the kernel's time (events,
+             host, profiler), registers, shared memory and blocks a SM.
+             Checks: walk_repair, frontier_spmv and pull_contrib
+             launched; every last-batch launch equals its keyed plain
+             version bit for bit; reported host syncs equal measured ones;
+             ``walks_resampled`` equals the summed stale counts; the
+             served index equals a fresh build on the final graph bit for
+             bit.
 6. GNN     — incremental GraphSAGE embedding refresh on the same graph
              and the first 3 batches of its feed, at the full width of
              ``graphsage-reddit`` (d_in 602, d_hidden 128, 41 classes, 2
@@ -84,7 +101,9 @@ It exits non-zero on the first failed check; no failure is passed over.
 
 frontier_spmv sums in a fixed order (bitwise equal run to run), but not
 the plain version's: rtol 1e-4 / atol 1e-6 on f32 sums.  walk_repair has
-no atomics and no float sums: it is compared bit for bit.
+no atomics and no float sums: it is compared bit for bit.  pull_contrib
+adds in slot order, as the CPU does: bit for bit against the plain
+version on the CPU, rtol PULL_RTOL against its atomic form on the card.
 gated_spmm sums in a fixed order, but not the plain version's: rtol 1e-4 /
 atol 1e-5 relative to the output's largest magnitude.
 """
@@ -108,6 +127,17 @@ SCALE, EDGE_FACTOR, FLUSH, SEED = 21, 16, 1024, 0
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
+H100_F64_FLOPS = 34e12           # f64 outside the tensor cores (data sheet)
+# INT32 operations a second: 132 SMs x 64 INT32 lanes (Hopper architecture
+# white paper) x 1.98 GHz, the H100 SXM's highest SM clock
+H100_INT32_OPS = 132 * 64 * 1.98e9
+# integer operations of one threefry2x32 call and the draw made from it:
+# 20 rounds of add, rotate, xor, 5 two-add key injections, the two key
+# adds and the parity word (74), then xor, shift, or and subtract
+THREEFRY_OPS = 80
+# pull_contrib against its plain version on the card, which adds with
+# atomics in another order: f64 summation-order error
+PULL_RTOL = 1e-12
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-6
 # a bf16 library product rounds its output to bf16 (8-bit mantissa)
 BF16_RTOL, BF16_ATOL = 1e-2, 1e-2
@@ -119,6 +149,10 @@ REL_LINF_LIMIT = 1e-6
 # the tolerance of tests/test_kernels.py held relative to the largest output
 GNN_RTOL, GNN_ATOL = 1e-4, 1e-5
 GNN_BATCHES = 3          # the GNN phase's batches (fewer if --batches is)
+
+
+# what torch.cuda.set_sync_debug_mode("warn") says of a synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 class CheckFailed(RuntimeError):
@@ -405,6 +439,101 @@ def kernel_checks(torch, dev, graph):
     return cases, max_err, info
 
 
+def pull_contrib_bound(torch, order, ranks):
+    """(bound_ms, bound_by, detail) for one pull sum on these inputs: ptr,
+    the live slots' src, ranks and inv_deg once per distinct source, the
+    f64 output; a multiply and an add a live slot."""
+    V = ranks.shape[0]
+    n_live = int(order.ptr[-1])
+    n_src = int(torch.unique(order.src[:n_live]).numel()) if n_live else 0
+    nbytes = 4 * (V + 1) + 4 * n_live + 16 * n_src + 8 * V
+    flops = 2 * n_live
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F64_FLOPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, dict(bytes=nbytes, flops=flops,
+                                         live_slots=n_live,
+                                         distinct_sources=n_src)
+
+
+def contrib_checks(torch, dev, graph):
+    """Phase 3b: pull_contrib (the f64 loop's fixed-order pull sum) against
+    its plain version, on the smoke's graph: bit for bit against the CPU's
+    sum, run to run, and within f64 summation-order error against the
+    plain version on the card; the longest segment alone (``hub``)."""
+    phase("3b. kernels vs plain versions (pull_contrib)")
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.kernels.pull_contrib.ref import PullOrder, \
+        pull_contrib_ref, slot_vertex
+    n = graph.num_vertices
+    in_deg = graph.in_degree(include_self_loop=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    order = pc.pull_order(graph.src, graph.dst, graph.valid, in_deg)
+    torch.cuda.synchronize()
+    order_ms = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    ranks = torch.rand(n, generator=gen, device=dev,
+                       dtype=torch.float64) / n
+    inv = 1.0 / graph.out_degree(include_self_loop=True).to(torch.float64)
+    seg = (order.ptr[1:] - order.ptr[:-1]).long()
+    hub = int(torch.argmax(seg))
+    info = pc.kernel_info()
+    print(f"  pull_contrib: {info['registers']} registers a thread, "
+          f"{info['blocks_per_sm']} blocks of {info['threads_per_block']} a "
+          f"SM on {info['sms']} SMs; order (one stable sort of "
+          f"{graph.edge_capacity:,} slots) {order_ms:.2f} ms; longest "
+          f"segment: vertex {hub}, {int(seg[hub]):,} in-edges", flush=True)
+    # only the hub's segment left: what its chain of adds costs
+    ptr_hub = torch.where(torch.arange(n + 1, device=dev) <= hub,
+                          order.ptr[hub], order.ptr[hub + 1])
+    cases, max_err = [], 0.0
+    for name, o in (("all", order), ("hub", order._replace(ptr=ptr_hub))):
+        out = pc.pull_contrib(o, ranks, inv)
+        plain = pull_contrib_ref(o, ranks, inv)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        max_err = max(max_err, err)
+        check(bool(torch.allclose(out, plain, rtol=PULL_RTOL, atol=0)),
+              f"{name}: kernel == plain on the card within rtol "
+              f"{PULL_RTOL:g} (max abs err {err:.3e})")
+        cpu = pull_contrib_ref(PullOrder(*(t.cpu() for t in o)),
+                               ranks.cpu(), inv.cpu())
+        check(torch.equal(out.cpu(), cpu),
+              f"{name}: kernel == the CPU's sum, bit for bit")
+        check(all(torch.equal(pc.pull_contrib(o, ranks, inv), out)
+                  for _ in range(3)),
+              f"{name}: bitwise equal run to run (3 more calls)")
+        call = lambda: pc.pull_contrib(o, ranks, inv)
+        ms, call_host_ms = time_ms(torch, call), host_ms(torch, call)
+        call_device_ms = device_ms(torch, call, ("pull_contrib",))
+        plain_ms = time_ms(torch, lambda: pull_contrib_ref(o, ranks, inv))
+        # one library call for the sum: index_add_ over the products
+        src = o.src.long()
+        w = ranks[src] * inv[src]
+        dst = slot_vertex(o.ptr, src.shape[0])
+        buf = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+        library_ms = time_ms(torch, lambda: buf.zero_().index_add_(0, dst, w))
+        del src, w, dst, buf
+        bound_ms, bound_by, detail = pull_contrib_bound(torch, o, ranks)
+        cases.append(dict(case=name, max_abs_err=err, ms=ms,
+                          host_ms=call_host_ms, device_ms=call_device_ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, **detail))
+        dev_txt = ("not measured" if call_device_ms is None
+                   else f"{call_device_ms:.4f}")
+        print(f"  {name}: kernel_ms={ms:.4f} (host {call_host_ms:.4f}, "
+              f"device {dev_txt}) plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
+              f"{library_ms:.4f} (index_add_ of the products) "
+              f"live_slots={detail['live_slots']:,}", flush=True)
+    del order, ptr_hub
+    torch.cuda.empty_cache()
+    return dict(cases=cases, max_abs_err=max_err, order_ms=order_ms,
+                hub_vertex=hub, hub_in_edges=int(seg[hub]), info=info)
+
+
 def library_case(torch, packed, awin, rsc, ref, tag):
     """(library_ms, note, host_ms): the cuSPARSE CSR product in the ranks'
     type, checked against the plain version and timed (device and host).
@@ -443,6 +572,8 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
     """Drive ServeEngine over ``feed`` (a list of event batches)."""
     import numpy as np
     from repro_torch.kernels.pagerank_spmv.pagerank_spmv import LAUNCH_COUNTS
+    from repro_torch.kernels.pull_contrib.pull_contrib import \
+        LAUNCH_COUNTS as PULL_COUNTS
     from repro_torch.serve import IngestQueue, QueryClient, RankStore, \
         ServeEngine, ServeMetrics
     ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9,
@@ -453,6 +584,7 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
     client = QueryClient(store, ingest, metrics)
     rng = np.random.default_rng(SEED)
     LAUNCH_COUNTS.clear()                     # counts of this run only
+    PULL_COUNTS.clear()
     t0 = time.perf_counter()
     eng.bootstrap()
     torch.cuda.synchronize()
@@ -464,9 +596,12 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
         for kind, u, v in events:
             ingest.submit(kind, u, v)
         before = LAUNCH_COUNTS["frontier_spmv"]
+        retries = alloc_retries(torch)
         profile = args.profile and b == len(feed) - 1
         with profiled(torch, profile, f"{engine_name}_batch{b}", args):
-            check(eng.step(force=True), f"[{engine_name}] batch {b} served")
+            with recording_syncs(torch) as syncs:
+                check(eng.step(force=True),
+                      f"[{engine_name}] batch {b} served")
         launches = LAUNCH_COUNTS["frontier_spmv"] - before
         m = metrics
         row = dict(batch=b, events=m.batch_events[-1],
@@ -474,7 +609,15 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
                    iterations=m.batch_iterations[-1],
                    affected=m.batch_affected[-1], launches=launches,
                    host_syncs=m.batch_host_syncs[-1],
+                   measured_syncs=len(syncs),
+                   alloc_retries=alloc_retries(torch) - retries,
                    fallback=m.static_fallbacks)
+        if row["host_syncs"] != row["measured_syncs"]:
+            print(f"  [{engine_name}] batch {b}: synchronizing calls by "
+                  f"site {sync_sites(syncs)}")
+        check(row["host_syncs"] == row["measured_syncs"],
+              f"[{engine_name}] batch {b}: host_syncs {row['host_syncs']} "
+              f"== {len(syncs)} synchronizing calls (set_sync_debug_mode)")
         pt = client.get_ranks(rng.integers(0, graph.num_vertices, size=8))
         top = client.top_k(10)
         check(bool(np.all(np.isfinite(pt.ranks)))
@@ -486,8 +629,11 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
               f"latency_ms={row['latency_ms']:.2f} "
               f"iterations={row['iterations']} affected={row['affected']:,} "
               f"launches={launches} host_syncs={row['host_syncs']} "
+              f"(measured {row['measured_syncs']}) "
+              f"alloc_retries={row['alloc_retries']} "
               f"top1={top.vertices[0]}", flush=True)
-    launches = dict(LAUNCH_COUNTS)            # read right after the run
+    # read right after the run
+    launches = dict(LAUNCH_COUNTS, pull_contrib=PULL_COUNTS["pull_contrib"])
     snap = store.snapshot()
     return dict(boot_s=boot_s, rows=rows, launches=launches,
                 metrics=metrics.as_dict(),
@@ -547,12 +693,16 @@ def serve_checks(args, torch, dev, edges, n, graph):
     from repro_torch.core.pagerank import static_pagerank
     feed = make_feed(args, edges, n)
     kernel, snap_k = serve_run(args, torch, dev, graph, feed, "kernel")
-    check(kernel["launches"].get("frontier_spmv", 0) > 0,
-          f"frontier_spmv launched on the kernel run "
-          f"({kernel['launches'].get('frontier_spmv', 0)} launches)")
+    check(kernel["launches"].get("frontier_spmv", 0) > 0
+          and kernel["launches"]["pull_contrib"] > 0,
+          f"frontier_spmv and pull_contrib launched on the kernel run "
+          f"({kernel['launches'].get('frontier_spmv', 0)} and "
+          f"{kernel['launches']['pull_contrib']} launches)")
     xla, snap_x = serve_run(args, torch, dev, graph, feed, "xla")
-    check(xla["launches"].get("frontier_spmv", 0) == 0,
-          "the xla run launched no kernel")
+    check(xla["launches"].get("frontier_spmv", 0) == 0
+          and xla["launches"]["pull_contrib"] > 0,
+          f"the xla run launched no frontier_spmv, and pull_contrib "
+          f"{xla['launches']['pull_contrib']} times")
     rk, rx = snap_k.ranks, snap_x.ranks
     check(rk.shape == (n,) and rk.dtype == torch.float64
           and bool(torch.isfinite(rk).all()),
@@ -574,8 +724,8 @@ def serve_checks(args, torch, dev, edges, n, graph):
           f"iterations, {time.perf_counter() - t0:.2f} s")
     check(l1_k <= 1e-4, f"kernel snapshot L1 vs static {l1_k:.3e} <= 1e-4")
     check(l1_x <= 1e-4, f"xla snapshot L1 vs static {l1_x:.3e} <= 1e-4")
-    # the same feed again on the kernel engine: are served ranks the same
-    # bit for bit from run to run?  Printed, not gated (ROADMAP §3 fault 1)
+    # the same feed again on the kernel engine: served ranks must be the
+    # same bit for bit from run to run
     again, snap_k2 = serve_run(args, torch, dev, graph, feed, "kernel")
     repeat = dict(
         snapshot_bitwise=bool(torch.equal(snap_k2.ranks, rk)),
@@ -584,11 +734,12 @@ def serve_checks(args, torch, dev, edges, n, graph):
         == [a["iterations"] for a in kernel["rows"]],
         affected_equal=[a["affected"] for a in again["rows"]]
         == [a["affected"] for a in kernel["rows"]])
-    print(f"  kernel engine run twice on one feed: final snapshots bitwise "
-          f"equal: {repeat['snapshot_bitwise']}; L_inf "
-          f"{repeat['linf']:.3e}; per-batch iterations equal: "
-          f"{repeat['iterations_equal']}; per-batch affected equal: "
-          f"{repeat['affected_equal']}", flush=True)
+    check(repeat["iterations_equal"] and repeat["affected_equal"],
+          "kernel engine run twice on one feed: per-batch iterations and "
+          "affected counts equal")
+    check(repeat["snapshot_bitwise"],
+          f"kernel engine run twice on one feed: final snapshots bitwise "
+          f"equal (L_inf {repeat['linf']:.3e})")
     return dict(kernel=kernel, xla=xla, kernel_again=again,
                 kernel_repeat=repeat, linf_kernel_vs_xla=linf,
                 rel_linf_kernel_vs_xla=rel,
@@ -596,42 +747,61 @@ def serve_checks(args, torch, dev, edges, n, graph):
                 static_iterations=static.iterations)
 
 
-def walk_repair_bound(torch, csr, rows, t0, u, out):
+def walk_repair_bound(torch, csr, rows, t0, key, ids, out):
     """(bound_ms, bound_by, detail) for one walk_repair launch on these
-    inputs: the bytes this run's walks need, each read once, over the
-    card's memory rate.  Needed: the kept prefix slots rows[0..t0], t0, a
-    continue draw for every hop from an occupied slot, a choice draw and
-    deg/indptr of the current vertex for every hop taken past t0, the
-    indices entry of every such hop off the self-loop (deg, indptr and
-    indices counted once per distinct entry), and the output."""
+    inputs: the larger of the bytes this run's walks need over the card's
+    memory rate and the threefry calls they need over its INT32 rate.
+
+    Bytes, each read once: the kept prefix slots rows[0..t0], t0, the
+    walk ids, deg/indptr of the current vertex for every hop taken past
+    t0 and the indices entry of every such hop off the self-loop (each
+    counted once per distinct entry), and the output.  Threefry calls: a
+    walk key for each walk with a hop to draw, a hop key and a continue
+    draw for every hop from an occupied slot, and a choice draw for every
+    hop taken past t0 (a slot is -1 exactly when the walk has stopped,
+    as in an index's rows); THREEFRY_OPS integer operations each."""
+    from repro_torch.kernels.walk_repair.threefry import walk_uniforms
     C, L = rows.shape
     E = csr.indices.shape[0]
     hop = torch.arange(1, L, device=rows.device)
+    drawn = (rows[:, 0] >= 0) & (t0 < L - 1)       # walks that draw at all
     prev, nxt = out[:, :-1], out[:, 1:]
-    n_cont = int((prev >= 0).sum())
+    n_keys = int(drawn.sum())
+    n_cont = int(((prev >= 0) & drawn[:, None]).sum())
     taken = (hop[None, :] > t0[:, None]) & (nxt >= 0)
     cur = prev[taken].long()
     d = csr.deg[cur]
+    u = walk_uniforms(key, ids, L)
     j = torch.minimum((u[:, :, 1][taken] * (d + 1).to(torch.float32))
                       .to(torch.int32), d)
+    del u
     edge = j < d
     idx = (csr.indptr[cur][edge] + j[edge]).clamp(0, E - 1)
     n_taken = int(cur.numel())
     n_cur = int(torch.unique(cur).numel())
     n_idx = int(torch.unique(idx).numel())
     nbytes = (4 * int((t0.long() + 1).sum())    # kept prefix of rows
-              + 4 * C                            # t0
-              + 4 * (n_cont + n_taken)           # u: continue, choice
+              + 4 * C + 8 * C                    # t0, ids
               + 8 * n_cur + 4 * n_idx            # deg + indptr, indices
               + 4 * C * L)                       # output
-    flops = n_taken                              # one f32 multiply a hop
+    calls = n_keys + 2 * n_cont + n_taken
+    int_ops = THREEFRY_OPS * calls
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = int_ops / H100_INT32_OPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, dict(bytes=nbytes, flops=flops,
-                                         walks=C, hops_taken=n_taken,
+    return max(t_bytes, t_ops), by, dict(bytes=nbytes, int_ops=int_ops,
+                                         threefry_calls=calls,
+                                         bytes_ms=t_bytes, ops_ms=t_ops,
+                                         walks=C, hops_evaluated=n_cont,
+                                         hops_taken=n_taken,
                                          distinct_vertices=n_cur,
                                          distinct_edges=n_idx)
+
+
+def alloc_retries(torch) -> int:
+    """Times the caching allocator found no free block, released its cache
+    and asked the driver again (a device-wide synchronization each)."""
+    return torch.cuda.memory_stats().get("num_alloc_retries", 0)
 
 
 def cuda_events(torch):
@@ -646,8 +816,10 @@ def ppr_checks(args, torch, dev, edges, n, graph):
     from repro_torch.core.extensions import personalized_pagerank
     from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
         LAUNCH_COUNTS as SPMV_COUNTS
+    from repro_torch.kernels.pull_contrib.pull_contrib import \
+        LAUNCH_COUNTS as PULL_COUNTS
     from repro_torch.kernels.walk_repair import walk_repair as wr
-    from repro_torch.kernels.walk_repair.ref import resample_rows_ref
+    from repro_torch.kernels.walk_repair.ref import resample_rows_keyed_ref
     from repro_torch.ppr import IndexConfig, build_walk_index, \
         precision_at_k, stale_walks
     from repro_torch.ppr import repair as ppr_repair
@@ -668,37 +840,43 @@ def ppr_checks(args, torch, dev, edges, n, graph):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    # CUDA events around the repair and around each kernel launch give
-    # device time without adding a host sync; the current batch's launches
-    # keep their inputs and outputs for the bitwise check
-    rec = dict(build_s=None, repair=[], launches=[], calls=[])
-    real = (serve_engine.build_walk_index, serve_engine.repair_walk_index,
-            ppr_repair.resample_rows)
+    # CUDA events around the repair, its stale scan, its resample and
+    # each kernel launch give device time without adding a host sync; the
+    # current batch's launches keep their inputs and outputs for the
+    # bitwise check
+    rec = dict(build_s=None, repair=[], scan=[], resample=[], kernel=[],
+               calls=[])
+    real = dict(build=serve_engine.build_walk_index,
+                repair=serve_engine.repair_walk_index,
+                scan=ppr_repair.stale_walks, resample=ppr_repair._resample,
+                kernel=ppr_repair.resample_rows)
 
     def timed_build(graph_, config):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        index = real[0](graph_, config)
+        index = real["build"](graph_, config)
         torch.cuda.synchronize()
         rec["build_s"] = time.perf_counter() - t
         return index
 
-    def timed_repair(index, graph_new, touched):
-        start, stop = cuda_events(torch)
-        start.record()
-        out = real[1](index, graph_new, touched)
-        stop.record()
-        rec["repair"].append((start, stop, index, touched))
-        return out
+    def timed(name, keep=None):
+        def call(*a, **kw):
+            start, stop = cuda_events(torch)
+            start.record()
+            out = real[name](*a, **kw)
+            stop.record()
+            rec[name].append((start, stop))
+            if keep is not None:
+                rec[keep].append((a, kw, out))
+            return out
+        return call
 
-    def timed_resample(csr, rows, t0, u, *, alpha):
-        start, stop = cuda_events(torch)
-        start.record()
-        out = real[2](csr, rows, t0, u, alpha=alpha)
-        stop.record()
-        rec["launches"].append((start, stop))
-        rec["calls"].append((csr, rows, t0, u, alpha, out))
-        return out
+    def timed_repair(index, graph_new, touched):
+        rec["old"] = (index, touched)
+        return timed("repair")(index, graph_new, touched)
+
+    def elapsed(name):
+        return sum(a.elapsed_time(z) for a, z in rec[name])
 
     ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9, device=dev)
     store, metrics = RankStore(), ServeMetrics()
@@ -707,10 +885,14 @@ def ppr_checks(args, torch, dev, edges, n, graph):
                       ppr_index=cfg)
     client = QueryClient(store, ingest, metrics)
     rows, stale_total = [], 0
-    serve_engine.build_walk_index, serve_engine.repair_walk_index, \
-        ppr_repair.resample_rows = timed_build, timed_repair, timed_resample
+    serve_engine.build_walk_index = timed_build
+    serve_engine.repair_walk_index = timed_repair
+    ppr_repair.stale_walks = timed("scan")
+    ppr_repair._resample = timed("resample")
+    ppr_repair.resample_rows = timed("kernel", keep="calls")
     try:
         SPMV_COUNTS.clear()                   # counts of this run only
+        PULL_COUNTS.clear()
         wr.LAUNCH_COUNTS.clear()
         t0 = time.perf_counter()
         eng.bootstrap()
@@ -721,19 +903,20 @@ def ppr_checks(args, torch, dev, edges, n, graph):
         for b, events in enumerate(feed):
             for kind, u, v in events:
                 ingest.submit(kind, u, v)
-            for k in ("repair", "launches", "calls"):
+            for k in ("repair", "scan", "resample", "kernel", "calls"):
                 rec[k].clear()
             before = wr.LAUNCH_COUNTS["walk_repair"]
+            retries = alloc_retries(torch)
             profile = args.profile and b == len(feed) - 1
             with profiled(torch, profile, f"ppr_batch{b}", args):
-                check(eng.step(force=True), f"[ppr] batch {b} served")
+                with recording_syncs(torch) as syncs:
+                    check(eng.step(force=True), f"[ppr] batch {b} served")
             launches = wr.LAUNCH_COUNTS["walk_repair"] - before
-            (start, stop, old, touched), = rec["repair"]
-            stop.synchronize()
-            repair_ms = start.elapsed_time(stop)
-            kernel_ms = sum(a.elapsed_time(z) for a, z in rec["launches"])
-            stale = int(stale_walks(old.steps, touched)[0].sum())
-            rec["repair"].clear()
+            rec["repair"][-1][1].synchronize()
+            repair_ms, scan_ms = elapsed("repair"), elapsed("scan")
+            resample_ms, kernel_ms = elapsed("resample"), elapsed("kernel")
+            old, touched = rec.pop("old")
+            stale = int(real["scan"](old.steps, touched)[0].sum())
             del old, touched
             stale_total += stale
             q_ms = []
@@ -747,28 +930,47 @@ def ppr_checks(args, torch, dev, edges, n, graph):
                       f"generation {r.generation}")
             row = dict(batch=b, latency_ms=metrics.update_latency_s[-1] * 1e3,
                        stale_walks=stale, repair_ms=repair_ms,
-                       kernel_ms=kernel_ms,
+                       scan_ms=scan_ms, kernel_ms=kernel_ms,
+                       copy_gather_scatter_ms=resample_ms - kernel_ms,
+                       csr_and_compaction_ms=(repair_ms - scan_ms
+                                              - resample_ms),
                        launches=launches,
                        host_syncs=metrics.batch_host_syncs[-1],
+                       measured_syncs=len(syncs),
+                       alloc_retries=alloc_retries(torch) - retries,
                        iterations=metrics.batch_iterations[-1],
                        query_ms=q_ms)
             rows.append(row)
             print(f"  [ppr] batch {b}: latency_ms={row['latency_ms']:.2f} "
-                  f"stale_walks={stale:,} repair_ms={repair_ms:.2f} "
-                  f"kernel_ms={kernel_ms:.3f} launches={launches} "
-                  f"host_syncs={row['host_syncs']} "
-                  f"iterations={row['iterations']} index_top10_ms="
-                  f"{', '.join(f'{x:.2f}' for x in q_ms)}", flush=True)
+                  f"stale_walks={stale:,} repair_ms={repair_ms:.2f} (stale "
+                  f"scan {scan_ms:.2f}, draws + kernel {kernel_ms:.3f}, "
+                  f"index copy + row gather + scatter "
+                  f"{row['copy_gather_scatter_ms']:.2f}, CSR build + stale-id "
+                  f"compaction {row['csr_and_compaction_ms']:.2f}) "
+                  f"launches={launches} host_syncs={row['host_syncs']} "
+                  f"(measured {len(syncs)}) alloc_retries="
+                  f"{row['alloc_retries']} iterations={row['iterations']} "
+                  f"index_top10_ms={', '.join(f'{x:.2f}' for x in q_ms)}",
+                  flush=True)
+            if row["host_syncs"] != len(syncs):
+                print(f"  [ppr] batch {b}: synchronizing calls by site "
+                      f"{sync_sites(syncs)}")
+            check(row["host_syncs"] == len(syncs),
+                  f"[ppr] batch {b}: host_syncs {row['host_syncs']} == "
+                  f"{len(syncs)} synchronizing calls (set_sync_debug_mode)")
         launches = dict(walk_repair=wr.LAUNCH_COUNTS["walk_repair"],
-                        frontier_spmv=SPMV_COUNTS["frontier_spmv"])
+                        frontier_spmv=SPMV_COUNTS["frontier_spmv"],
+                        pull_contrib=PULL_COUNTS["pull_contrib"])
         stream_peak = torch.cuda.max_memory_allocated()
     finally:
-        serve_engine.build_walk_index, serve_engine.repair_walk_index, \
-            ppr_repair.resample_rows = real
-    check(launches["walk_repair"] > 0,
-          f"walk_repair launched on the PPR serve path "
-          f"({launches['walk_repair']} launches; frontier_spmv "
-          f"{launches['frontier_spmv']})")
+        serve_engine.build_walk_index = real["build"]
+        serve_engine.repair_walk_index = real["repair"]
+        ppr_repair.stale_walks = real["scan"]
+        ppr_repair._resample = real["resample"]
+        ppr_repair.resample_rows = real["kernel"]
+    check(all(v > 0 for v in launches.values()),
+          f"walk_repair, frontier_spmv and pull_contrib launched on the PPR "
+          f"serve path ({launches})")
     check(metrics.walks_resampled == stale_total,
           f"walks_resampled {metrics.walks_resampled:,} == summed stale "
           f"counts {stale_total:,}")
@@ -779,23 +981,33 @@ def ppr_checks(args, torch, dev, edges, n, graph):
     check(len(calls) > 0, f"the last batch launched walk_repair "
           f"({len(calls)} launches)")
     max_err = 0
-    for csr, r_, t_, u_, alpha, out in calls:
-        ref = resample_rows_ref(csr, r_, t_, u_, alpha=alpha)
+    for (csr, r_, t_, key, ids), kw, out in calls:
+        ref = resample_rows_keyed_ref(csr, r_, t_, key, ids, **kw)
         max_err = max(max_err, int((out - ref).abs().max()))
         check(torch.equal(out, ref), f"last batch, {r_.shape[0]:,} walks: "
               "kernel == plain, bit for bit")
-    csr, r_, t_, u_, alpha, out = max(calls, key=lambda c: c[1].shape[0])
-    ms = time_ms(torch, lambda: wr.resample_rows(csr, r_, t_, u_,
-                                                 alpha=alpha))
-    plain_ms = time_ms(torch, lambda: resample_rows_ref(csr, r_, t_, u_,
-                                                        alpha=alpha),
-                       reps=5, warmup=1)
-    bound_ms, bound_by, detail = walk_repair_bound(torch, csr, r_, t_, u_,
-                                                   out)
+        del ref
+    (csr, r_, t_, key, ids), kw, out = max(calls,
+                                            key=lambda c: c[0][1].shape[0])
+    call = lambda: wr.resample_rows(csr, r_, t_, key, ids, **kw)
+    ms, call_host_ms = time_ms(torch, call), host_ms(torch, call)
+    call_device_ms = device_ms(torch, call, ("walk_repair",))
+    plain_ms = time_ms(torch, lambda: resample_rows_keyed_ref(
+        csr, r_, t_, key, ids, **kw), reps=3, warmup=1)
+    bound_ms, bound_by, detail = walk_repair_bound(torch, csr, r_, t_, key,
+                                                   ids, out)
+    info = wr.kernel_info(r_.shape[1])
+    dev_txt = ("not measured" if call_device_ms is None
+               else f"{call_device_ms:.4f}")
     print(f"  walk_repair at {r_.shape[0]:,} walks x L={r_.shape[1]}: "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}) {detail}", flush=True)
-    del calls, csr, r_, t_, u_, out
+          f"kernel_ms={ms:.4f} (host {call_host_ms:.4f}, device {dev_txt}) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+          f"{detail}", flush=True)
+    print(f"  walk_repair: {info['registers']} registers a thread, "
+          f"{info['smem_per_block']:,} B of shared memory a block "
+          f"({info['walks_per_block']} walks), {info['blocks_per_sm']} "
+          f"blocks of 128 threads a SM on {info['sms']} SMs", flush=True)
+    del calls, csr, r_, t_, ids, out
 
     # the served index against a fresh build on the final graph
     snap = store.snapshot()
@@ -833,8 +1045,9 @@ def ppr_checks(args, torch, dev, edges, n, graph):
     return dict(boot_s=boot_s, build_s=rec["build_s"], rows=rows,
                 launches=launches, stale_total=stale_total,
                 metrics=metrics.as_dict(), kernel=dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, max_abs_err=float(max_err), **detail),
+                    ms=ms, host_ms=call_host_ms, device_ms=call_device_ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    max_abs_err=float(max_err), info=info, **detail),
                 fresh_build_s=fresh_s, exact=exact,
                 peak_bytes_stream=stream_peak, peak_bytes=peak)
 
@@ -843,7 +1056,9 @@ def ppr_checks(args, torch, dev, edges, n, graph):
 def recording_syncs(torch):
     """Yields a list that, after the block, holds one warning for each
     synchronizing CUDA call torch made inside it
-    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    (``torch.cuda.set_sync_debug_mode("warn")``).  Only the warning that
+    names such a call counts: the first switch into the mode also warns,
+    once a process, that the mode is a prototype."""
     import warnings
     syncs = []
     with warnings.catch_warnings(record=True) as caught:
@@ -853,7 +1068,14 @@ def recording_syncs(torch):
             yield syncs
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs.extend(w for w in caught if "synchroniz" in str(w.message))
+    syncs.extend(w for w in caught if SYNC_WARNING in str(w.message))
+
+
+def sync_sites(syncs) -> dict:
+    """{"file:line": count} of recorded synchronizing calls."""
+    return dict(collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        for w in syncs).most_common())
 
 
 def compare_rows(out, ref, rows=None, chunk=1 << 18):
@@ -1119,11 +1341,8 @@ def gnn_checks(args, torch, dev, edges, n, graph):
             recomputed = int(res.nodes_recomputed)   # the batch's read
             latency_ms = (time.perf_counter() - t0) * 1e3
         if b == 0:                     # where the first batch's syncs are
-            sites = collections.Counter(
-                f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-                for w in syncs)
             print(f"  [gnn] batch 0 host syncs by call site: "
-                  f"{dict(sites.most_common())}")
+                  f"{sync_sites(syncs)}")
         split = [a.elapsed_time(z) for a, z in zip(ev[:-1], ev[1:])]
         awin = packed2.active_windows(affected)
         vmask = awin.repeat_interleave(packed2.vb)[:n]
@@ -1248,9 +1467,9 @@ def main(argv=None) -> int:
                          "kernel cases; prints their JSON last and no "
                          "summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
-                    help="run only the set-up and phase 3's frontier_spmv "
-                         "kernel cases; prints their JSON last and no "
-                         "summary")
+                    help="run only the set-up, phase 3's frontier_spmv and "
+                         "phase 3b's pull_contrib kernel cases; prints "
+                         "their JSON last and no summary")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1279,13 +1498,15 @@ def main(argv=None) -> int:
         print(json.dumps({"gnn_cases": only["cases"]}))
         return 0
     cases, max_err, spmv_kernel = kernel_checks(torch, dev, graph)
+    contrib = contrib_checks(torch, dev, graph)
     if args.spmv_kernels_only:
         print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
         write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
                              build={k: dict(seconds=v["seconds"],
                                             log=v["log"])
                                     for k, v in builds.items()},
-                             spmv=spmv_kernel, spmv_cases=cases))
+                             spmv=spmv_kernel, spmv_cases=cases,
+                             contrib=contrib))
         print(json.dumps({"spmv_cases": cases}))
         return 0
     serve = serve_checks(args, torch, dev, edges, n, graph)
@@ -1323,13 +1544,24 @@ def main(argv=None) -> int:
         ms=gnn_case["ms"], plain_ms=gnn_case["plain_ms"],
         bound_ms=gnn_case["bound_ms"], bound_by=gnn_case["bound_by"],
         library_ms=gnn_case["library_ms"]))
+    contrib_case = next(c for c in contrib["cases"] if c["case"] == "all")
+    kernels.append(dict(
+        name="pull_contrib", route="cuda",
+        source="src/repro_torch/kernels/pull_contrib/csrc/pull_contrib.cu",
+        replaces="none: the port's own kernel, the fixed-order f64 pull "
+                 "sum of src/repro_torch/core/pagerank.py _contrib",
+        launches=serve["kernel"]["launches"]["pull_contrib"],
+        max_abs_err=contrib["max_abs_err"], ms=contrib_case["ms"],
+        plain_ms=contrib_case["plain_ms"], bound_ms=contrib_case["bound_ms"],
+        bound_by=contrib_case["bound_by"],
+        library_ms=contrib_case["library_ms"]))
     wall = time.perf_counter() - t_start
     print(f"  wall {wall:.1f} s; card: {smi}")
     write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
                          build={k: dict(seconds=v["seconds"], log=v["log"])
                                 for k, v in builds.items()},
-                         spmv=spmv_kernel, spmv_cases=cases, serve=serve,
-                         ppr=ppr, gnn=gnn,
+                         spmv=spmv_kernel, spmv_cases=cases,
+                         contrib=contrib, serve=serve, ppr=ppr, gnn=gnn,
                          kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

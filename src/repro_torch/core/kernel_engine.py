@@ -19,7 +19,8 @@ Work accounting follows the kernel's granularity: per iteration,
 
 Sync policy: one boolean read (``delta > tol``) per iteration, as in the
 f64 loop; the fused step adds one read of the dropped-insertion count.
-Results carry the count in ``host_syncs``.
+Results carry the count in ``host_syncs``; each read is also recorded
+with ``device.note_host_syncs``, beside those of the packed update.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.core import pagerank as pr
 from repro_torch.core.pagerank import ALPHA, initial_affected
+from repro_torch.device import note_host_syncs
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.ops import PackedGraph, gated_contrib
 
@@ -61,8 +63,9 @@ class _Loop:
         # per-entry live-edge counts: constant across the loop
         self.entry_edges = (packed.valid > 0).sum(dim=1)
         dev = graph.device
-        self.c0 = torch.tensor((1.0 - alpha) / V, dtype=F32, device=dev)
-        self.a32 = torch.tensor(alpha, dtype=F32, device=dev)
+        # fills, not uploads: no host sync
+        self.c0 = torch.full((), (1.0 - alpha) / V, dtype=F32, device=dev)
+        self.a32 = torch.full((), alpha, dtype=F32, device=dev)
         self.tol, self.max_iter = tol, max_iter
         self.frontier_tol, self.prune_tol = frontier_tol, prune_tol
         self.closed_form, self.prune, self.expand = closed_form, prune, expand
@@ -74,7 +77,7 @@ class _Loop:
         dev = self.graph.device
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         return [self._pad(init_ranks.to(F32)), init_affected, init_affected,
-                torch.tensor(float("inf"), dtype=F32, device=dev), 0, zero,
+                torch.full((), float("inf"), dtype=F32, device=dev), 0, zero,
                 zero]
 
     def body(self, state):
@@ -118,6 +121,7 @@ class _Loop:
         while state[4] < self.max_iter:
             if check_first:
                 syncs += 1
+                note_host_syncs()
                 if not bool(state[3] > self.tol):
                     break
             check_first = True
@@ -161,6 +165,7 @@ def _fused_update_loop(graph_new: EdgeListGraph, packed: PackedGraph,
     from repro_torch.kernels.pagerank_spmv.update import (
         SPILL_ERROR, PackedSpillError, _apply_batch_packed)
     new_packed, dropped = _apply_batch_packed(packed, update)
+    note_host_syncs()
     n = int(dropped)
     if n:
         raise PackedSpillError(SPILL_ERROR.format(n=n))

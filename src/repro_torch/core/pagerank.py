@@ -14,7 +14,16 @@ r_new) with τ_f = τ_p = 1e-6 — the reference's semantics exactly.
 
 Sync policy: the loop ends on data, so each iteration reads one boolean
 (``delta > tol``) back to the host.  That keeps ``iterations`` equal to
-the reference's; ``PageRankResult.host_syncs`` counts the reads.
+the reference's; ``PageRankResult.host_syncs`` counts the reads, and
+each read (and each pulse of ``reachability_mask``) is also recorded with
+``device.note_host_syncs``.
+
+Summation order: each solve sorts its edge slots by dst once
+(``pull_order``), and every iteration adds each vertex's in-edge terms in
+that slot order from +0.0 (``kernels.pull_contrib``: the CUDA kernel on
+the card, ``index_add_`` on the CPU, which adds in the same order).  The
+ranks are therefore the same bit for bit from run to run, and equal on
+the card and on the CPU.
 """
 from __future__ import annotations
 
@@ -22,7 +31,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import note_host_syncs
 from repro_torch.graph.structure import EdgeListGraph
+from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
+    pull_contrib, pull_order
 
 ALPHA = 0.85
 TOL = 1e-10
@@ -43,15 +55,11 @@ class PageRankResult(NamedTuple):
     host_syncs: int = 0               # device-to-host reads in the solve
 
 
-def _contrib(graph: EdgeListGraph, ranks: torch.Tensor,
+def _contrib(order: PullOrder, ranks: torch.Tensor,
              inv_out_deg: torch.Tensor) -> torch.Tensor:
-    """c[v] = Σ_{u∈in(v), u≠v} R[u]/d_u  (pull step; self-loop excluded)."""
-    src = graph.src.long()
-    w = torch.where(graph.valid, ranks[src] * inv_out_deg[src],
-                    torch.zeros((), dtype=ranks.dtype, device=ranks.device))
-    out = torch.zeros(graph.num_vertices, dtype=ranks.dtype,
-                      device=ranks.device)
-    return out.index_add_(0, graph.dst.long(), w)
+    """c[v] = Σ_{u∈in(v), u≠v} R[u]/d_u  (pull step; self-loop excluded),
+    each vertex's terms added in the slot order of ``order``."""
+    return pull_contrib(order, ranks, inv_out_deg)
 
 
 def _rank_update(ranks, contrib, inv_deg, c0, alpha, closed_form: bool):
@@ -90,19 +98,22 @@ def _pagerank_loop(graph: EdgeListGraph,
     inv_deg = 1.0 / graph.out_degree(include_self_loop=True).to(F64)
     c0 = (1.0 - alpha) / V
     in_deg = graph.in_degree(include_self_loop=False).to(torch.int64)
+    # the order every iteration adds each vertex's terms in
+    order = pull_order(graph.src, graph.dst, graph.valid, in_deg)
     zero = torch.zeros((), dtype=F64, device=dev)
     zero_i = torch.zeros((), dtype=torch.int64, device=dev)
 
     ranks = init_ranks.to(F64)
     affected = init_affected
     ever = init_affected
-    delta = torch.tensor(float("inf"), dtype=F64, device=dev)
+    # a fill, not an upload: no host sync
+    delta = torch.full((), float("inf"), dtype=F64, device=dev)
     edges = zero_i
     verts = zero_i
     it = 0
     syncs = 0
     while it < max_iter:
-        contrib = _contrib(graph, ranks, inv_deg)
+        contrib = _contrib(order, ranks, inv_deg)
         r_new_all = _rank_update(ranks, contrib, inv_deg, c0, alpha,
                                  closed_form)
         r_new = torch.where(affected, r_new_all, ranks)
@@ -129,6 +140,7 @@ def _pagerank_loop(graph: EdgeListGraph,
         ranks, affected = r_new, new_affected
         it += 1
         syncs += 1
+        note_host_syncs()
         if not bool(delta > tol):
             break
     return PageRankResult(ranks, it, delta, ever, edges, verts, syncs)
@@ -167,6 +179,7 @@ def reachability_mask(graph_prev: EdgeListGraph, graph_new: EdgeListGraph,
         nxt = graph_prev.push_or(frontier) | graph_new.push_or(frontier)
         new = nxt & ~reach
         reach, frontier = reach | new, new
+        note_host_syncs()
         if not bool(new.any()):
             return reach
 

@@ -19,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, note_host_syncs, \
+    resolve_device
 from repro_torch.graph.structure import EdgeListGraph
 
 
@@ -48,9 +49,11 @@ def make_batch_update(deletions: np.ndarray, insertions: np.ndarray,
     def pad(a, cap):
         out = np.zeros((cap,), np.int32)
         out[: len(a)] = a
+        note_host_syncs()                  # an upload from pageable memory
         return torch.from_numpy(out).to(device)
 
     def mask(n, cap):
+        note_host_syncs()                  # an upload from pageable memory
         return torch.from_numpy(np.arange(cap) < n).to(device)
 
     return BatchUpdate(
@@ -131,7 +134,11 @@ def apply_batch(graph: EdgeListGraph, update: BatchUpdate) -> EdgeListGraph:
     new_valid = valid.clone()
     src[tgt] = update.ins_src[ok]
     dst[tgt] = update.ins_dst[ok]
-    new_valid[tgt] = True
+    # the five boolean-mask selections above each read their size back
+    note_host_syncs(5)
+    # index_fill_ passes the scalar to the kernel (an indexed assignment
+    # of a Python scalar would upload it from pageable memory: a sync)
+    new_valid.index_fill_(0, tgt, True)
     return dataclasses.replace(
         graph, src=src, dst=dst, valid=new_valid,
         num_edges=new_valid.sum(dtype=torch.int32))
@@ -142,10 +149,11 @@ def touched_vertices_mask(update: BatchUpdate,
     """bool[V]: u-endpoints of every edge in Δ — seeds for frontier marking.
 
     Masked-out slots are sent to a spare slot V rather than filtered out,
-    so no host read sizes the index."""
+    so no host read sizes the index, and ``index_fill_`` takes its value
+    as a scalar, so nothing is uploaded: no host sync."""
     m = torch.zeros(num_vertices + 1, dtype=torch.bool,
                     device=update.del_src.device)
     for src, mask in ((update.del_src, update.del_mask),
                       (update.ins_src, update.ins_mask)):
-        m[torch.where(mask, src, num_vertices).long()] = True
+        m.index_fill_(0, torch.where(mask, src, num_vertices).long(), True)
     return m[:num_vertices]

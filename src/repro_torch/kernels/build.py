@@ -31,6 +31,8 @@ SOURCES = {
     / "frontier_spmv.cu",
     "walk_repair": _KERNELS_DIR / "walk_repair" / "csrc" / "walk_repair.cu",
     "gated_spmm": _KERNELS_DIR / "segment_ops" / "csrc" / "gated_spmm.cu",
+    "pull_contrib": _KERNELS_DIR / "pull_contrib" / "csrc"
+    / "pull_contrib.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

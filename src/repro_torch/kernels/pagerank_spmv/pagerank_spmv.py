@@ -31,7 +31,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, note_host_syncs, \
+    resolve_device
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
 from repro_torch.kernels.segment_ops.plan import cached_plan, plan_sizes
@@ -180,6 +181,7 @@ def pack_blocks(src: np.ndarray, dst: np.ndarray, valid: np.ndarray,
             f"{widest} entries in one window exceed the pinned "
             f"max_entries_per_window {max_entries_per_window}")
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    note_host_syncs(7)                     # seven uploads from pageable memory
     return PackedGraph(
         src=as_t(s), dst_rel=as_t(d), valid=as_t(v), window=as_t(window),
         entry_start=as_t(entry_start),

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import note_host_syncs
 from repro_torch.graph.dynamic import BatchUpdate, first_of_equals
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import (
@@ -61,6 +62,7 @@ def pack_graph(graph: EdgeListGraph, *, be: int = DEFAULT_BE,
                max_entries_per_window: int | None = None) -> PackedGraph:
     """Host-side bootstrap/repack: EdgeListGraph -> PackedGraph, on the
     graph's device."""
+    note_host_syncs(3)                     # the three reads of the graph
     return pack_blocks(graph.src.cpu().numpy(), graph.dst.cpu().numpy(),
                        graph.valid.cpu().numpy(), graph.num_vertices,
                        be=be, vb=vb, num_entries=num_entries,
@@ -123,7 +125,10 @@ def _apply_batch_packed(packed: PackedGraph, update: BatchUpdate):
     del_key = update.del_src.long() * V + update.del_dst.long()
     del_t = locate(del_key, valid)
     valid = valid.clone()
-    valid[del_t[update.del_mask & (del_t < L)]] = 0.0
+    # the mask selection reads its size back; index_fill_ passes 0.0 to
+    # the kernel (an indexed assignment of it would be an upload)
+    valid.index_fill_(0, del_t[update.del_mask & (del_t < L)], 0.0)
+    note_host_syncs()
 
     # ---- insertions -----------------------------------------------------
     ins_w = (update.ins_dst // vb).long()
@@ -177,7 +182,10 @@ def _apply_batch_packed(packed: PackedGraph, update: BatchUpdate):
     dst_rel = rel_flat.clone()
     src[t] = update.ins_src[final_ok]
     dst_rel[t] = ins_rel[final_ok]
-    valid[t] = 1.0
+    valid.index_fill_(0, t, 1.0)
+    # the seven boolean-mask selections since the deletions each read
+    # their size back
+    note_host_syncs(7)
     new = dataclasses.replace(packed, src=src.reshape(ne, be),
                               dst_rel=dst_rel.reshape(ne, be),
                               valid=valid.reshape(ne, be),
@@ -194,6 +202,7 @@ def apply_batch_packed(packed: PackedGraph, update: BatchUpdate, *,
     """
     new, dropped = _apply_batch_packed(packed, update)
     if check:
+        note_host_syncs()
         n = int(dropped)
         if n:
             raise PackedSpillError(SPILL_ERROR.format(n=n))

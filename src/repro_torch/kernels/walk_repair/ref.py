@@ -1,14 +1,20 @@
-"""Plain PyTorch version of the walk-repair kernel (twin of
-``repro.kernels.walk_repair.ref``): the same hop recurrence, one torch op
-per step.  Its output is bitwise identical to the CUDA kernel's
-(``csrc/walk_repair.cu``): every step is an integer gather, an integer
-compare or one IEEE float32 multiply with a truncating convert.
+"""Plain PyTorch versions of the walk-repair kernel.
+
+``resample_rows_ref`` is the twin of ``repro.kernels.walk_repair.ref``:
+the hop recurrence on precomputed uniforms, one torch op per step.
+``resample_rows_keyed_ref`` is the CUDA kernel's plain version
+(``csrc/walk_repair.cu``): the same recurrence on the walks' own threefry
+draws (``threefry.walk_uniforms``), all of them made up front.  The
+kernel's output is bitwise identical to it: the draws are integer
+arithmetic, and every step is an integer gather, an integer compare or
+one IEEE float32 multiply with a truncating convert.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.graph.structure import CSRView
+from repro_torch.kernels.walk_repair.threefry import Key, walk_uniforms
 
 
 def resample_rows_ref(csr: CSRView, rows: torch.Tensor, t0: torch.Tensor,
@@ -38,3 +44,14 @@ def resample_rows_ref(csr: CSRView, rows: torch.Tensor, t0: torch.Tensor,
         cur = torch.where(val >= 0, val, cur)
         out.append(val)
     return torch.stack(out, dim=1)
+
+
+def resample_rows_keyed_ref(csr: CSRView, rows: torch.Tensor,
+                            t0: torch.Tensor, key: Key, ids: torch.Tensor,
+                            *, alpha: float) -> torch.Tensor:
+    """``resample_rows_ref`` with the draws of walks ``ids`` (int64[C],
+    taken mod 2**32) under the index's base ``key``: hop t of walk i draws
+    ``uniform2(fold_in(fold_in(key, i), t))``."""
+    return resample_rows_ref(csr, rows, t0,
+                             walk_uniforms(key, ids, rows.shape[1]),
+                             alpha=alpha)

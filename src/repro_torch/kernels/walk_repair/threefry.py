@@ -1,4 +1,5 @@
-"""Threefry-2x32 in plain torch: the bits ``jax.random`` draws.
+"""Threefry-2x32 in plain torch: the bits ``jax.random`` draws, and the
+walk index's per-hop draws made from them.
 
 The walk index's randomness is ``fold_in(fold_in(key, walk id), hop)``
 followed by ``uniform(key, (2,), float32)`` (``ppr/walks.py``).  Walks are
@@ -18,6 +19,11 @@ since jax 0.5):
 Torch's ``uint32`` has no arithmetic, so words are int64 tensors holding
 values in [0, 2**32), masked after every add and shift.  A key is a pair
 of such words: Python ints or int64 tensors that broadcast together.
+
+The walk-repair kernel (``csrc/walk_repair.cu``) makes the same draws in
+``uint32_t`` arithmetic; ``walk_uniforms`` is its plain version's draws.
+This module lives beside the kernel and imports nothing of ``ppr``, so
+the kernel's plain version can use it without an import cycle.
 """
 from __future__ import annotations
 
@@ -84,3 +90,25 @@ def uniform2(key: Key) -> torch.Tensor:
     """``jax.random.uniform(key, (2,), float32)``: f32[..., 2] in [0, 1)."""
     return torch.stack([bits_to_unit_float(random_bits(key, i))
                         for i in range(2)], dim=-1)
+
+
+def walk_keys(base_key: Key, walk_ids: torch.Tensor) -> Key:
+    """Per-walk keys fold_in(base_key, walk id); ``walk_ids`` are int64
+    taken modulo 2**32, as the reference's uint32 ids are."""
+    return fold_in(base_key, walk_ids)
+
+
+def hop_uniforms(walk_key: Key, t: int) -> torch.Tensor:
+    """f32[N, 2] uniforms for (walk, hop t): [:, 0] continue, [:, 1]
+    choice — a pure function of (base key, walk id, hop)."""
+    return uniform2(fold_in(walk_key, t))
+
+
+def walk_uniforms(key: Key, ids: torch.Tensor, max_len: int) -> torch.Tensor:
+    """f32[C, L-1, 2]: the draws of hops 1..L-1 of walks ``ids``."""
+    keys = walk_keys(key, ids)
+    u = torch.empty((ids.shape[0], max_len - 1, 2), dtype=torch.float32,
+                    device=ids.device)
+    for t in range(1, max_len):
+        u[:, t - 1] = hop_uniforms(keys, t)
+    return u

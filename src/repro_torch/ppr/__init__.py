@@ -6,7 +6,10 @@ low-latency personalized PageRank (twin of ``repro.ppr``, single device).
     index, resampled = repair_walk_index(index, graph_new, touched)
 
 The reference's range-sharded index (``repro.ppr.shard``) is not ported.
+``threefry`` (the walks' PRNG) lives beside the walk-repair kernel, which
+makes the same draws, and is re-exported here.
 """
+from repro_torch.kernels.walk_repair import threefry
 from repro_torch.ppr.estimator import (DEFAULT_MIN_EFFECTIVE_WALKS,
                                        diagnostics, effective_walks,
                                        error_bound, precision_at_k,
@@ -19,5 +22,5 @@ __all__ = [
     "DEFAULT_MIN_EFFECTIVE_WALKS", "IndexConfig", "WalkIndex",
     "build_walk_index", "diagnostics", "effective_walks", "error_bound",
     "ppr_estimate", "ppr_top_k", "precision_at_k", "repair_walk_index",
-    "stale_walks", "truncation_bias", "walks_for_error",
+    "stale_walks", "threefry", "truncation_bias", "walks_for_error",
 ]

@@ -16,12 +16,13 @@ on Gᵗ bit for bit while only stale walks are re-walked.
 Cost shape: staleness detection is one gather-reduce over the index, done
 over vertex ranges so its transients stay bounded; the stale ids are
 compacted with one ``torch.nonzero`` — the repair's one host read, which
-also sizes the resample exactly (no power-of-two capacity); the uniforms
-are drawn in plain torch and the hop recurrence runs in
+also sizes the resample exactly (no power-of-two capacity); the hop
+recurrence and its threefry draws run in
 ``kernels.walk_repair.resample_rows`` (the CUDA kernel for a CUDA index,
-its plain version for a CPU one), a chunk of walks at a time.  The result
-is written into a copy of the step array: the published snapshot still
-serves from the previous index until the next publish.
+which makes only the draws a walk reads; its plain version for a CPU
+one), a chunk of walks at a time.  The result is written into a copy of
+the step array: the published snapshot still serves from the previous
+index until the next publish.
 """
 from __future__ import annotations
 
@@ -30,15 +31,20 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import note_host_syncs
 from repro_torch.graph.structure import CSRView, EdgeListGraph
+# walk_uniforms (the draws of a set of walks) stays importable from here
+from repro_torch.kernels.walk_repair.threefry import (  # noqa: F401
+    walk_uniforms)
 from repro_torch.kernels.walk_repair.walk_repair import resample_rows
-from repro_torch.ppr.walks import WalkIndex, _walk_draws, _walk_keys
+from repro_torch.ppr.walks import WalkIndex
 
 # walks whose staleness is decided together (bounds the int32/bool
 # transients of the [walks, L] gather)
 STALE_CHUNK_WALKS = 1 << 22
-# stale walks resampled per kernel launch (bounds the f32[C, L-1, 2]
-# uniforms and the int64 PRNG transients)
+# stale walks resampled per launch: bounds the gathered rows and outputs
+# (int32[C, L] each), and on the CPU the plain version's f32[C, L-1, 2]
+# draws and int64 PRNG transients
 REPAIR_CHUNK_WALKS = 1 << 22
 
 
@@ -65,18 +71,9 @@ def stale_ids(stale: torch.Tensor, t0: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(flat walk ids int64[S], their first stale hops int32[S]) in walk
     order.  ``torch.nonzero`` reads the stale count back to the host."""
+    note_host_syncs()
     ids = torch.nonzero(stale.view(-1)).squeeze(1)
     return ids, t0.view(-1)[ids]
-
-
-def walk_uniforms(key, ids: torch.Tensor, max_len: int) -> torch.Tensor:
-    """f32[C, L-1, 2]: the draws of hops 1..L-1 of walks ``ids``."""
-    walk_keys = _walk_keys(key, ids)
-    u = torch.empty((ids.shape[0], max_len - 1, 2), dtype=torch.float32,
-                    device=ids.device)
-    for t in range(1, max_len):
-        u[:, t - 1] = _walk_draws(walk_keys, t)
-    return u
 
 
 def _resample(csr: CSRView, key, steps: torch.Tensor, ids: torch.Tensor,
@@ -90,9 +87,8 @@ def _resample(csr: CSRView, key, steps: torch.Tensor, ids: torch.Tensor,
     out_flat = out.view(V * R, L)
     for a in range(0, ids.shape[0], chunk_walks):
         idc = ids[a:a + chunk_walks]
-        u = walk_uniforms(key, idc, L)
         out_flat[idc] = resample_rows(csr, flat[idc], t0[a:a + chunk_walks],
-                                      u, alpha=alpha)
+                                      key, idc, alpha=alpha)
     return out
 
 

@@ -17,11 +17,12 @@ the implicit self-loop (slot ``deg``), i.e. P(stay) = 1/(deg+1); continue
 with probability ``alpha`` per hop — the exact solvers' transition.
 
 PRNG discipline: the randomness of walk i at hop t is
-``fold_in(fold_in(key, i), t)`` (``ppr.threefry``, bit-identical to
-``jax.random``), a pure function of (key, walk id, hop).  A walk's
-trajectory is therefore a pure function of (graph, key): rebuilding with
-the same key reproduces the index bit for bit, and repairing stale
-suffixes reproduces exactly what a fresh build on the new graph draws.
+``fold_in(fold_in(key, i), t)`` (``kernels.walk_repair.threefry``,
+bit-identical to ``jax.random``), a pure function of (key, walk id, hop).
+A walk's trajectory is therefore a pure function of (graph, key):
+rebuilding with the same key reproduces the index bit for bit, and
+repairing stale suffixes reproduces exactly what a fresh build on the new
+graph draws.
 The build goes over vertex ranges with global walk ids, so its result is
 the same for every ``chunk_vertices``.
 """
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch.core.pagerank import ALPHA
 from repro_torch.graph.structure import CSRView, EdgeListGraph
-from repro_torch.ppr import threefry
+from repro_torch.kernels.walk_repair import threefry
 
 DEFAULT_NUM_WALKS = 32
 DEFAULT_MAX_LEN = 20
@@ -81,18 +82,6 @@ class WalkIndex:
         return self.steps.numel() * 4
 
 
-def _walk_keys(base_key, walk_ids: torch.Tensor) -> threefry.Key:
-    """Per-walk keys fold_in(base_key, walk id); ``walk_ids`` are int64
-    taken modulo 2**32, as the reference's uint32 ids are."""
-    return threefry.fold_in(base_key, walk_ids)
-
-
-def _walk_draws(walk_keys: threefry.Key, t: int) -> torch.Tensor:
-    """f32[N, 2] uniforms for (walk, hop t): [:, 0] continue, [:, 1]
-    choice — a pure function of (base key, walk id, hop)."""
-    return threefry.uniform2(threefry.fold_in(walk_keys, t))
-
-
 def _transition(csr: CSRView, cur: torch.Tensor,
                 choice: torch.Tensor) -> torch.Tensor:
     """One hop from ``cur``: slot j ~ U{0..deg}, slot deg = self-loop.
@@ -116,7 +105,7 @@ def _build_steps_range(csr: CSRView, key, v_start: int, num_local: int,
     dev = csr.deg.device
     n_loc = num_local * R
     gids = v_start * R + torch.arange(n_loc, dtype=torch.int64, device=dev)
-    walk_keys = _walk_keys(key, gids)
+    walk_keys = threefry.walk_keys(key, gids)
     cur = (v_start + torch.arange(num_local, dtype=torch.int32, device=dev)
            ).repeat_interleave(R)
     a32 = torch.tensor(alpha, dtype=torch.float32, device=dev)
@@ -124,7 +113,7 @@ def _build_steps_range(csr: CSRView, key, v_start: int, num_local: int,
     out[:, 0] = cur
     alive = torch.ones(n_loc, dtype=torch.bool, device=dev)
     for t in range(1, L):
-        u = _walk_draws(walk_keys, t)
+        u = threefry.hop_uniforms(walk_keys, t)
         alive = alive & (u[:, 0] < a32)
         nxt = _transition(csr, cur, u[:, 1])
         cur = torch.where(alive, nxt, cur)

@@ -38,11 +38,18 @@ The reference's geometry tuner, mesh (and with it the sharded walk
 index), correctness monitor, iteration budget and telemetry are not
 ported yet; asking for them raises.
 
-Each batch records its host syncs (``metrics.batch_host_syncs``): one
-per solver iteration, one for the fallback check, one for the fused
-step's overflow check, one for the walk repair's stale count when an
-index is kept, and one read of the batch's counters, which also waits
-for the device (repair kernels included) so that the latency is honest.
+Each batch records its host syncs (``metrics.batch_host_syncs``): every
+call of the step that synchronizes the host with the card, as each call
+site records it (``device.note_host_syncs``), and as
+``torch.cuda.set_sync_debug_mode`` counts them on the card.  On the
+kernel engine's rank path that is six uploads of the polled batch from
+pageable memory, five boolean-mask selections in ``apply_batch`` and
+eight in the packed update (each reads its size back), the fallback
+check, the fused step's overflow check, one read per solver iteration
+(f32 phase and f64 polish), and one read of the batch's counters, which
+also waits for the device (repair kernels included) so that the latency
+is honest.  A walk index adds one (the stale count); a repack adds its
+reads and uploads.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ from repro_torch.core.api import ENGINES, KERNEL_FLAGS, LOOP_FLAGS, Method, \
     build_initial_state
 from repro_torch.core.kernel_engine import fused_hybrid_pagerank, \
     hybrid_pagerank
+from repro_torch.device import host_sync_count, note_host_syncs
 from repro_torch.graph.dynamic import apply_batch, touched_vertices_mask
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.update import PackedSpillError, \
@@ -182,19 +190,19 @@ class ServeEngine:
         """Apply one coalesced micro-batch if due; True if work was done."""
         if self._ranks is None:
             raise RuntimeError("bootstrap() before step()")
+        syncs0 = host_sync_count()
         batch = self.ingest.poll(force=force)
         if batch is None:
             return False
         t0 = self._clock()
-        syncs = 0
         graph_new = apply_batch(self._graph, batch.update)
         method = self.method
         init_state = build_initial_state(self._graph, graph_new,
                                          batch.update, self._ranks, method)
         fallback = False
         if method in ("traversal", "frontier", "frontier_prune"):
+            note_host_syncs()
             frac = float(init_state[1].to(torch.float64).mean())
-            syncs += 1
             if frac > self.static_fallback_frac:
                 method, fallback = "static", True
                 init_state = build_initial_state(
@@ -204,7 +212,6 @@ class ServeEngine:
         fuse = (self._packed is not None and not fallback
                 and method in DYNAMIC_METHODS)
         if self._packed is not None and not fuse:
-            syncs += 1
             try:
                 self._packed = apply_batch_packed(self._packed, batch.update)
             except PackedSpillError:
@@ -219,7 +226,6 @@ class ServeEngine:
             except PackedSpillError:
                 # overflow: repack at the pinned shapes and re-run with the
                 # SAME update (maintenance is then a no-op)
-                syncs += 1
                 self._packed = self._repack(graph_new)
                 self.metrics.record_packed_rebuild()
                 self._packed, res = fused_hybrid_pagerank(
@@ -235,12 +241,12 @@ class ServeEngine:
                                             graph_new.num_vertices)
             self._ppr, resampled = repair_walk_index(self._ppr, graph_new,
                                                      touched)
-            syncs += 1
         # one read of the batch's counters; it also waits for the device
+        note_host_syncs()
         affected, edges, verts = torch.stack([
             res.affected_ever.sum(dtype=torch.int64), res.edges_processed,
             res.vertices_processed]).tolist()
-        syncs += 1 + res.host_syncs
+        syncs = host_sync_count() - syncs0
         latency = self._clock() - t0
         self._graph, self._ranks = graph_new, res.ranks
         self.store.publish(graph_new, res.ranks, batch.last_seq,

@@ -24,9 +24,11 @@ CLI report:
   * ``comm_bytes`` — per-iteration cross-shard wire traffic summed over
     all batches (halo exchange on the sharded kernel path; 0 single-pod)
     — the observable the boundary-exchange win shows up in;
-  * ``host_syncs_per_batch`` — device-to-host round trips per
-    micro-batch (one per solver iteration, whose loop ends on data, plus
-    the step's own checks and reads);
+  * ``host_syncs_per_batch`` — calls that synchronize the host with
+    the card per micro-batch: reads of device values (one per solver
+    iteration, whose loop ends on data, plus the step's own checks),
+    boolean-mask selections and uploads from pageable memory
+    (``serve/engine.py``);
   * admission/fallback/coalescing counters.
 
 The port's copy of ``repro.serve.metrics``; it counts host syncs where

@@ -11,13 +11,19 @@ summation order) against the plain version and against its split-order
 plain version (``frontier_spmv_split_ref``).  Its split path (windows cut
 into chunks of at most ``chunk_entries`` entries, partial rows summed by
 a second pass) is forced at small K: 1, 2, 7 and the widest window.  The
-walk-repair kernel has no atomics and no float sums: it is held to its
-plain version bit for bit.  The segment-SpMM kernel sums in a fixed order
-(bitwise equal from run to run) but not in the order of the plain
-version's CUDA ``index_add_``: rtol 1e-4 / atol 1e-5 times the output's
-largest magnitude.  Its split path (windows cut into chunks of at most
-``chunk_entries`` entries, partial tiles summed by a second pass) is
-forced at small K here: 1, 2, 7 and 64 entries a chunk.
+walk-repair kernel makes its own threefry draws and has no atomics and no
+float sums: it is held to its keyed plain version
+(``resample_rows_keyed_ref``) bit for bit.  The f64 pull sum of the rank
+loop (``pull_contrib``) adds each vertex's terms in slot order from +0.0:
+it is held bit for bit to the CPU's ``index_add_``, and the f64 loop on
+the card to the loop on the CPU; the kernel engine's served ranks are
+held bit for bit from run to run, and a batch's ``batch_host_syncs`` to
+``torch.cuda.set_sync_debug_mode``'s count.  The segment-SpMM kernel
+sums in a fixed order (bitwise equal from run to run) but not in the
+order of the plain version's CUDA ``index_add_``: rtol 1e-4 / atol 1e-5
+times the output's largest magnitude.  Its split path (windows cut into
+chunks of at most ``chunk_entries`` entries, partial tiles summed by a
+second pass) is forced at small K here: 1, 2, 7 and 64 entries a chunk.
 """
 import dataclasses
 
@@ -34,13 +40,15 @@ from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded, \
     frontier_spmv_split_ref
 from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed, \
     pack_graph
+from repro_torch.kernels.pull_contrib import pull_contrib as pc
+from repro_torch.kernels.pull_contrib.ref import PullOrder, pull_contrib_ref
 from repro_torch.kernels.segment_ops import segment_matmul as sm
 from repro_torch.kernels.segment_ops.ops import aggregate_features
 from repro_torch.kernels.segment_ops.ref import gated_spmm_ref
 from repro_torch.kernels.walk_repair import walk_repair as wr
-from repro_torch.kernels.walk_repair.ref import resample_rows_ref
+from repro_torch.kernels.walk_repair.ref import resample_rows_keyed_ref
 from repro_torch.ppr import IndexConfig, build_walk_index
-from repro_torch.ppr.repair import stale_ids, stale_walks, walk_uniforms
+from repro_torch.ppr.repair import stale_ids, stale_walks
 from repro_torch.serve import IngestQueue, RankStore, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -297,57 +305,123 @@ def test_kernel_pagerank_loop_is_bitwise_run_to_run(cuda):
     assert int(a.edges_processed) == int(b.edges_processed)
 
 
-def _stale_inputs(dev, max_len=16):
+def _stale_inputs(dev, max_len=16, seed=1):
     """The compacted stale walks of one 256-event batch on R-MAT scale 10:
-    (new CSR, rows, first stale hops, uniforms), all on ``dev``."""
+    (new CSR, rows, first stale hops, the index's key, walk ids), all on
+    ``dev``."""
     edges, n = rmat_edges(10, 8, seed=7)
     graph = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
     index = build_walk_index(graph, IndexConfig(num_walks=32,
-                                                max_len=max_len, seed=1))
+                                                max_len=max_len, seed=seed))
     dele, ins = random_batch_update(edges, n, 256, seed=2)
     update = make_batch_update(dele, ins, 256, 256, device=dev)
     csr = apply_batch(graph, update).to_device_csr()
     stale, t0 = stale_walks(index.steps, touched_vertices_mask(update, n))
     ids, t0_sel = stale_ids(stale, t0)
     rows = index.steps.view(-1, max_len)[ids]
-    return csr, rows, t0_sel, walk_uniforms(index.key, ids, max_len)
+    return csr, rows, t0_sel, index.key, ids
+
+
+def _check_walk_repair(csr, rows, t0, key, ids, alpha=0.85):
+    """One launch against the keyed plain version, bit for bit, and two
+    more launches bitwise equal to it.  Returns the output."""
+    before = wr.LAUNCH_COUNTS["walk_repair"]
+    out = wr.resample_rows(csr, rows, t0, key, ids, alpha=alpha)
+    torch.cuda.synchronize()
+    assert wr.LAUNCH_COUNTS["walk_repair"] == before + (rows.shape[1] > 1)
+    assert torch.equal(out, resample_rows_keyed_ref(csr, rows, t0, key, ids,
+                                                    alpha=alpha))
+    for _ in range(2):
+        assert torch.equal(wr.resample_rows(csr, rows, t0, key, ids,
+                                            alpha=alpha), out)
+    return out
 
 
 @pytest.mark.parametrize("count", [1, 127, 129, None])
 def test_walk_repair_kernel_matches_plain_bitwise(cuda, count):
-    csr, rows, t0, u = _stale_inputs(cuda)
+    csr, rows, t0, key, ids = _stale_inputs(cuda)
     assert rows.shape[0] > 129
     if count is not None:                 # None: every stale walk
-        rows, t0, u = rows[:count], t0[:count], u[:count].contiguous()
-    before = wr.LAUNCH_COUNTS["walk_repair"]
-    out = wr.resample_rows(csr, rows, t0, u, alpha=0.85)
-    torch.cuda.synchronize()
-    assert wr.LAUNCH_COUNTS["walk_repair"] == before + 1
-    assert torch.equal(out, resample_rows_ref(csr, rows, t0, u, alpha=0.85))
+        rows, t0, ids = rows[:count], t0[:count], ids[:count]
+    out = _check_walk_repair(csr, rows, t0, key, ids)
+    if count is None:
+        assert not torch.equal(out, rows)
 
 
 @pytest.mark.parametrize("max_len", [1, 2])
 def test_walk_repair_kernel_short_walks(cuda, max_len):
-    csr, rows, t0, u = _stale_inputs(cuda, max_len=max_len)
-    before = wr.LAUNCH_COUNTS["walk_repair"]
-    out = wr.resample_rows(csr, rows, t0, u, alpha=0.85)
-    torch.cuda.synchronize()
     # a walk of one slot has no hop to re-walk: no launch
-    assert wr.LAUNCH_COUNTS["walk_repair"] == before + (max_len > 1)
-    assert torch.equal(out, resample_rows_ref(csr, rows, t0, u, alpha=0.85))
+    _check_walk_repair(*_stale_inputs(cuda, max_len=max_len))
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.85, 1.0])
+@pytest.mark.parametrize("max_len", [16, 20, 33])
+def test_walk_repair_kernel_walk_lengths(cuda, max_len, alpha):
+    """Random first stale hops with 0 and L-1 among them, rows that start
+    at -1, walk ids across 2**31 and 2**32 and a key with both words
+    set; 1,000 walks, so the last warp's pool is short."""
+    csr, rows, _, _, ids = _stale_inputs(cuda, max_len=max_len, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(max_len)
+    rows, ids = rows[:1000].clone(), ids[:1000]
+    t0 = torch.randint(0, max_len, (1000,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    t0[:100], t0[100:200] = 0, max_len - 1
+    rows[::13, 0] = -1
+    for key in ((0, 3), (2, 5)):
+        for offset in (0, 2**31 - 500, 2**32 - 500, 2**32 + 2**31):
+            out = _check_walk_repair(csr, rows, t0, key, ids + offset,
+                                     alpha=alpha)
+    if alpha == 0.85:
+        assert (out[:, -1] < 0).any() and not torch.equal(out, rows)
+
+
+def test_walk_repair_kernel_large_pools(cuda):
+    # R-MAT scale 14, 64 walks a vertex: tens of thousands of stale walks
+    # over hundreds of blocks, bitwise and run to run
+    edges, n = rmat_edges(14, 8, seed=9)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    index = build_walk_index(graph, IndexConfig(num_walks=64, max_len=16,
+                                                seed=3))
+    dele, ins = random_batch_update(edges, n, 1024, seed=5)
+    update = make_batch_update(dele, ins, 1024, 1024, device=cuda)
+    csr = apply_batch(graph, update).to_device_csr()
+    stale, t0 = stale_walks(index.steps, touched_vertices_mask(update, n))
+    ids, t0_sel = stale_ids(stale, t0)
+    assert ids.shape[0] > 20_000
+    _check_walk_repair(csr, index.steps.view(-1, 16)[ids], t0_sel,
+                       index.key, ids)
 
 
 def test_walk_repair_wrapper_checks_inputs(cuda):
-    csr, rows, t0, u = _stale_inputs(cuda)
+    csr, rows, t0, key, ids = _stale_inputs(cuda)
     with pytest.raises(TypeError, match="t0 must be torch.int32"):
-        wr.resample_rows(csr, rows, t0.long(), u, alpha=0.85)
-    with pytest.raises(ValueError, match="u must have shape"):
-        wr.resample_rows(csr, rows, t0, u[:, 1:], alpha=0.85)
+        wr.resample_rows(csr, rows, t0.long(), key, ids, alpha=0.85)
+    with pytest.raises(TypeError, match="ids must be torch.int64"):
+        wr.resample_rows(csr, rows, t0, key, ids.int(), alpha=0.85)
+    with pytest.raises(ValueError, match="ids must have shape"):
+        wr.resample_rows(csr, rows, t0, key, ids[1:], alpha=0.85)
+    with pytest.raises(ValueError, match="ids is on cpu"):
+        wr.resample_rows(csr, rows, t0, key, ids.cpu(), alpha=0.85)
+    with pytest.raises(ValueError, match="two uint32 words"):
+        wr.resample_rows(csr, rows, t0, (1, -1), ids, alpha=0.85)
     with pytest.raises(ValueError, match="rows must be contiguous"):
-        wr.resample_rows(csr, rows.t().contiguous().t(), t0, u, alpha=0.85)
-    with pytest.raises(ValueError, match="deg is on cpu"):
-        wr.resample_rows(csr._replace(deg=csr.deg.cpu()), rows, t0, u,
+        wr.resample_rows(csr, rows.t().contiguous().t(), t0, key, ids,
                          alpha=0.85)
+    with pytest.raises(ValueError, match="deg is on cpu"):
+        wr.resample_rows(csr._replace(deg=csr.deg.cpu()), rows, t0, key,
+                         ids, alpha=0.85)
+    long_rows = torch.zeros((4, wr.MAX_LEN + 1), dtype=torch.int32,
+                            device=cuda)
+    with pytest.raises(ValueError, match="exceed the kernel"):
+        wr.resample_rows(csr, long_rows, t0[:4], key, ids[:4], alpha=0.85)
+
+
+def test_walk_repair_kernel_info(cuda):
+    info = wr.kernel_info(16)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    assert info["max_len"] == wr.MAX_LEN
+    assert info["smem_per_block"] == info["walks_per_block"] * 17 * 4
+    assert wr.kernel_info(wr.MAX_LEN)["blocks_per_sm"] >= 1
 
 
 def test_serve_engine_keeps_walk_index_on_card(cuda):
@@ -611,3 +685,158 @@ def test_gnn_refresh_on_card(cuda):
                                atol=1e-5 * scale)
     assert res.nodes_recomputed.device.type == "cuda"
     assert 0 < int(res.nodes_recomputed) < n
+
+
+# ---------------------------------------------------------------------------
+# the f64 loop's fixed-order pull sum, and the rank path run to run
+# ---------------------------------------------------------------------------
+
+def _pull_inputs(dev, kind):
+    """(order, ranks, inv_deg) on ``dev`` for R-MAT scale 18 after a batch
+    (``rmat``), a 300,000-edge hub among random edges (``hub``), or a graph
+    with no live edge (``dead``); the same seeded values on every
+    device."""
+    rng = np.random.default_rng(11)
+    if kind == "hub":
+        n = 400_000
+        src = np.concatenate([rng.permutation(n)[:300_000],
+                              rng.integers(0, n, 500_000)])
+        dst = np.concatenate([np.full(300_000, 7), rng.integers(0, n, 500_000)])
+        keep = src != dst
+        graph = from_coo(src[keep], dst[keep], n, device=dev)
+    else:
+        edges, n = rmat_edges(18, 8, seed=13)
+        graph = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+        dele, ins = random_batch_update(edges, n, 4096, seed=14)
+        graph = apply_batch(graph, make_batch_update(dele, ins, 4096, 4096,
+                                                     device=dev))
+        if kind == "dead":
+            graph = dataclasses.replace(graph,
+                                        valid=torch.zeros_like(graph.valid))
+    ranks = torch.from_numpy(rng.random(n) / n).to(dev)
+    inv = 1.0 / graph.out_degree(include_self_loop=True).to(torch.float64)
+    order = pc.pull_order(graph.src, graph.dst, graph.valid,
+                          graph.in_degree(include_self_loop=False))
+    return order, ranks, inv
+
+
+@pytest.mark.parametrize("kind", ["rmat", "hub", "dead"])
+def test_pull_contrib_kernel_equals_cpu_sum_bitwise(cuda, kind):
+    order, ranks, inv = _pull_inputs(cuda, kind)
+    before = pc.LAUNCH_COUNTS["pull_contrib"]
+    out = pc.pull_contrib(order, ranks, inv)
+    torch.cuda.synchronize()
+    assert pc.LAUNCH_COUNTS["pull_contrib"] == before + 1
+    # the contract: each segment added in slot order from +0.0, as the
+    # CPU's index_add_ adds it
+    cpu = pull_contrib_ref(PullOrder(*(t.cpu() for t in order)),
+                           ranks.cpu(), inv.cpu())
+    assert torch.equal(out.cpu(), cpu)
+    for _ in range(3):
+        assert torch.equal(pc.pull_contrib(order, ranks, inv), out)
+    # the plain version on the card adds with atomics: close, not equal
+    torch.testing.assert_close(out, pull_contrib_ref(order, ranks, inv),
+                               rtol=1e-12, atol=0)
+    if kind == "dead":
+        assert float(out.abs().max()) == 0.0
+    if kind == "hub":
+        assert int(order.ptr[8] - order.ptr[7]) >= 299_999
+
+
+def test_pull_contrib_wrapper_checks_inputs(cuda):
+    order, ranks, inv = _pull_inputs(cuda, "dead")
+    with pytest.raises(TypeError, match="ranks must be torch.float64"):
+        pc.pull_contrib(order, ranks.float(), inv)
+    with pytest.raises(ValueError, match="inv_deg is on cpu"):
+        pc.pull_contrib(order, ranks, inv.cpu())
+    with pytest.raises(ValueError, match="ptr must have shape"):
+        pc.pull_contrib(order._replace(ptr=order.ptr[1:]), ranks, inv)
+    info = pc.kernel_info()
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("method", ["static", "frontier_prune"])
+def test_f64_loop_on_card_equals_cpu_bitwise(cuda, method):
+    from repro_torch.core import pagerank as pr
+    edges, n = rmat_edges(14, 8, seed=5)
+    dele, ins = random_batch_update(edges, n, 256, seed=6)
+    runs = {}
+    for dev in ("cpu", cuda):
+        graph = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+        upd = make_batch_update(dele, ins, 256, 256, device=dev)
+        graph2 = apply_batch(graph, upd)
+        if method == "static":
+            runs[str(dev)] = pr.static_pagerank(graph2)
+        else:
+            prev = pr.static_pagerank(graph).ranks
+            runs[str(dev)] = pr.dynamic_frontier_prune_pagerank(
+                graph, graph2, touched_vertices_mask(upd, n), prev)
+    a, b = runs["cpu"], runs[str(cuda)]
+    assert a.iterations == b.iterations
+    assert torch.equal(a.ranks, b.ranks.cpu())
+    assert torch.equal(a.affected_ever, b.affected_ever.cpu())
+
+
+def _serve_feed(eng, ingest, edges, n, b, size=512):
+    dele, ins = random_batch_update(edges, n, size, seed=100 + b)
+    for u, v in dele:
+        ingest.submit_delete(int(u), int(v))
+    for u, v in ins:
+        ingest.submit_insert(int(u), int(v))
+    return eng.step(force=True)
+
+
+def test_serve_engine_rank_path_is_bitwise_run_to_run(cuda):
+    edges, n = rmat_edges(16, 8, seed=5)
+    snaps, iters = [], []
+    for _ in range(2):
+        graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+        ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda)
+        eng = ServeEngine(graph, ingest, RankStore(), engine="kernel")
+        eng.bootstrap()
+        for b in range(3):
+            assert _serve_feed(eng, ingest, edges, n, b)
+        snaps.append(eng.store.snapshot().ranks)
+        iters.append(list(eng.metrics.batch_iterations))
+    assert eng.metrics.static_fallbacks == 0
+    assert iters[0] == iters[1]
+    assert torch.equal(snaps[0], snaps[1])
+
+
+def _sync_sites(syncs):
+    import collections
+    import os
+    return dict(collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs))
+
+
+@pytest.mark.parametrize("engine,walks", [("kernel", 0), ("xla", 0),
+                                          ("kernel", 16)])
+def test_rank_step_host_syncs_match_sync_debug_mode(cuda, engine, walks):
+    """``batch_host_syncs`` of a served batch equals the synchronizing
+    calls ``torch.cuda.set_sync_debug_mode("warn")`` reports for it."""
+    import warnings
+    edges, n = rmat_edges(16, 8, seed=5)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda)
+    ppr = IndexConfig(num_walks=walks, max_len=12, seed=2) if walks else None
+    eng = ServeEngine(graph, ingest, RankStore(), engine=engine,
+                      ppr_index=ppr)
+    eng.bootstrap()
+    assert _serve_feed(eng, ingest, edges, n, 0)     # the first batch warms
+    for b in (1, 2):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                assert _serve_feed(eng, ingest, edges, n, b)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # only the warning that names a synchronizing call: the first
+        # switch into the mode also warns that it is a prototype
+        syncs = [w for w in caught if "called a synchronizing CUDA "
+                 "operation" in str(w.message)]
+        m = eng.metrics
+        assert m.static_fallbacks == 0 and m.packed_rebuilds == 0
+        assert m.batch_host_syncs[-1] == len(syncs), _sync_sites(syncs)

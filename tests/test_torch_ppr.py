@@ -7,6 +7,9 @@ The same seeded inputs go through both packages on the CPU (R-MAT scale
 * threefry bits, walk builds, stale sets and repairs: bit for bit (the
   draws are a pure function of (key, walk, hop), the hop recurrence is
   integer gathers plus one IEEE f32 multiply);
+* the walk-repair kernel's keyed plain version (which makes its own
+  draws) against the reference's kernel path in interpret mode: bit for
+  bit, at walk ids past 2**31 and 2**32 and a key with both words set;
 * index estimates: rtol 1e-12 / atol 1e-15 (``index_add_`` and
   ``segment_sum`` add in different orders);
 * exact PPR and weighted PageRank: L∞ ≤ 1e-12 with equal iteration counts;
@@ -25,6 +28,7 @@ from repro.graph import dynamic as jdyn
 from repro.graph.generators import random_batch_update, rmat_edges
 from repro.graph.structure import from_coo
 from repro.kernels.walk_repair.ref import resample_rows_ref as j_resample_ref
+from repro.ppr import repair as jrepair
 from repro.serve import IngestQueue as JIngest
 from repro.serve import QueryClient as JClient
 from repro.serve import RankStore as JStore
@@ -34,7 +38,9 @@ from repro_torch import convert
 from repro_torch.core import extensions as text
 from repro_torch.graph.dynamic import apply_batch, touched_vertices_mask
 from repro_torch.kernels.walk_repair import walk_repair as wr
-from repro_torch.kernels.walk_repair.ref import resample_rows_ref
+from repro_torch.kernels.walk_repair import threefry as wr_threefry
+from repro_torch.kernels.walk_repair.ref import resample_rows_keyed_ref, \
+    resample_rows_ref
 from repro_torch.ppr import (IndexConfig, WalkIndex, build_walk_index,
                              diagnostics, effective_walks, error_bound,
                              ppr_estimate, ppr_top_k, precision_at_k,
@@ -117,6 +123,8 @@ def test_walk_uniforms_match_reference_draws(small, indexes):
                     axis=1)
     out = walk_uniforms(t_index.key, torch.from_numpy(ids), L)
     assert_bitwise(np_(out).view(np.uint32), np.asarray(ref).view(np.uint32))
+    # the name stays importable from ppr.repair; it lives beside the kernel
+    assert walk_uniforms is wr_threefry.walk_uniforms
 
 
 # ---------------------------------------------------------------------------
@@ -258,25 +266,110 @@ def resample_case(small, indexes):
 
 
 @pytest.mark.parametrize("num", [1, 127, 193, _MAX_ROWS])
-def test_resample_rows_ref_matches_reference(resample_case, num):
+def test_resample_rows_ref_matches_reference(resample_case, indexes, num):
     t_csr, rows, t0, u, ref = resample_case
-    args = (t_csr, torch.from_numpy(rows[:num]), torch.from_numpy(t0[:num]),
-            torch.from_numpy(u[:num]))
-    out = resample_rows_ref(*args, alpha=0.85)
+    args = (t_csr, torch.from_numpy(rows[:num]), torch.from_numpy(t0[:num]))
+    out = resample_rows_ref(*args, torch.from_numpy(u[:num]), alpha=0.85)
     assert_bitwise(out, ref[:num], "resample_rows_ref")
     assert not np.array_equal(ref, rows)
-    # on CPU tensors the wrapper runs the plain version and counts nothing
+    # on CPU tensors the wrapper runs the keyed plain version (the walks'
+    # own draws) and counts nothing
+    key = indexes[1].key
+    ids = torch.arange(num, dtype=torch.int64) * 7 + 2**31 - 5
     before = wr.LAUNCH_COUNTS["walk_repair"]
-    assert torch.equal(wr.resample_rows(*args, alpha=0.85), out)
+    keyed = resample_rows_keyed_ref(*args, key, ids, alpha=0.85)
+    assert torch.equal(wr.resample_rows(*args, key, ids, alpha=0.85), keyed)
     assert wr.LAUNCH_COUNTS["walk_repair"] == before
+    assert torch.equal(keyed, resample_rows_ref(
+        *args, walk_uniforms(key, ids, L), alpha=0.85))
 
 
 def test_resample_rows_length_one_is_identity(indexes):
     rows = torch.arange(6, dtype=torch.int32).view(6, 1)
+    ids = torch.arange(6, dtype=torch.int64)
     out = wr.resample_rows(indexes[1].csr, rows,
                            torch.zeros(6, dtype=torch.int32),
-                           torch.zeros((6, 0, 2)), alpha=0.85)
+                           indexes[1].key, ids, alpha=0.85)
     assert torch.equal(out, rows)
+    assert torch.equal(resample_rows_keyed_ref(
+        indexes[1].csr, rows, torch.zeros(6, dtype=torch.int32),
+        indexes[1].key, ids, alpha=0.85), rows)
+
+
+_KEYED_WALKS = 8                     # walks a vertex in the keyed cases
+# global id of local walk 0: walk ids from 0, across 2**31, across 2**32
+_ID_OFFSETS = [0, 2**31 - 700, 2**32 - 700, 2**32 + 2**31 - 700]
+
+
+@pytest.fixture(scope="module")
+def keyed_graphs(small):
+    """(graph after one 64-edge batch, its reference CSR, its port CSR)."""
+    g, edges, n = small
+    g2 = jdyn.apply_batch(g, _batch(edges, n, 64, seed=65))
+    j_csr = jax.jit(type(g2).to_device_csr)(g2)
+    t_csr = convert.walk_index_from_numpy(
+        np.zeros((n, 1, 1), np.int32), np_(j_csr.indptr), np_(j_csr.indices),
+        np_(j_csr.deg), (0, 0), 1, 1, 0.85, device=CPU).csr
+    return g, j_csr, t_csr
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.85, 1.0])
+@pytest.mark.parametrize("max_len", [2, 16, 20])
+def test_keyed_resample_matches_reference_kernel_path(small, keyed_graphs,
+                                                      max_len, alpha):
+    """``resample_rows_keyed_ref`` (and the CPU wrapper) against the
+    reference's kernel path (``_resample_kernel_impl``: the Pallas kernel
+    in interpret mode on draws the reference precomputes), bit for bit:
+    keys from seeds below and above 2**32, walk ids shifted across 2**31
+    and 2**32 (taken mod 2**32), first stale hops 0 and L-1 among random
+    ones, and rows that start at -1."""
+    g, j_csr, t_csr = keyed_graphs
+    n = g.num_vertices
+    steps = np_(build_walk_index(port_graph(g), IndexConfig(
+        num_walks=_KEYED_WALKS, max_len=max_len, seed=5)).steps).copy()
+    N = n * _KEYED_WALKS
+    rng = np.random.default_rng(max_len)
+    ids = np.sort(rng.choice(N, size=300, replace=False))
+    t0 = rng.integers(0, max_len, size=ids.shape[0]).astype(np.int32)
+    t0[:40] = 0
+    t0[40:60] = max_len - 1
+    dead = ids[::17]                         # rows that start at -1
+    steps.reshape(N, max_len)[dead, 0] = -1
+    rows = torch.from_numpy(steps.reshape(N, max_len)[ids])
+    for seed in (3, 2**33 + 5):
+        key = jax.random.PRNGKey(seed)
+        t_key = threefry.prng_key(seed)
+        assert all(t_key) or seed < 2**32
+        for offset in _ID_OFFSETS:
+            j_steps = jrepair._resample_kernel(
+                j_csr, key, jnp.asarray(steps), jnp.asarray(ids),
+                jnp.asarray(t0), alpha, jnp.asarray(offset, jnp.int64),
+                interpret=True)
+            ref = np.asarray(j_steps).reshape(N, max_len)[ids]
+            gids = torch.from_numpy(ids.astype(np.int64) + offset)
+            out = resample_rows_keyed_ref(t_csr, rows, torch.from_numpy(t0),
+                                          t_key, gids, alpha=alpha)
+            assert_bitwise(out, ref, f"seed {seed} offset {offset}")
+            assert torch.equal(wr.resample_rows(
+                t_csr, rows, torch.from_numpy(t0), t_key, gids,
+                alpha=alpha), out)
+        if 0.0 < alpha < 1.0:
+            # the case resamples something, and kills and keeps walks
+            assert not np.array_equal(ref, np_(rows))
+            assert (ref[:, -1] < 0).any()
+
+
+def test_resample_rows_wrapper_checks_key(indexes):
+    rows = torch.zeros((3, 4), dtype=torch.int32)
+    t0 = torch.zeros(3, dtype=torch.int32)
+    ids = torch.arange(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="two uint32 words"):
+        wr._key_words((1, 2**32))
+    with pytest.raises(ValueError, match="two uint32 words"):
+        wr._key_words((1,))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        wr.resample_rows(indexes[1].csr, rows.to("meta"), t0, (1, 2), ids,
+                         alpha=0.85)
 
 
 # ---------------------------------------------------------------------------
