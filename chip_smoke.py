@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --gnn-kernels-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
-frontier_spmv and phase 3b's pull_contrib kernel cases; the third only
-the set-up and phase 6's gated_spmm kernel cases, on the first batch's
-packed graph.  Neither prints a summary: they are the quick loops for
+frontier_spmv and phase 3b's pull_contrib and slot_count kernel cases;
+the third only the set-up and phase 6's gated_spmm kernel cases, on the
+first batch's packed graph.  Neither prints a summary: they are the quick loops for
 work on one kernel.
 
 It exits non-zero on the first failed check; no failure is passed over.
@@ -36,8 +36,15 @@ It exits non-zero on the first failed check; no failure is passed over.
              each vertex's terms in slot order, the kernel's contract),
              within PULL_RTOL against the plain version on the card
              (atomics), and bitwise run to run; the same for the longest
-             segment alone (``hub``); times kernel, plain version and
-             ``index_add_`` of the products, with its bound.
+             segment alone (``hub``), and the weighted sum (per-slot
+             weights, as weighted PageRank has them); times kernel, plain
+             version and ``index_add_`` of the products, with its bound.
+             Then the edge-slot count: the old ``_count`` (an int32
+             ``index_add_``) timed over every slot, the live slots only
+             and the free slots only (all of them vertex 0); the
+             slot_count kernel on ``in_degree``'s call and on a ~1 %
+             ``push_or``, equal to ``index_add_`` on the card and on the
+             CPU, timed beside it with its bytes bound.
 4. Serve   — the paper's §5.2.2 regime at the size of sx-stackoverflow: an
              R-MAT graph of 2**21 vertices and ~30 M edges, random
              80 % insert / 20 % delete batches.  ``ServeEngine(engine=
@@ -89,14 +96,34 @@ It exits non-zero on the first failed check; no failure is passed over.
              its plain version; (b) its active rows == ``sage_forward``'s
              layer-1 neighbour sum; (c) the refreshed embeddings == a full
              forward on ``affected_ever``; (d) inactive windows exactly 0;
-             (e) one launch per batch.  Then kernel cases at 0 %, ~5 %,
+             (e) one launch per batch; (f) ``pull_rows`` (the forward's
+             fixed-order neighbour-row sum, the port's own kernel)
+             launched once a layer of each refresh.  Then ``pull_rows``
+             at d = 602 and 128: twice, bitwise equal; within the GNN
+             tolerance of its plain version; timed beside it and one
+             cuSPARSE SpMM, with its bytes bound.  Then kernel cases at
+             0 %, ~5 %,
              100 %, the batch's own active windows, only the widest
              window (``hub``) and all but it (``rest``): kernel, plain and
              cuSPARSE times, bytes bound, bitwise equality run to run;
              and the kernel's K, scratch, shared memory, blocks a SM and
              registers.
-7. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
-             launches on its serve path, max error and times; then, last,
+7. Paper   — the paper's five methods (Static, ND, DT, DF, DF-P) on
+             both engines (``xla``, the f64 loop; ``kernel``, the f32
+             frontier_spmv iterations and f64 polish) through the
+             streaming driver's loop (``launch.pagerank.run_batches``)
+             on the set-up graph: 3 random batches (80 % insertions) of
+             1024 edges and 3 of 10^-3 |E|, each batch's latency,
+             iterations, ``affected_ever``, host syncs, ``_count`` calls
+             and L1 against a static f64 solve of its graph (<= 1e-4).
+             Then restart: 3 batches of DF-P uninterrupted, against 2
+             with a checkpoint every 2 and a restart from it
+             (``restore_stream``): final ranks bitwise equal.  Then the
+             driver's command line on the card, ``--batches 3`` and
+             ``--batches 5`` on one ``--ckpt-dir``: the second prints
+             ``restored at batch 2``.
+8. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+             launches on its path, max error and times; then, last,
              ``{"ok": true, "device": {...}}``.
 
 frontier_spmv sums in a fixed order (bitwise equal run to run), but not
@@ -105,7 +132,9 @@ no atomics and no float sums: it is compared bit for bit.  pull_contrib
 adds in slot order, as the CPU does: bit for bit against the plain
 version on the CPU, rtol PULL_RTOL against its atomic form on the card.
 gated_spmm sums in a fixed order, but not the plain version's: rtol 1e-4 /
-atol 1e-5 relative to the output's largest magnitude.
+atol 1e-5 relative to the output's largest magnitude; pull_rows adds in
+its plain version's order, which on the card adds with atomics: the same
+tolerance.  slot_count sums integers: exactly equal.
 """
 from __future__ import annotations
 
@@ -149,6 +178,9 @@ REL_LINF_LIMIT = 1e-6
 # the tolerance of tests/test_kernels.py held relative to the largest output
 GNN_RTOL, GNN_ATOL = 1e-4, 1e-5
 GNN_BATCHES = 3          # the GNN phase's batches (fewer if --batches is)
+# the paper-methods phase: random batches of FLUSH edges and of this share
+# of |E| (paper §5.2.2's 10^-3), 3 of each (fewer if --batches is)
+PAPER_BATCH_FRAC, PAPER_BATCHES = 1e-3, 3
 
 
 # what torch.cuda.set_sync_debug_mode("warn") says of a synchronizing call
@@ -439,15 +471,17 @@ def kernel_checks(torch, dev, graph):
     return cases, max_err, info
 
 
-def pull_contrib_bound(torch, order, ranks):
+def pull_contrib_bound(torch, order, ranks, weighted=False):
     """(bound_ms, bound_by, detail) for one pull sum on these inputs: ptr,
-    the live slots' src, ranks and inv_deg once per distinct source, the
-    f64 output; a multiply and an add a live slot."""
+    the live slots' src (and weights), ranks and inv_deg once per distinct
+    source, the f64 output; a multiply and an add a live slot (and a
+    multiply more with weights)."""
     V = ranks.shape[0]
     n_live = int(order.ptr[-1])
     n_src = int(torch.unique(order.src[:n_live]).numel()) if n_live else 0
-    nbytes = 4 * (V + 1) + 4 * n_live + 16 * n_src + 8 * V
-    flops = 2 * n_live
+    nbytes = (4 * (V + 1) + (12 if weighted else 4) * n_live + 16 * n_src
+              + 8 * V)
+    flops = (3 if weighted else 2) * n_live
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F64_FLOPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -488,10 +522,16 @@ def contrib_checks(torch, dev, graph):
     # only the hub's segment left: what its chain of adds costs
     ptr_hub = torch.where(torch.arange(n + 1, device=dev) <= hub,
                           order.ptr[hub], order.ptr[hub + 1])
+    # the weighted sums' per-slot weights (weighted PageRank's edge weights
+    # in the pull order)
+    weight = torch.rand(order.src.shape[0], generator=gen, device=dev,
+                        dtype=torch.float64) + 0.5
     cases, max_err = [], 0.0
-    for name, o in (("all", order), ("hub", order._replace(ptr=ptr_hub))):
-        out = pc.pull_contrib(o, ranks, inv)
-        plain = pull_contrib_ref(o, ranks, inv)
+    for name, o, w in (("all", order, None),
+                       ("hub", order._replace(ptr=ptr_hub), None),
+                       ("weighted", order, weight)):
+        out = pc.pull_contrib(o, ranks, inv, w)
+        plain = pull_contrib_ref(o, ranks, inv, w)
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
         max_err = max(max_err, err)
@@ -499,24 +539,28 @@ def contrib_checks(torch, dev, graph):
               f"{name}: kernel == plain on the card within rtol "
               f"{PULL_RTOL:g} (max abs err {err:.3e})")
         cpu = pull_contrib_ref(PullOrder(*(t.cpu() for t in o)),
-                               ranks.cpu(), inv.cpu())
+                               ranks.cpu(), inv.cpu(),
+                               None if w is None else w.cpu())
         check(torch.equal(out.cpu(), cpu),
               f"{name}: kernel == the CPU's sum, bit for bit")
-        check(all(torch.equal(pc.pull_contrib(o, ranks, inv), out)
+        check(all(torch.equal(pc.pull_contrib(o, ranks, inv, w), out)
                   for _ in range(3)),
               f"{name}: bitwise equal run to run (3 more calls)")
-        call = lambda: pc.pull_contrib(o, ranks, inv)
+        call = lambda: pc.pull_contrib(o, ranks, inv, w)
         ms, call_host_ms = time_ms(torch, call), host_ms(torch, call)
         call_device_ms = device_ms(torch, call, ("pull_contrib",))
-        plain_ms = time_ms(torch, lambda: pull_contrib_ref(o, ranks, inv))
+        plain_ms = time_ms(torch, lambda: pull_contrib_ref(o, ranks, inv, w))
         # one library call for the sum: index_add_ over the products
         src = o.src.long()
-        w = ranks[src] * inv[src]
+        prod = (ranks[src] * inv[src] if w is None
+                else ranks[src] * w * inv[src])
         dst = slot_vertex(o.ptr, src.shape[0])
         buf = torch.zeros(n + 1, dtype=torch.float64, device=dev)
-        library_ms = time_ms(torch, lambda: buf.zero_().index_add_(0, dst, w))
-        del src, w, dst, buf
-        bound_ms, bound_by, detail = pull_contrib_bound(torch, o, ranks)
+        library_ms = time_ms(torch,
+                             lambda: buf.zero_().index_add_(0, dst, prod))
+        del src, prod, dst, buf
+        bound_ms, bound_by, detail = pull_contrib_bound(torch, o, ranks,
+                                                        w is not None)
         cases.append(dict(case=name, max_abs_err=err, ms=ms,
                           host_ms=call_host_ms, device_ms=call_device_ms,
                           plain_ms=plain_ms, library_ms=library_ms,
@@ -528,10 +572,107 @@ def contrib_checks(torch, dev, graph):
               f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
               f"{library_ms:.4f} (index_add_ of the products) "
               f"live_slots={detail['live_slots']:,}", flush=True)
-    del order, ptr_hub
+    del order, ptr_hub, weight
     torch.cuda.empty_cache()
     return dict(cases=cases, max_abs_err=max_err, order_ms=order_ms,
                 hub_vertex=hub, hub_in_edges=int(seg[hub]), info=info)
+
+
+def int32_sectors(torch, mask):
+    """32-byte sectors of an int32 per-slot array that the slots of
+    ``mask`` fall in: the least a read of only those slots moves."""
+    pos = torch.nonzero(mask).squeeze(1)
+    return int(torch.unique_consecutive(pos // 8).numel())
+
+
+def slot_count_bound(torch, live, counted, gathered, n):
+    """(bound_ms, bound_by, detail) for one edge-slot count: every slot's
+    bool weight read once; the int32 index of a counted slot only (its
+    32-byte sectors); with a gather also the int32 gather index of a live
+    slot (its sectors) and the bool flags once; the int32 output written
+    once; an add a counted slot."""
+    E = live.shape[0]
+    n_live, n_counted = int(live.sum()), int(counted.sum())
+    index_bytes = 32 * int32_sectors(torch, counted)
+    gather_bytes = 32 * int32_sectors(torch, live) if gathered else 0
+    nbytes = E + index_bytes + gather_bytes + (n if gathered else 0) + 4 * n
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_counted / H100_INT32_OPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, dict(bytes=nbytes, slots=E,
+                                         live_slots=n_live,
+                                         index_bytes=index_bytes,
+                                         gather_bytes=gather_bytes)
+
+
+def count_checks(torch, dev, graph):
+    """Phase 3b, the edge-slot count: first the old ``_count`` (the int32
+    ``index_add_`` that is now the plain version) over every slot, over
+    the live slots only and over the free ones only, timed; then the
+    ``slot_count`` kernel on ``in_degree``'s call and on a ~1 % frontier
+    ``push_or``, each equal to the plain version on the card and on the
+    CPU, timed beside it and ``index_add_`` with its bound."""
+    from repro_torch.kernels.slot_count import slot_count as sc
+    from repro_torch.kernels.slot_count.ref import slot_count_ref
+    n = graph.num_vertices
+    live = graph.valid
+    n_live = int(live.sum())
+    dst_live, dst_free = graph.dst[live], graph.dst[~live]
+    old = {tag: time_ms(torch, lambda: slot_count_ref(idx, w, n), reps=10)
+           for tag, idx, w in (
+               ("all", graph.dst, live),
+               ("live", dst_live, torch.ones_like(dst_live, dtype=torch.bool)),
+               ("free", dst_free,
+                torch.zeros_like(dst_free, dtype=torch.bool)))}
+    hub = int(torch.bincount(dst_free.long()).argmax()) if len(dst_free) \
+        else -1
+    print(f"  old _count (int32 index_add_): all {graph.edge_capacity:,} "
+          f"slots {old['all']:.4f} ms, live {n_live:,} slots "
+          f"{old['live']:.4f} ms, free {len(dst_free):,} slots (dst "
+          f"{hub}) {old['free']:.4f} ms", flush=True)
+    del dst_live, dst_free
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    flags = torch.rand(n, generator=gen, device=dev) < 0.01
+    cases = []
+    for tag, extra in (("in_degree", ()),
+                       ("push_or", (graph.src, flags))):
+        args = (graph.dst, live, n) + extra
+        out = sc.slot_count(*args)
+        plain = slot_count_ref(*args)
+        check(torch.equal(out, plain), f"slot_count {tag}: kernel == plain "
+              f"(index_add_) on the card, exactly")
+        cpu = slot_count_ref(*(t.cpu() for t in args[:2]), n,
+                             *(t.cpu() for t in extra))
+        check(torch.equal(out.cpu(), cpu),
+              f"slot_count {tag}: kernel == the CPU's index_add_, exactly")
+        call = lambda: sc.slot_count(*args)
+        ms, call_host_ms = time_ms(torch, call), host_ms(torch, call)
+        call_device_ms = device_ms(torch, call, ("slot_count",))
+        plain_ms = time_ms(torch, lambda: slot_count_ref(*args))
+        hit = live if not extra else live & flags[graph.src.long()]
+        idx, w = graph.dst.long(), hit.to(torch.int32)
+        buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        library_ms = time_ms(torch, lambda: buf.zero_().index_add_(0, idx, w))
+        counted = int(hit.sum())
+        bound_ms, bound_by, detail = slot_count_bound(
+            torch, live, hit, bool(extra), n)
+        del idx, w, buf, hit
+        case = dict(case=tag, max_abs_err=0.0, ms=ms, host_ms=call_host_ms,
+                    device_ms=call_device_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, counted_slots=counted, **detail)
+        cases.append(case)
+        dev_txt = ("not measured" if call_device_ms is None
+                   else f"{call_device_ms:.4f}")
+        print(f"  slot_count {tag}: kernel_ms={ms:.4f} (host "
+              f"{call_host_ms:.4f}, device {dev_txt}) plain_ms={plain_ms:.4f}"
+              f" bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
+              f"{library_ms:.4f} (index_add_) counted_slots={counted:,} "
+              f"bound_bytes={detail['bytes']:,}",
+              flush=True)
+    torch.cuda.empty_cache()
+    return dict(old_ms=old, free_hub=hub, cases=cases)
 
 
 def library_case(torch, packed, awin, rsc, ref, tag):
@@ -1239,6 +1380,88 @@ def spmm_cases(torch, packed, feats, gen, batch_awin, plain):
     return cases
 
 
+def pull_rows_bound(torch, order, d):
+    """(bound_ms, bound_by, detail) for one neighbour-row sum: ptr and the
+    live slots' src once, each distinct source row of x once, the f32
+    [V, D] output written once; an add a live slot and column."""
+    V = order.ptr.shape[0] - 1
+    n_live = int(order.ptr[-1])
+    n_src = int(torch.unique(order.src[:n_live]).numel()) if n_live else 0
+    nbytes = 4 * (V + 1) + 4 * n_live + 4 * d * n_src + 4 * d * V
+    flops = d * n_live
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, dict(bytes=nbytes, flops=flops,
+                                         live_slots=n_live,
+                                         distinct_sources=n_src,
+                                         gathered_bytes=4 * d * n_live)
+
+
+def row_sum_cases(torch, graph, feats):
+    """Phase 6, GraphSAGE's neighbour-row sum (``pull_rows``, both layers'
+    widths): run twice, bitwise equal; within the GNN tolerance of the
+    plain version on the card (atomics); timed beside it and one cuSPARSE
+    SpMM of the same matrix, with its bytes bound."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.kernels.pull_contrib.ref import ROW_CHUNK, \
+        pull_rows_ref
+    from repro_torch.kernels.segment_ops.plan import plan_sizes
+    from repro_torch.models.gnn import neighbor_order
+    n = graph.num_vertices
+    order = neighbor_order(graph.src, graph.dst, graph.valid, n)
+    n_live = int(order.ptr[-1])
+    info = pc.kernel_info()
+    _, parts, splits = plan_sizes(n, order.src.shape[0], ROW_CHUNK)
+    print(f"  pull_rows: K={ROW_CHUNK} slots a chunk, {info['row_registers']}"
+          f" registers a thread, {info['row_blocks_per_sm']} blocks of 128 "
+          f"a SM; scratch bound {parts:,} partial rows, {splits:,} split "
+          f"vertices at most", flush=True)
+    a = torch.sparse_csr_tensor(
+        order.ptr.long(), order.src[:n_live].long(),
+        torch.ones(n_live, dtype=torch.float32, device=feats.device),
+        (n, feats.shape[0]), check_invariants=False)
+    cases, max_err = [], 0.0
+    for d in (feats.shape[1], 128):
+        x = feats if d == feats.shape[1] else feats[:, :d].contiguous()
+        out = pc.pull_rows(order, x)
+        check(torch.equal(pc.pull_rows(order, x), out),
+              f"pull_rows d={d}: bitwise equal run to run")
+        plain = pull_rows_ref(order, x)
+        err, big, bad = compare_rows(out, plain)
+        max_err = max(max_err, err)
+        check(bad == 0, f"pull_rows d={d}: kernel == plain within the GNN "
+              f"tolerance (max abs err {err:.3e}, largest {big:.3e})")
+        del out
+        ms = time_ms(torch, lambda: pc.pull_rows(order, x), reps=5,
+                     warmup=1)
+        plain_ms = time_ms(torch, lambda: pull_rows_ref(order, x), reps=2,
+                           warmup=1)
+        lib_out = torch.sparse.mm(a, x)
+        lerr, _, lbad = compare_rows(lib_out, plain)
+        del lib_out, plain
+        library_ms = (None if lbad else
+                      time_ms(torch, lambda: torch.sparse.mm(a, x), reps=5,
+                              warmup=1))
+        bound_ms, bound_by, detail = pull_rows_bound(torch, order, d)
+        case = dict(case=f"d={d}", max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms, library_err=lerr, **detail)
+        cases.append(case)
+        lib_txt = ("- (cuSPARSE disagrees with the plain version, max abs "
+                   f"err {lerr:.3e})" if library_ms is None
+                   else f"{library_ms:.4f} (cuSPARSE CSR SpMM)")
+        print(f"  pull_rows d={d}: kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"library_ms={lib_txt} live_slots={n_live:,} "
+              f"distinct_sources={detail['distinct_sources']:,} "
+              f"gathered_bytes={detail['gathered_bytes']:,}", flush=True)
+        del x
+    del order, a
+    torch.cuda.empty_cache()
+    return dict(cases=cases, max_abs_err=max_err, info=info)
+
+
 def gnn_setup(torch, dev, graph, n, forward=True):
     """Phase 6's inputs: graphsage-reddit features and parameters from the
     seed, the bootstrap forward (if ``forward``) and the packed graph at
@@ -1301,6 +1524,7 @@ def gnn_checks(args, torch, dev, edges, n, graph):
     from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
         touched_vertices_mask
     from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
     from repro_torch.kernels.segment_ops import segment_matmul as sm
     from repro_torch.kernels.segment_ops.ops import aggregate_features
     from repro_torch.models.gnn import neighbor_sum
@@ -1316,6 +1540,8 @@ def gnn_checks(args, torch, dev, edges, n, graph):
     feed = make_feed(args, edges, n)[:GNN_BATCHES]
     rows, max_err = [], 0.0
     sm.LAUNCH_COUNTS.clear()                  # counts of this run only
+    pc.LAUNCH_COUNTS.clear()
+    row_launches = 0
     for b, events in enumerate(feed):
         dele = np.asarray([(u, v) for k, u, v in events if k == "delete"],
                           np.int32).reshape(-1, 2)
@@ -1331,9 +1557,11 @@ def gnn_checks(args, torch, dev, edges, n, graph):
             packed2 = apply_batch_packed(packed, upd)
             ev[2].record()
             touched = touched_vertices_mask(upd, n)
+            before = pc.LAUNCH_COUNTS["pull_rows"]
             res = incremental_refresh(graph2, feats, emb, touched,
                                       layer_fn=layer_fn,
                                       n_layers=cfg.n_layers)
+            row_launches += pc.LAUNCH_COUNTS["pull_rows"] - before
             affected = touched | graph2.push_or(touched)
             ev[3].record()
             agg = aggregate_features(packed2, feats, affected)
@@ -1399,6 +1627,10 @@ def gnn_checks(args, torch, dev, edges, n, graph):
     check(launches == len(feed) and launches > 0,
           f"[gnn] (e) gated_spmm launched {launches} times for "
           f"{len(feed)} calls")
+    check(row_launches == cfg.n_layers * len(feed),
+          f"[gnn] (f) pull_rows launched {row_launches} times in the "
+          f"refreshes (one a layer of each batch's forward)")
+    rows_sum = row_sum_cases(torch, graph, feats)
 
     info = spmm_info(packed, feats.shape[1])
     cases = spmm_cases(torch, packed, feats, gen, awin, plain)
@@ -1411,6 +1643,7 @@ def gnn_checks(args, torch, dev, edges, n, graph):
     return dict(**{k: setup[k] for k in (
         "forward_s", "pack_s", "hub_window", "hub_entries",
         "hub_live_lanes")}, spmm=info, rows=rows, launches=launches,
+        row_launches=row_launches, row_sum=rows_sum,
         max_abs_err=max_err, cases=cases, peak_bytes_stream=stream_peak,
         peak_bytes=peak, phase_s=phase_s)
 
@@ -1442,6 +1675,197 @@ def gnn_kernel_cases(args, torch, dev, edges, n, graph):
     return dict(**{k: setup[k] for k in (
         "pack_s", "hub_window", "hub_entries", "hub_live_lanes")},
         spmm=info, cases=cases)
+
+
+def scipy_pagerank(src, dst, n, alpha=0.85, tol=1e-10, max_iter=500):
+    """f64[n]: static PageRank of the edges (src, dst) with an implicit
+    self-loop on every vertex, by SciPy's CSR product on the host, the
+    port's update rule and stopping test: a witness that shares no code
+    with the port."""
+    import numpy as np
+    import scipy.sparse as sp
+    deg = np.bincount(src, minlength=n).astype(np.float64) + 1.0
+    a = sp.csr_matrix((np.ones(len(src)), (dst, src)), shape=(n, n))
+    r = np.full(n, 1.0 / n)
+    for _ in range(max_iter):
+        r_new = (1.0 - alpha) / n + alpha * (a @ (r / deg) + r / deg)
+        delta = float(np.abs(r_new - r).max())
+        r = r_new
+        if delta <= tol:
+            break
+    return r
+
+
+def paper_checks(args, torch, dev, edges, n, graph):
+    """Phase 7: the paper's five methods on both engines over random
+    batches of two sizes, each batch's L1 against a static f64 solve of
+    its graph; then checkpointed restart through the streaming driver's
+    loop and its command line."""
+    phase("7. paper methods and restart at scale")
+    import shutil
+    import tempfile
+    from repro_torch.core.api import METHODS
+    from repro_torch.core.pagerank import static_pagerank
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.graph.dynamic import apply_batch, make_batch_update
+    from repro_torch.graph.generators import random_batch_update
+    from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
+        LAUNCH_COUNTS as SPMV_COUNTS
+    from repro_torch.kernels.pagerank_spmv.update import pack_graph
+    from repro_torch.kernels.pull_contrib.pull_contrib import \
+        LAUNCH_COUNTS as PULL_COUNTS
+    from repro_torch.kernels.slot_count.slot_count import \
+        LAUNCH_COUNTS as COUNT_COUNTS
+    from repro_torch.launch.pagerank import restore_stream, run_batches
+    from repro_torch.serve.engine import KERNEL_PACK_DEFAULTS
+
+    t_phase = time.perf_counter()
+    sizes = (FLUSH, round(PAPER_BATCH_FRAC * len(edges)))
+    batches = min(PAPER_BATCHES, args.batches)
+    t0 = time.perf_counter()
+    base = static_pagerank(graph).ranks
+    torch.cuda.synchronize()
+    print(f"  set-up graph: |V|={n:,} live edges {len(edges):,} in "
+          f"{graph.edge_capacity:,} slots; static f64 solve "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    # the serve engine's geometry, an overlay for every batch's insertions
+    packed0 = pack_graph(graph, **KERNEL_PACK_DEFAULTS,
+                         overlay_capacity=2 * batches * max(sizes))
+    torch.cuda.synchronize()
+    print(f"  pack for the kernel engine {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    counts = (COUNT_COUNTS, PULL_COUNTS, SPMV_COUNTS)
+    runs = []
+    for size in sizes:
+        updates, refs, g = [], [], graph
+        for b in range(batches):
+            dele, ins = random_batch_update(edges, n, size,
+                                            seed=SEED + 100 * size + b)
+            updates.append(make_batch_update(dele, ins, size, size,
+                                             device=dev))
+            g = apply_batch(g, updates[-1])
+            refs.append(static_pagerank(g).ranks)
+        witness = None
+        if size == sizes[0]:
+            # the yardstick itself, held to a solve of the last graph that
+            # shares no code with the port
+            t0 = time.perf_counter()
+            live = g.valid.cpu().numpy()
+            witness = torch.from_numpy(scipy_pagerank(
+                g.src.cpu().numpy()[live], g.dst.cpu().numpy()[live],
+                n)).to(dev)
+            l1 = float((refs[-1] - witness).abs().sum())
+            print(f"  batch {size:,}, last graph: static f64 solve vs SciPy "
+                  f"witness L1 {l1:.3e} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            check(l1 <= 1e-4, f"static f64 solve vs the SciPy witness: L1 "
+                  f"{l1:.3e} <= 1e-4")
+        del g
+        for method in METHODS:
+            for engine in ("xla", "kernel"):
+                for c in counts:
+                    c.clear()                 # counts of this run only
+                marks = [0]
+
+                def log(msg, marks=marks):
+                    marks.append(COUNT_COUNTS["slot_count"])
+                _, final, rows = run_batches(
+                    graph, base, lambda i: updates[i], 0, batches, method,
+                    reference=lambda i, g: refs[i], engine=engine,
+                    packed=packed0 if engine == "kernel" else None, log=log)
+                launches = dict(slot_count=COUNT_COUNTS["slot_count"],
+                                pull_contrib=PULL_COUNTS["pull_contrib"],
+                                frontier_spmv=SPMV_COUNTS["frontier_spmv"])
+                for row, a, z in zip(rows, marks[:-1], marks[1:]):
+                    row["slot_count_calls"] = z - a
+                l1_witness = (None if witness is None else
+                              float((final - witness).abs().sum()))
+                runs.append(dict(size=size, method=method, engine=engine,
+                                 rows=rows, launches=launches,
+                                 l1_witness=l1_witness))
+                print(f"  [{engine}] {method} batch {size:,}: " + "; ".join(
+                    f"{r['ms']:.2f} ms, {r['iterations']} it, affected "
+                    f"{r['affected']:,}, L1 {r['l1']:.3e}, syncs "
+                    f"{r['host_syncs']}, _count {r['slot_count_calls']}"
+                    for r in rows) + f"; launches {launches}"
+                    + ("" if witness is None else
+                       f"; last batch L1 vs SciPy {l1_witness:.3e}"),
+                    flush=True)
+                worst = max([r["l1"] for r in rows]
+                            + ([] if witness is None else [l1_witness]))
+                check(worst <= 1e-4, f"[{engine}] {method} batch {size:,}: "
+                      f"L1 vs static f64 (and SciPy) {worst:.3e} <= 1e-4")
+                check(launches["slot_count"] > 0
+                      and launches["pull_contrib"] > 0
+                      and (engine == "xla")
+                      == (launches["frontier_spmv"] == 0),
+                      f"[{engine}] {method}: slot_count and pull_contrib "
+                      f"launched, frontier_spmv "
+                      f"{'not ' if engine == 'xla' else ''}launched")
+        del updates, refs, witness
+    del packed0
+    torch.cuda.empty_cache()
+
+    # restart through the driver's loop: 3 batches uninterrupted; 2 with a
+    # checkpoint every 2, then a restart from it for the third
+    dele_ins = [random_batch_update(edges, n, FLUSH, seed=SEED + 7 + b)
+                for b in range(3)]
+    updates = [make_batch_update(d, i, FLUSH, FLUSH, device=dev)
+               for d, i in dele_ins]
+    quiet = lambda msg: None
+    _, full, _ = run_batches(graph, base, lambda i: updates[i], 0, 3,
+                             "frontier_prune", log=quiet)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(tmp, every=2)
+        run_batches(graph, base, lambda i: updates[i], 0, 2,
+                    "frontier_prune", mgr=mgr, log=quiet)
+        start, g_mid, r_mid = restore_stream(mgr, graph,
+                                             lambda i: updates[i])
+        _, resumed, _ = run_batches(g_mid, r_mid, lambda i: updates[i],
+                                    start, 3, "frontier_prune", log=quiet)
+        restart = dict(start=start, bitwise=bool(torch.equal(full, resumed)),
+                       linf=float((full - resumed).abs().max()))
+        check(start == 2 and restart["bitwise"],
+              f"restart at batch {start} through the driver's loop: final "
+              f"ranks bitwise equal to the uninterrupted run's (L_inf "
+              f"{restart['linf']:.3e})")
+        del g_mid, r_mid, resumed, full
+
+        # the command line, twice on one checkpoint directory
+        cli = []
+        env = dict(os.environ, PYTHONPATH=SRC)
+        for n_batches in (3, 5):
+            cmd = [sys.executable, "-m", "repro_torch.launch.pagerank",
+                   "--dataset", "sx-mathoverflow", "--batches",
+                   str(n_batches), "--ckpt-every", "2", "--check-error",
+                   "--ckpt-dir", os.path.join(tmp, "cli")]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                               cwd=ROOT, timeout=600)
+            cli.append(dict(cmd=" ".join(cmd[1:]), rc=r.returncode,
+                            s=time.perf_counter() - t0, out=r.stdout))
+            print(f"  $ python {' '.join(cmd[1:-2])} "
+                  f"({cli[-1]['s']:.1f} s, exit {r.returncode})")
+            for line in r.stdout.splitlines():
+                print(f"    {line}")
+            check(r.returncode == 0 and "stream complete" in r.stdout,
+                  f"the driver with --batches {n_batches} completed"
+                  + ("" if r.returncode == 0 else f": {r.stderr[-2000:]}"))
+            l1s = [float(x.split("L1err=")[1]) for x in r.stdout.splitlines()
+                   if "L1err=" in x]
+            check(l1s and max(l1s) <= 1e-4,
+                  f"the driver's L1 vs the NumPy oracle {max(l1s):.3e} "
+                  f"<= 1e-4")
+        check("restored at batch 2" in cli[1]["out"],
+              "the second run printed 'restored at batch 2'")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase {phase_s:.1f} s", flush=True)
+    return dict(sizes=list(sizes), runs=runs, restart=restart, cli=cli,
+                phase_s=phase_s)
 
 
 def write_out(args, record) -> None:
@@ -1499,6 +1923,7 @@ def main(argv=None) -> int:
         return 0
     cases, max_err, spmv_kernel = kernel_checks(torch, dev, graph)
     contrib = contrib_checks(torch, dev, graph)
+    counts = count_checks(torch, dev, graph)
     if args.spmv_kernels_only:
         print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
         write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
@@ -1506,7 +1931,7 @@ def main(argv=None) -> int:
                                             log=v["log"])
                                     for k, v in builds.items()},
                              spmv=spmv_kernel, spmv_cases=cases,
-                             contrib=contrib))
+                             contrib=contrib, counts=counts))
         print(json.dumps({"spmv_cases": cases}))
         return 0
     serve = serve_checks(args, torch, dev, edges, n, graph)
@@ -1514,8 +1939,10 @@ def main(argv=None) -> int:
     ppr = ppr_checks(args, torch, dev, edges, n, graph)
     torch.cuda.empty_cache()              # phase 5's walk index is gone
     gnn = gnn_checks(args, torch, dev, edges, n, graph)
+    torch.cuda.empty_cache()              # phase 6's features are gone
+    paper = paper_checks(args, torch, dev, edges, n, graph)
 
-    phase("7. summary")
+    phase("8. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -1555,14 +1982,38 @@ def main(argv=None) -> int:
         plain_ms=contrib_case["plain_ms"], bound_ms=contrib_case["bound_ms"],
         bound_by=contrib_case["bound_by"],
         library_ms=contrib_case["library_ms"]))
+    count_case = next(c for c in counts["cases"]
+                      if c["case"] == "in_degree")
+    kernels.append(dict(
+        name="slot_count", route="cuda",
+        source="src/repro_torch/kernels/slot_count/csrc/slot_count.cu",
+        replaces="none: the port's own kernel, the int32 index_add_ "
+                 "that counted the degrees and push_or of "
+                 "src/repro_torch/graph/structure.py",
+        launches=sum(r["launches"]["slot_count"] for r in paper["runs"]),
+        max_abs_err=0.0, ms=count_case["ms"],
+        plain_ms=count_case["plain_ms"], bound_ms=count_case["bound_ms"],
+        bound_by=count_case["bound_by"],
+        library_ms=count_case["library_ms"]))
+    row_case = gnn["row_sum"]["cases"][0]
+    kernels.append(dict(
+        name="pull_rows", route="cuda",
+        source="src/repro_torch/kernels/pull_contrib/csrc/pull_contrib.cu",
+        replaces="none: the port's own kernel, the f32 index_add_ of "
+                 "src/repro_torch/models/gnn.py neighbor_sum",
+        launches=gnn["row_launches"],
+        max_abs_err=gnn["row_sum"]["max_abs_err"], ms=row_case["ms"],
+        plain_ms=row_case["plain_ms"], bound_ms=row_case["bound_ms"],
+        bound_by=row_case["bound_by"], library_ms=row_case["library_ms"]))
     wall = time.perf_counter() - t_start
     print(f"  wall {wall:.1f} s; card: {smi}")
     write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
                          build={k: dict(seconds=v["seconds"], log=v["log"])
                                 for k, v in builds.items()},
                          spmv=spmv_kernel, spmv_cases=cases,
-                         contrib=contrib, serve=serve, ppr=ppr, gnn=gnn,
-                         kernels=kernels, wall_s=wall))
+                         contrib=contrib, counts=counts, serve=serve,
+                         ppr=ppr, gnn=gnn, paper=paper, kernels=kernels,
+                         wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

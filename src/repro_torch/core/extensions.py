@@ -13,6 +13,13 @@
 The loop reads one boolean back per iteration (``delta > tol``), as
 ``core.pagerank._pagerank_loop`` does, so iteration counts equal the
 reference's; ``PageRankResult.host_syncs`` counts the reads.
+
+Sums run in a fixed order, as in ``core.pagerank``: each solve sorts its
+slots by dst once and adds each vertex's terms in slot order from +0.0
+(``kernels.pull_contrib``, with the edge weights as per-slot weights),
+and the weighted out-degree adds each vertex's out-edge weights in slot
+order over a src-sorted order.  The ranks are the same bit for bit from
+run to run, and equal on the card and on the CPU.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from repro_torch.core.pagerank import (ALPHA, F64, FRONTIER_TOL, MAX_ITER,
                                        PRUNE_TOL, TOL, PageRankResult,
                                        initial_affected)
 from repro_torch.graph.structure import EdgeListGraph
+from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
+    pull_contrib, segment_sum, sorted_slots
 
 
 def _generalized_loop(graph: EdgeListGraph,
@@ -38,20 +47,24 @@ def _generalized_loop(graph: EdgeListGraph,
                       expand: bool = False) -> PageRankResult:
     V = graph.num_vertices
     dev = graph.device
-    src, dst = graph.src.long(), graph.dst.long()
     zero = torch.zeros((), dtype=F64, device=dev)
     zero_i = torch.zeros((), dtype=torch.int64, device=dev)
+    out_deg = graph.out_degree(include_self_loop=False)
+    in_deg = graph.in_degree(include_self_loop=False)
+    # the order every iteration adds each vertex's terms in
+    ptr, perm = sorted_slots(graph.dst, graph.valid, in_deg)
+    order = PullOrder(ptr, graph.src[perm])
     if edge_weight is None:
-        w_out = graph.out_degree(include_self_loop=False).to(F64)
-        contrib_w = torch.ones(graph.edge_capacity, dtype=F64, device=dev)
+        w_out = out_deg.to(F64)
+        slot_w = None                      # weight 1: r * 1.0 * inv == r * inv
     else:
-        w_out = torch.zeros(V, dtype=F64, device=dev).index_add_(
-            0, src, torch.where(graph.valid, edge_weight, zero))
-        contrib_w = edge_weight
+        ptr_out, perm_out = sorted_slots(graph.src, graph.valid, out_deg)
+        w_out = segment_sum(ptr_out, edge_weight[perm_out])
+        slot_w = edge_weight[perm]
     self_w = torch.ones(V, dtype=F64, device=dev)     # self-loop weight 1
     inv_w = 1.0 / (w_out + self_w)                     # incl. the self-loop
     base = (1.0 - alpha) * teleport
-    in_deg = graph.in_degree(include_self_loop=False).to(torch.int64)
+    in_deg = in_deg.to(torch.int64)
     tiny = torch.full((), 1e-300, dtype=F64, device=dev)
 
     ranks = init_ranks.to(F64)
@@ -60,10 +73,7 @@ def _generalized_loop(graph: EdgeListGraph,
     edges = verts = zero_i
     it = syncs = 0
     while it < max_iter:
-        vals = torch.where(graph.valid, ranks[src] * contrib_w * inv_w[src],
-                           zero)
-        contrib = torch.zeros(V, dtype=F64, device=dev).index_add_(0, dst,
-                                                                   vals)
+        contrib = pull_contrib(order, ranks, inv_w, slot_w)
         if closed_form:
             r_new_all = (base + alpha * contrib) / (1.0 - alpha * self_w
                                                     * inv_w)

@@ -9,6 +9,11 @@ serves a whole update stream:
     free slots;
   * degrees are derived from ``valid`` on demand, never stored stale.
 
+Degrees and frontier pushes count live slots with
+``kernels.slot_count`` (a CUDA kernel on the card: no atomic for a free
+or dead slot); ``push`` sums in slot order with ``kernels.pull_contrib``,
+so every sum here is the same bit for bit from run to run.
+
 Every vertex carries an implicit **self-loop** (paper §3.1): out-degree is
 ``valid_out_degree + 1`` and the self contribution is folded into the rank
 update, so no self-loop edges are materialised.
@@ -22,6 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.pull_contrib.pull_contrib import pull_contrib, \
+    pull_order
+from repro_torch.kernels.slot_count.slot_count import slot_count
 
 
 class CSRView(NamedTuple):
@@ -33,12 +41,6 @@ class CSRView(NamedTuple):
     indptr: torch.Tensor    # int32[V + 1]
     indices: torch.Tensor   # int32[E_cap]  (valid prefix per segment only)
     deg: torch.Tensor       # int32[V]
-
-
-def _count(index: torch.Tensor, weight: torch.Tensor, n: int) -> torch.Tensor:
-    """int32[n] sums of ``weight`` per ``index`` (a segment sum)."""
-    out = torch.zeros(n, dtype=torch.int32, device=index.device)
-    return out.index_add_(0, index.long(), weight.to(torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +65,11 @@ class EdgeListGraph:
     # ---- derived quantities (masked by `valid`) --------------------------
     def out_degree(self, include_self_loop: bool = True) -> torch.Tensor:
         """int32[V] out-degree; +1 for the implicit self-loop."""
-        deg = _count(self.src, self.valid, self.num_vertices)
+        deg = slot_count(self.src, self.valid, self.num_vertices)
         return deg + 1 if include_self_loop else deg
 
     def in_degree(self, include_self_loop: bool = True) -> torch.Tensor:
-        deg = _count(self.dst, self.valid, self.num_vertices)
+        deg = slot_count(self.dst, self.valid, self.num_vertices)
         return deg + 1 if include_self_loop else deg
 
     def num_valid_edges(self) -> torch.Tensor:
@@ -75,18 +77,16 @@ class EdgeListGraph:
 
     # ---- message passing primitives --------------------------------------
     def push(self, values: torch.Tensor) -> torch.Tensor:
-        """sum_{(u,v) in E} values[u] -> out[v]."""
-        contrib = torch.where(self.valid, values[self.src.long()],
-                              torch.zeros((), dtype=values.dtype,
-                                          device=values.device))
-        out = torch.zeros(self.num_vertices, dtype=values.dtype,
-                          device=values.device)
-        return out.index_add_(0, self.dst.long(), contrib)
+        """sum_{(u,v) in E} values[u] -> out[v] (f64 on the card), each
+        vertex's terms added in slot order from +0.0."""
+        order = pull_order(self.src, self.dst, self.valid,
+                           self.in_degree(include_self_loop=False))
+        return pull_contrib(order, values, torch.ones_like(values))
 
     def push_or(self, flags: torch.Tensor) -> torch.Tensor:
         """Boolean frontier propagation: out[v] |= flags[u] for (u,v) in E."""
-        hit = self.valid & flags[self.src.long()]
-        return _count(self.dst, hit, self.num_vertices) > 0
+        return slot_count(self.dst, self.valid, self.num_vertices,
+                          self.src, flags) > 0
 
     def to_device_csr(self) -> CSRView:
         """CSR view over valid edges, neighbour order stable in slot order.
@@ -98,7 +98,7 @@ class EdgeListGraph:
         key = torch.where(self.valid, self.src,
                           torch.full_like(self.src, V))
         order = torch.argsort(key, stable=True)
-        deg = _count(self.src, self.valid, V)
+        deg = slot_count(self.src, self.valid, V)
         indptr = torch.cat([torch.zeros(1, dtype=torch.int32,
                                         device=deg.device),
                             torch.cumsum(deg, 0, dtype=torch.int32)])

@@ -33,6 +33,7 @@ SOURCES = {
     "gated_spmm": _KERNELS_DIR / "segment_ops" / "csrc" / "gated_spmm.cu",
     "pull_contrib": _KERNELS_DIR / "pull_contrib" / "csrc"
     / "pull_contrib.cu",
+    "slot_count": _KERNELS_DIR / "slot_count" / "csrc" / "slot_count.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -14,9 +14,14 @@ than ``--min-queries`` queries were served.
         --dataset sx-mathoverflow --events 5000 --engine kernel \
         --ppr-walks 64
 
+With ``--ckpt-dir``, (ranks, generation, last_seq) checkpoints are
+written every ``--ckpt-every`` generations; on restart the driver replays
+events [0, last_seq] into the graph and resumes the feed from there: the
+same replay-from-stream contract as ``launch/pagerank.py``.
+
 Runs on the CUDA card unless ``--device cpu`` is given.  The reference
-driver's mesh, monitor, trace, metrics-export and checkpoint flags are not
-ported yet.
+driver's mesh, monitor, trace and metrics-export flags are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import numpy as np
 from repro_torch.core.api import ENGINES, METHODS
 from repro_torch.data.snap import PAPER_TABLE1, load_temporal
 from repro_torch.device import resolve_device
+from repro_torch.graph.dynamic import apply_batch, make_batch_update
 from repro_torch.ppr import IndexConfig
 from repro_torch.serve import IngestQueue, QueryClient, RankStore, \
     ServeEngine, ServeMetrics, preload_graph_and_feed
@@ -63,6 +69,9 @@ def main(argv=None):
                          "personalized top-k")
     ap.add_argument("--ppr-len", type=int, default=16,
                     help="walk-index max length L (with --ppr-walks)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="checkpoint every K generations (with --ckpt-dir)")
     ap.add_argument("--min-queries", type=int, default=0,
                     help="exit non-zero unless this many queries were served")
     ap.add_argument("--seed", type=int, default=0)
@@ -77,10 +86,32 @@ def main(argv=None):
           f"flush={args.flush_size}/{args.flush_interval_ms:g}ms")
 
     metrics = ServeMetrics()
-    store = RankStore()
+    store = RankStore(ckpt_dir=args.ckpt_dir or None,
+                      ckpt_every=args.ckpt_every)
+    restored = (store.restore_latest(ds.num_vertices, device)
+                if args.ckpt_dir else None)
+    start_event = 0
+    if restored is not None:
+        ranks, gen, last_seq = restored
+        start_event = last_seq + 1
+        if start_event > len(events):
+            # the checkpointed ranks reflect events this run's feed does
+            # not contain: replaying a truncated prefix would publish a
+            # graph inconsistent with the restored ranks and last_seq
+            print(f"FAIL: checkpoint last_seq={last_seq} exceeds the "
+                  f"--events {args.events} feed; rerun with --events > "
+                  f"{last_seq} (or a fresh --ckpt-dir)")
+            return 1
+        store.seed_generation(gen)             # gen clock survives restart
+        if start_event > 0:         # replay the already-served prefix
+            replay = events[:start_event]
+            graph = apply_batch(graph, make_batch_update(
+                np.zeros((0, 2)), replay, 8, max(8, len(replay)),
+                device=device))
+        print(f"restored generation {gen}; replayed {start_event} events")
     ingest = IngestQueue(flush_size=args.flush_size,
                          flush_interval=args.flush_interval_ms * 1e-3,
-                         device=device)
+                         start_seq=start_event, device=device)
     ppr_cfg = (IndexConfig(num_walks=args.ppr_walks, max_len=args.ppr_len,
                            seed=args.seed)
                if args.ppr_walks > 0 else None)
@@ -88,13 +119,16 @@ def main(argv=None):
                          method=args.method, engine=args.engine,
                          static_fallback_frac=args.static_fallback_frac,
                          ppr_index=ppr_cfg)
-    engine.bootstrap()
+    if restored is not None:
+        engine.bootstrap(ranks=restored[0], last_seq=start_event - 1)
+    else:
+        engine.bootstrap()
     client = QueryClient(store, ingest, metrics)
     rng = np.random.default_rng(args.seed)
 
     t0 = time.perf_counter()
     next_due = t0
-    for i in range(len(events)):
+    for i in range(start_event, len(events)):
         if args.rate > 0:                     # timed feed
             next_due += 1.0 / args.rate
             lag = next_due - time.perf_counter()
@@ -122,7 +156,8 @@ def main(argv=None):
 
     m = metrics.as_dict()
     m["wall_s"] = wall
-    m["feed_events_per_s"] = len(events) / wall if wall > 0 else 0.0
+    m["feed_events_per_s"] = (len(events) - start_event) / wall \
+        if wall > 0 else 0.0
     snap = store.snapshot()
     print("metrics " + json.dumps(
         {k: (round(v, 3) if isinstance(v, float) else v)

@@ -1,12 +1,17 @@
 """GraphSAGE on the segment-op substrate (twin of the GraphSAGE part of
 ``repro.models.gnn``).
 
-Message passing is a gather by edge src and a segment sum by edge dst
-(``index_add_``).  At full width the gathered messages do not fit the card
-(48.6 M edge slots x 602 f32 = 117 GB on the smoke's graph), so
-``neighbor_sum`` takes the slots ``EDGE_CHUNK`` at a time: the same
-function as the reference's one-shot ``segment_sum``, summed in another
-f32 order.
+Message passing is a gather by edge src and a segment sum by edge dst.
+``sage_forward`` sorts the edge slots by dst once (``pull_order``) and
+both layers sum each vertex's neighbour rows over that order with
+``kernels.pull_contrib.pull_rows``: a CUDA kernel on the card that cuts a
+vertex's slots into chunks, sums each chunk in slot order and the chunks
+in chunk order, with no atomics, so the forward is the same bit for bit
+from run to run.  It is the function of the reference's one-shot
+``segment_sum``, summed in another f32 order.  The plain version (on the
+CPU) gathers the messages ``EDGE_CHUNK`` slots at a time
+(``kernels.pull_contrib.ref``): at full width they would not fit at once
+(48.6 M edge slots x 602 f32 = 117 GB on the smoke's graph).  In-degrees are integer counts (``kernels.slot_count``).
 
 Not ported yet (ROADMAP): PNA, NequIP, GraphCast, the minibatch
 ``sage_block_forward`` and ``GraphBatch``'s fields for them.  The
@@ -21,9 +26,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-# edge slots gathered at once: 5 GB of f32 messages at D = 602, under 2**31
-# elements (torch's 32-bit index math)
-EDGE_CHUNK = 1 << 21
+from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
+    pull_order, pull_rows
+from repro_torch.kernels.slot_count.slot_count import slot_count
 
 
 class GraphBatch(NamedTuple):
@@ -34,28 +39,19 @@ class GraphBatch(NamedTuple):
     node_mask: torch.Tensor    # bool[N]
 
 
-def _seg_sum(vals, idx, n):
-    out = vals.new_zeros((n,) + tuple(vals.shape[1:]))
-    return out.index_add_(0, idx.long(), vals)
+def neighbor_order(src, dst, mask, n: int) -> PullOrder:
+    """The edge slots sorted by dst (masked ones last), with each vertex's
+    in-degree as its segment: one sort, shared by a forward's layers."""
+    return pull_order(src, dst, mask, slot_count(dst, mask, n))
 
 
-def _gather_send(feats, src, mask):
-    """Messages ``feats[src]``, zero where ``mask`` is false."""
-    return feats[src.long()].masked_fill_(~mask[:, None], 0.0)
-
-
-def _degree(dst, mask, n):
-    return _seg_sum(mask.to(torch.float32), dst, n)
-
-
-def neighbor_sum(feats, src, dst, mask, n: int) -> torch.Tensor:
-    """``_seg_sum(_gather_send(feats, src, mask), dst, n)``, ``EDGE_CHUNK``
-    edge slots at a time: out[v] = Σ_{mask e: dst(e)=v} feats[src(e)]."""
-    out = feats.new_zeros(n, feats.shape[1])
-    for s in range(0, src.shape[0], EDGE_CHUNK):
-        e = slice(s, s + EDGE_CHUNK)
-        out.index_add_(0, dst[e].long(), _gather_send(feats, src[e], mask[e]))
-    return out
+def neighbor_sum(feats, src, dst, mask, n: int,
+                 order: Optional[PullOrder] = None) -> torch.Tensor:
+    """out[v] = Σ_{mask e: dst(e)=v} feats[src(e)] over ``order``
+    (``neighbor_order``, built here if not given)."""
+    if order is None:
+        order = neighbor_order(src, dst, mask, n)
+    return pull_rows(order, feats)
 
 
 # ===========================================================================
@@ -114,10 +110,13 @@ def sage_forward(cfg: SAGEConfig, params: SAGE, g: GraphBatch,
     ``kernels.segment_ops.ops.aggregate_features``."""
     n = g.node_feats.shape[0]
     h = g.node_feats
-    deg = _degree(g.edge_dst, g.edge_mask, n)[:, None].clamp_(min=1.0)
+    order = neighbor_order(g.edge_src, g.edge_dst, g.edge_mask, n)
+    # integer in-degrees, exact in f32 below 2**24
+    deg = (order.ptr[1:] - order.ptr[:-1]).to(torch.float32)[:, None] \
+        .clamp_(min=1.0)
     for i, lp in enumerate(params.layers):
-        mean = neighbor_sum(h, g.edge_src, g.edge_dst, g.edge_mask,
-                            n).div_(deg)
+        mean = neighbor_sum(h, g.edge_src, g.edge_dst, g.edge_mask, n,
+                            order).div_(deg)
         w_s, b_s = lp["w_self"]
         w_n, b_n = lp["w_neigh"]
         h = h @ w_s + mean @ w_n + b_s + b_n

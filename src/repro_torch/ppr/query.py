@@ -14,9 +14,13 @@ per-seed estimates (uniform teleport over the seeds, the contract of
 ``core.extensions.personalized_pagerank``).  ``unroll=False`` gives the
 raw R-walk estimator.
 
-Everything is f64.  Visit counts are summed with ``index_add_``, which
-adds in another order than the reference's ``segment_sum``: estimates
-agree with the reference to rounding, not bit for bit.  Nothing is
+Everything is f64.  Visit counts are summed in a fixed order: the walk
+positions are sorted stably by the vertex they visit, and each vertex's
+terms are added in position order from +0.0 (``kernels.pull_contrib``),
+so an estimate is the same bit for bit from run to run and on the card
+and the CPU.  That is another order than the reference's
+``segment_sum``: estimates agree with the reference to rounding, not bit
+for bit.  Nothing is
 compiled, so seed and neighbour blocks are not padded to power-of-two
 buckets; the neighbour axis still goes in slabs of at most
 ``_MAX_NBR_WIDTH`` columns to bound the gather a hub seed costs.
@@ -28,23 +32,37 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
+    pull_values, sorted_slots
+from repro_torch.kernels.slot_count.slot_count import slot_count
 from repro_torch.ppr.walks import WalkIndex
 
 F64 = torch.float64
 _MAX_NBR_WIDTH = 1024   # neighbour-slab width cap (bounds the gather)
 
 
+def _keyed_sum(keys: torch.Tensor, rows: int, values: torch.Tensor,
+               V: int) -> torch.Tensor:
+    """f64[V]: out[v] = Σ values[i // rows] over the positions i with
+    ``keys[i] == v`` (a negative key is no vertex), added in position
+    order from +0.0: one stable sort of the positions by key, then the
+    fixed-order pull sum of ``values`` (every source i // rows lies in
+    [0, len(values)) when ``keys`` has ``rows`` positions a value)."""
+    live = keys >= 0
+    ptr, perm = sorted_slots(keys, live,
+                             slot_count(keys.clamp(min=0), live, V))
+    order = PullOrder(ptr, torch.div(perm, rows, rounding_mode="floor")
+                      .to(torch.int32))
+    return pull_values(order, values)
+
+
 def _counts(steps: torch.Tensor, sources: torch.Tensor,
             weights: torch.Tensor) -> torch.Tensor:
     """f64[V] Σ over walk positions of the gathered ``sources`` rows,
     each position weighted by its source's scalar weight."""
-    V = steps.shape[0]
+    V, R, L = steps.shape
     sel = steps[sources.long()]                           # [B, R, L]
-    w = torch.where(sel >= 0, weights[:, None, None],
-                    torch.zeros((), dtype=F64, device=steps.device))
-    out = torch.zeros(V, dtype=F64, device=steps.device)
-    return out.index_add_(0, sel.clamp(0, V - 1).reshape(-1).long(),
-                          w.reshape(-1))
+    return _keyed_sum(sel.reshape(-1), R * L, weights, V)
 
 
 def _direct_estimate(steps: torch.Tensor, alpha: float,
@@ -97,10 +115,13 @@ def _unrolled_chunk(steps: torch.Tensor, indptr: torch.Tensor,
 
 def _seed_point_mass(est: torch.Tensor, deg: torch.Tensor, alpha: float,
                      seeds: torch.Tensor) -> torch.Tensor:
-    """Add each seed's closed-form point mass (1-α)/(z·|S|)."""
+    """Add each seed's closed-form point mass (1-α)/(z·|S|); the masses of
+    a repeated seed are summed in seed order first."""
     n_seeds = float(seeds.shape[0])
     z = 1.0 - alpha / (deg[seeds.long()] + 1.0)
-    return est.index_add_(0, seeds.long(), (1.0 - alpha) / (z * n_seeds))
+    mass = _keyed_sum(seeds, 1, (1.0 - alpha) / (z * n_seeds),
+                      est.shape[0])
+    return est + mass
 
 
 def _unrolled_estimate(index: WalkIndex, seeds: torch.Tensor, nbr_cap: int,

@@ -9,7 +9,14 @@ the pointer copy, so a query never observes a torn (graph, ranks) pair.
 logical clock; ``last_seq`` records the newest ingest event folded into
 the snapshot.  A PPR walk index, when the engine keeps one, rides in the
 same snapshot, so index queries see the graph the ranks were solved on.
-Checkpointed restart (``ckpt_dir``) is not ported yet.
+
+Checkpointing reuses ``ft.checkpoint`` (atomic manifest + rename, the
+reference's format): (ranks, generation, last_seq) every ``ckpt_every``
+generations.  The graph itself is not checkpointed: restart replays the
+event log up to ``last_seq`` (``launch/serve.py`` does this), the same
+replay-from-stream contract as ``launch/pagerank.py``.  Nor is the PPR
+walk index: its sampling is a pure function of (graph, config seed), so
+the restarted engine rebuilds it bit for bit from the replayed graph.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import DeviceLike
+from repro_torch.ft.checkpoint import CheckpointManager
 from repro_torch.graph.structure import EdgeListGraph
 
 
@@ -32,19 +41,21 @@ class Snapshot(NamedTuple):
 
 
 class RankStore:
-    """Front-buffer snapshot holder."""
+    """Front-buffer snapshot holder with optional periodic checkpoints."""
 
-    def __init__(self, ckpt_dir: Optional[str] = None):
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "RankStore(ckpt_dir=...): checkpointed restart is not "
-                "ported yet")
+    def __init__(self, ckpt_dir: Optional[str] = None, ckpt_every: int = 10,
+                 keep_last: int = 3):
         self._lock = threading.Lock()
         self._snap: Optional[Snapshot] = None
         self._next_gen = 0
+        self._mgr = (CheckpointManager(ckpt_dir, every=max(1, ckpt_every),
+                                       keep_last=keep_last)
+                     if ckpt_dir else None)
 
     def seed_generation(self, generation: int):
-        """Continue the generation clock from ``generation``."""
+        """Continue the generation clock from a restored checkpoint, so it
+        stays monotone across restarts (the restored snapshot is
+        re-published at its own generation)."""
         with self._lock:
             self._next_gen = generation
 
@@ -56,7 +67,18 @@ class RankStore:
             self._next_gen += 1
             self._snap = Snapshot(graph, ranks, gen, int(last_seq),
                                   ppr_index)
+        if self._mgr is not None:
+            # gen 0 (the bootstrap snapshot) satisfies `gen % every == 0`,
+            # so a restart never has to redo the cold static solve
+            self._mgr.maybe_save(gen, self._ckpt_state(self._snap))
         return gen
+
+    @staticmethod
+    def _ckpt_state(snap: Snapshot) -> dict:
+        return dict(ranks=snap.ranks,
+                    generation=torch.tensor(snap.generation,
+                                            dtype=torch.int64),
+                    last_seq=torch.tensor(snap.last_seq, dtype=torch.int64))
 
     def snapshot(self) -> Snapshot:
         """The current front buffer (raises before the first publish)."""
@@ -70,3 +92,19 @@ class RankStore:
     def generation(self) -> int:
         with self._lock:
             return -1 if self._snap is None else self._snap.generation
+
+    def restore_latest(self, num_vertices: int, device: DeviceLike = None):
+        """(ranks, generation, last_seq) of the newest checkpoint, or None;
+        the ranks land on ``device`` (default: the CUDA card)."""
+        if self._mgr is None:
+            return None
+        meta = dict(device="meta")
+        target = dict(
+            ranks=torch.empty(num_vertices, dtype=torch.float64, **meta),
+            generation=torch.empty((), dtype=torch.int64, **meta),
+            last_seq=torch.empty((), dtype=torch.int64, **meta))
+        _, state = self._mgr.restore_latest(target, device)
+        if state is None:
+            return None
+        return (state["ranks"], int(state["generation"]),
+                int(state["last_seq"]))

@@ -81,6 +81,8 @@ def _entry_points():
     from repro_torch.graph.dynamic import make_batch_update
     from repro_torch.graph.structure import from_coo
     from repro_torch.kernels.pagerank_spmv.pagerank_spmv import pack_blocks
+    from repro_torch.ft.checkpoint import restore
+    from repro_torch.launch.pagerank import main as pagerank_main
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.serve import IngestQueue
     e = np.asarray([[0, 1], [1, 2]], np.int32)
@@ -97,6 +99,8 @@ def _entry_points():
             np.zeros((4, 1, 2)), np.zeros(5), np.zeros(2), np.zeros(4),
             (0, 0), 1, 2, 0.85),
         "launch.serve": lambda: serve_main(["--events", "10"]),
+        "launch.pagerank": lambda: pagerank_main(["--batches", "1"]),
+        "checkpoint.restore": lambda: restore("no_such_dir", 0, {}),
         "sage_params_from_numpy": lambda: convert.sage_params_from_numpy(
             [dict(w_self=(np.ones((2, 2)), np.zeros(2)),
                   w_neigh=(np.ones((2, 2)), np.zeros(2)))]),

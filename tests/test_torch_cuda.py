@@ -24,6 +24,12 @@ order of the plain version's CUDA ``index_add_``: rtol 1e-4 / atol 1e-5
 times the output's largest magnitude.  Its split path (windows cut into
 chunks of at most ``chunk_entries`` entries, partial tiles summed by a
 second pass) is forced at small K here: 1, 2, 7 and 64 entries a chunk.
+The edge-slot count (``slot_count``: degrees and ``push_or``) sums
+integers, so it equals its plain version exactly.  The weighted pull sum
+is held bit for bit to the CPU's ``index_add_`` as the unweighted one is,
+and the row sum of GraphSAGE (``pull_rows``: chunks of K slots, then the
+chunks in order) bit for bit to its plain version on the CPU, and within
+atol 1e-5 times its largest magnitude to the plain version on the card.
 """
 import dataclasses
 
@@ -751,6 +757,10 @@ def test_pull_contrib_wrapper_checks_inputs(cuda):
         pc.pull_contrib(order, ranks, inv.cpu())
     with pytest.raises(ValueError, match="ptr must have shape"):
         pc.pull_contrib(order._replace(ptr=order.ptr[1:]), ranks, inv)
+    with pytest.raises(ValueError, match="inv_deg must have shape"):
+        pc.pull_contrib(order, ranks, inv[1:])
+    with pytest.raises(TypeError, match="ptr must be torch.int32"):
+        pc.pull_contrib(order._replace(ptr=order.ptr.long()), ranks, inv)
     info = pc.kernel_info()
     assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
 
@@ -840,3 +850,156 @@ def test_rank_step_host_syncs_match_sync_debug_mode(cuda, engine, walks):
         m = eng.metrics
         assert m.static_fallbacks == 0 and m.packed_rebuilds == 0
         assert m.batch_host_syncs[-1] == len(syncs), _sync_sites(syncs)
+
+
+# ---------------------------------------------------------------------------
+# the edge-slot count, the weighted pull sum and the row sum
+# ---------------------------------------------------------------------------
+
+def _count_graph(dev, kind):
+    """R-MAT scale 18 after a batch (``rmat``: dead and 1.5x free slots),
+    a 300,000-edge hub among random edges (``hub``), or only free slots
+    (``free``); the same seeded graph on every device."""
+    if kind == "free":
+        e = np.zeros((0, 2), np.int32)
+        return from_coo(e[:, 0], e[:, 1], 1000, edge_capacity=100_000,
+                        device=dev)
+    rng = np.random.default_rng(11)
+    if kind == "hub":
+        n = 400_000
+        src = np.concatenate([rng.permutation(n)[:300_000],
+                              rng.integers(0, n, 500_000)])
+        dst = np.concatenate([np.full(300_000, 7),
+                              rng.integers(0, n, 500_000)])
+        keep = src != dst
+        return from_coo(src[keep], dst[keep], n, device=dev)
+    edges, n = rmat_edges(18, 8, seed=13)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+    dele, ins = random_batch_update(edges, n, 4096, seed=14)
+    return apply_batch(graph, make_batch_update(dele, ins, 4096, 4096,
+                                                device=dev))
+
+
+@pytest.mark.parametrize("kind", ["rmat", "hub", "free"])
+@pytest.mark.parametrize("gathered", [False, True])
+def test_slot_count_kernel_equals_plain(cuda, kind, gathered):
+    from repro_torch.kernels.slot_count import slot_count as sc
+    from repro_torch.kernels.slot_count.ref import slot_count_ref
+    g = _count_graph(cuda, kind)
+    n = g.num_vertices
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    flags = torch.rand(n, generator=gen, device=cuda) < 0.3
+    extra = (g.src, flags) if gathered else ()
+    for index in (g.src, g.dst):
+        before = sc.LAUNCH_COUNTS["slot_count"]
+        out = sc.slot_count(index, g.valid, n, *extra)
+        torch.cuda.synchronize()
+        assert sc.LAUNCH_COUNTS["slot_count"] == before + 1
+        assert torch.equal(out, slot_count_ref(index, g.valid, n, *extra))
+        cpu = slot_count_ref(index.cpu(), g.valid.cpu(), n,
+                             *(t.cpu() for t in extra))
+        assert torch.equal(out.cpu(), cpu)
+        assert torch.equal(sc.slot_count(index, g.valid, n, *extra), out)
+
+
+def test_slot_count_wrapper_checks_inputs(cuda):
+    from repro_torch.kernels.slot_count import slot_count as sc
+    g = _count_graph(cuda, "free")
+    with pytest.raises(TypeError, match="weight must be torch.bool"):
+        sc.slot_count(g.dst, g.valid.int(), g.num_vertices)
+    with pytest.raises(TypeError, match="index must be torch.int32"):
+        sc.slot_count(g.dst.long(), g.valid, g.num_vertices)
+    with pytest.raises(ValueError, match="flags is on cpu"):
+        sc.slot_count(g.dst, g.valid, g.num_vertices, g.src,
+                      torch.zeros(g.num_vertices, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("kind", ["rmat", "hub", "dead"])
+def test_weighted_pull_contrib_kernel_equals_cpu_sum_bitwise(cuda, kind):
+    order, ranks, inv = _pull_inputs(cuda, kind)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    w = torch.rand(order.src.shape[0], generator=gen, device=cuda,
+                   dtype=torch.float64) + 0.5
+    before = pc.LAUNCH_COUNTS["pull_contrib"]
+    out = pc.pull_contrib(order, ranks, inv, w)
+    torch.cuda.synchronize()
+    assert pc.LAUNCH_COUNTS["pull_contrib"] == before + 1
+    cpu = pull_contrib_ref(PullOrder(*(t.cpu() for t in order)),
+                           ranks.cpu(), inv.cpu(), w.cpu())
+    assert torch.equal(out.cpu(), cpu)
+    for _ in range(2):
+        assert torch.equal(pc.pull_contrib(order, ranks, inv, w), out)
+    torch.testing.assert_close(out, pull_contrib_ref(order, ranks, inv, w),
+                               rtol=1e-12, atol=0)
+    # weight 1 is the unweighted kernel's sum, bit for bit
+    assert torch.equal(pc.pull_contrib(order, ranks, inv,
+                                       torch.ones_like(w)),
+                       pc.pull_contrib(order, ranks, inv))
+    with pytest.raises(ValueError, match="weight must have shape"):
+        pc.pull_contrib(order, ranks, inv, w[1:])
+
+
+@pytest.mark.parametrize("d,k", [(602, 64), (128, 64), (37, 3), (5, 1)])
+def test_pull_rows_kernel_equals_cpu_sum_bitwise(cuda, d, k):
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    from repro_torch.models.gnn import neighbor_order
+    g = _count_graph(cuda, "hub" if k == 64 else "rmat")
+    n = g.num_vertices
+    order = neighbor_order(g.src, g.dst, g.valid, n)
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    xc = x.to(cuda)
+    before = pc.LAUNCH_COUNTS["pull_rows"]
+    out = pc.pull_rows(order, xc, chunk_slots=k)
+    torch.cuda.synchronize()
+    assert pc.LAUNCH_COUNTS["pull_rows"] == before + 1
+    cpu = pull_rows_ref(PullOrder(*(t.cpu() for t in order)), x,
+                        chunk_slots=k)
+    assert torch.equal(out.cpu(), cpu)
+    for _ in range(2):
+        assert torch.equal(pc.pull_rows(order, xc, chunk_slots=k), out)
+    # the plain version on the card adds with atomics: close, not equal
+    plain = pull_rows_ref(order, xc, chunk_slots=k)
+    scale = float(plain.abs().max())
+    assert float((out - plain).abs().max()) <= 1e-5 * scale
+    info = pc.kernel_info()
+    assert info["row_registers"] > 0 and info["row_blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("rows", [1, 7])
+def test_pull_values_kernel_equals_cpu_sum_bitwise(cuda, rows):
+    """Sums keyed by vertex whose values are shorter than V (``rows``
+    positions a value, as the PPR visit counts take them) and the segment
+    sum: kernel == the CPU's plain sum, bit for bit, run to run."""
+    from repro_torch.kernels.slot_count.slot_count import slot_count
+    n, m = 50_000, 300_000
+    rng = np.random.default_rng(rows)
+    keys = rng.integers(-1, n, m).astype(np.int32)
+    keys[: m // 4] = 3                              # a hub of keys
+    values = torch.from_numpy(rng.random(m // rows + 1))
+    w = torch.from_numpy(rng.random(m) + 0.5)
+    outs = {}
+    for dev in ("cpu", cuda):
+        k = torch.from_numpy(keys).to(dev)
+        live = k >= 0
+        ptr, perm = pc.sorted_slots(k, live,
+                                    slot_count(k.clamp(min=0), live, n))
+        order = PullOrder(ptr, torch.div(perm, rows, rounding_mode="floor")
+                          .to(torch.int32))
+        before = pc.LAUNCH_COUNTS["pull_contrib"]
+        outs[dev] = (pc.pull_values(order, values.to(dev)),
+                     pc.pull_values(order, values.to(dev), w.to(dev)[perm]),
+                     pc.segment_sum(ptr, w.to(dev)[perm]))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert pc.LAUNCH_COUNTS["pull_contrib"] == before + 3
+            again = (pc.pull_values(order, values.to(dev)),
+                     pc.pull_values(order, values.to(dev), w.to(dev)[perm]),
+                     pc.segment_sum(ptr, w.to(dev)[perm]))
+            assert all(torch.equal(a, b) for a, b in zip(again, outs[dev]))
+            with pytest.raises(TypeError, match="ranks must be torch.float64"):
+                pc.pull_values(order, values.to(dev).float())
+    for a, b in zip(outs[cuda], outs["cpu"]):
+        assert a.shape == (n,) and torch.equal(a.cpu(), b)

@@ -41,6 +41,7 @@ from repro_torch import convert
 from repro_torch.configs import graphsage_reddit as tcfg
 from repro_torch.core.incremental_gnn import incremental_refresh as t_refresh
 from repro_torch.kernels.pagerank_spmv import update as tupd
+from repro_torch.kernels.pull_contrib import ref as pcref
 from repro_torch.kernels.segment_ops import ref as tref
 from repro_torch.kernels.segment_ops import segment_matmul as tsm
 from repro_torch.kernels.segment_ops.ops import aggregate_features as t_agg
@@ -219,6 +220,26 @@ def test_sage_forward_matches_reference(cfg_name):
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("cfg_name", ["SMOKE", "CONFIG"])
+def test_sage_forward_with_hub_matches_reference(cfg_name):
+    """A hub of 400 in-edges: the port cuts its neighbour sum into chunks
+    (``pull_rows``, 64 slots a chunk) and adds them in chunk order."""
+    jc, tc, jparams, tparams = _sage_pair(cfg_name, seed=1)
+    rng = np.random.default_rng(5)
+    n = 600
+    src = np.concatenate([rng.permutation(n)[:400],
+                          rng.integers(0, n, 1200)])
+    dst = np.concatenate([np.zeros(400, np.int64), rng.integers(0, n, 1200)])
+    keep = src != dst
+    jg = jstr.from_coo(src[keep], dst[keep], n)
+    x = rng.standard_normal((n, jc.d_in)).astype(np.float32)
+    ref = jgnn.sage_forward(jc, jparams, _j_batch(jg, jnp.asarray(x)))
+    tg = port_graph(jg)
+    assert int(tg.in_degree(False)[0]) >= 399
+    out = tgnn.sage_forward(tc, tparams, _t_batch(tg, torch.from_numpy(x)))
+    _close_scaled(out, ref, cfg_name)
+
+
 def test_init_sage_layout():
     gen = torch.Generator().manual_seed(0)
     params = tgnn.init_sage(tcfg.CONFIG, gen)
@@ -244,7 +265,7 @@ def test_chunked_aggregation_equals_one_chunk(which, monkeypatch):
 
         def run():
             return tgnn.neighbor_sum(x, g.src, g.dst, g.valid, n)
-        module, small = tgnn, 7          # 7 edge slots a chunk
+        module, small = pcref, 7         # 7 edge slots a chunk
     else:
         p = port_packed(jspmv.pack_blocks(edges[:, 0], edges[:, 1],
                                           np.ones(len(edges), bool), n,

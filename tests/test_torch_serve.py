@@ -11,6 +11,7 @@ held to the ranks' 1e-6.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro  # noqa: F401
 from repro.graph import generators as jgen
@@ -189,11 +190,24 @@ def test_serve_engine_rejects_unported_options(bad):
                     engine="kernel", **bad)
 
 
-def test_rank_store_checkpoints_not_ported():
-    with pytest.raises(NotImplementedError, match="ckpt_dir"):
-        RankStore(ckpt_dir="ckpt")
+def test_rank_store_checkpoints_not_ported(tmp_path):
+    """Checkpointed restart is ported now: (ranks, generation, last_seq)
+    every ``ckpt_every`` generations, restored as the reference restores
+    them (``tests/test_serving.py``)."""
     with pytest.raises(RuntimeError, match="no published snapshot"):
         RankStore().snapshot()
+    edges, n = jgen.erdos_renyi_edges(N, 100, seed=2)
+    g = port_graph(jstr.from_coo(edges[:, 0], edges[:, 1], n))
+    store = RankStore(ckpt_dir=str(tmp_path), ckpt_every=2)
+    r0 = torch.full((n,), 1.0 / n, dtype=torch.float64)
+    store.publish(g, r0, last_seq=-1)             # gen 0: checkpointed
+    store.publish(g, r0 * 2, last_seq=5)          # gen 1: not (every=2)
+    store.publish(g, r0 * 3, last_seq=11)         # gen 2: checkpointed
+    ranks, gen, last_seq = RankStore(
+        ckpt_dir=str(tmp_path), ckpt_every=2).restore_latest(n, CPU)
+    assert gen == 2 and last_seq == 11
+    assert torch.equal(ranks, r0 * 3)
+    assert RankStore().restore_latest(n, CPU) is None
 
 
 def test_launch_serve_runs_on_cpu(capsys):
