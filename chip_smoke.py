@@ -31,14 +31,19 @@ It exits non-zero on the first failed check; no failure is passed over.
              of each, and the kernel's own device time (torch.profiler),
              and computes the bytes bound.
 3b. Pull   — holds pull_contrib (the f64 loop's fixed-order pull sum, the
-             port's own kernel) on the smoke's graph bit for bit against
-             its plain version run on the CPU (whose ``index_add_`` adds
-             each vertex's terms in slot order, the kernel's contract),
-             within PULL_RTOL against the plain version on the card
-             (atomics), and bitwise run to run; the same for the longest
-             segment alone (``hub``), and the weighted sum (per-slot
-             weights, as weighted PageRank has them); times kernel, plain
-             version and ``index_add_`` of the products, with its bound.
+             port's own kernel: chunks of at most K = PULL_CHUNK slots,
+             each added in slot order, then the chunks in order) on the
+             smoke's graph bit for bit against its plain version run on
+             the CPU, within PULL_RTOL against the plain version on the
+             card (atomics), and bitwise run to run; the same for the
+             longest segment alone (``hub``), and the weighted sum
+             (per-slot weights, as weighted PageRank has them); times
+             kernel, plain version and ``index_add_`` of the products,
+             with its bound.  Prints K, the chunk plan's chunks, partials
+             and split vertices and its build time (apart from the call),
+             the call's device time by launch (terms pass, chunks, split
+             vertices), and a sweep of K (128 to 2048) on ``all`` and
+             ``hub``, each checked against the plain version at that K.
              Then the edge-slot count: the old ``_count`` (an int32
              ``index_add_``) timed over every slot, the live slots only
              and the free slots only (all of them vertex 0); the
@@ -129,8 +134,8 @@ It exits non-zero on the first failed check; no failure is passed over.
 frontier_spmv sums in a fixed order (bitwise equal run to run), but not
 the plain version's: rtol 1e-4 / atol 1e-6 on f32 sums.  walk_repair has
 no atomics and no float sums: it is compared bit for bit.  pull_contrib
-adds in slot order, as the CPU does: bit for bit against the plain
-version on the CPU, rtol PULL_RTOL against its atomic form on the card.
+adds in its plain version's order on the CPU: bit for bit against it
+there, rtol PULL_RTOL against its atomic form on the card.
 gated_spmm sums in a fixed order, but not the plain version's: rtol 1e-4 /
 atol 1e-5 relative to the output's largest magnitude; pull_rows adds in
 its plain version's order, which on the card adds with atomics: the same
@@ -305,7 +310,8 @@ def build_kernels():
         print(f"  {name}: {info['path'].name} built in "
               f"{info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"    ptxas: {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.2f} s")
     return out
@@ -499,6 +505,7 @@ def contrib_checks(torch, dev, graph):
     from repro_torch.kernels.pull_contrib import pull_contrib as pc
     from repro_torch.kernels.pull_contrib.ref import PullOrder, \
         pull_contrib_ref, slot_vertex
+    from repro_torch.kernels.segment_ops.plan import cached_plan, chunk_plan
     n = graph.num_vertices
     in_deg = graph.in_degree(include_self_loop=False)
     torch.cuda.synchronize()
@@ -514,12 +521,27 @@ def contrib_checks(torch, dev, graph):
     seg = (order.ptr[1:] - order.ptr[:-1]).long()
     hub = int(torch.argmax(seg))
     info = pc.kernel_info()
-    print(f"  pull_contrib: {info['registers']} registers a thread, "
-          f"{info['blocks_per_sm']} blocks of {info['threads_per_block']} a "
-          f"SM on {info['sms']} SMs; order (one stable sort of "
+    K = pc.PULL_CHUNK
+    plan = cached_plan(order.ptr, order.src.shape[0], K)
+    n_split = int((seg > K).sum())
+    plan_ms = time_ms(torch, lambda: chunk_plan(order.ptr,
+                                                order.src.shape[0], K),
+                      reps=5, warmup=1)
+    print(f"  pull_contrib: chunk kernel {info['registers']} registers a "
+          f"thread, {info['blocks_per_sm']} blocks of "
+          f"{info['threads_per_block']} a SM on {info['sms']} SMs; weighted "
+          f"{info['weighted_registers']} registers, "
+          f"{info['weighted_blocks_per_sm']} blocks; split kernel "
+          f"{info['split_registers']} registers; order (one stable sort of "
           f"{graph.edge_capacity:,} slots) {order_ms:.2f} ms; longest "
           f"segment: vertex {hub}, {int(seg[hub]):,} in-edges", flush=True)
-    # only the hub's segment left: what its chain of adds costs
+    print(f"  plan: K={K}, {plan.window.shape[0]:,} chunks, "
+          f"{plan.num_partials:,} partial slots "
+          f"({plan.num_partials * 8 / 2**20:.2f} MiB), "
+          f"{plan.split_window.shape[0]:,} split slots for {n_split:,} "
+          f"vertices of more than K in-edges; build {plan_ms:.4f} ms "
+          f"(once a solve)", flush=True)
+    # only the hub's segment left: what its chunks and their chain cost
     ptr_hub = torch.where(torch.arange(n + 1, device=dev) <= hub,
                           order.ptr[hub], order.ptr[hub + 1])
     # the weighted sums' per-slot weights (weighted PageRank's edge weights
@@ -572,10 +594,41 @@ def contrib_checks(torch, dev, graph):
               f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
               f"{library_ms:.4f} (index_add_ of the products) "
               f"live_slots={detail['live_slots']:,}", flush=True)
+    # where a call's device time goes: the terms pass, the chunks, the
+    # split vertices' chunk-order adds
+    call = lambda: pc.pull_contrib(order, ranks, inv)
+    split = {k: device_ms(torch, call, (f"pull_contrib_{k}",))
+             for k in ("terms", "chunks", "splits")}
+    print("  all, device ms by launch: " + ", ".join(
+        f"{k} {'not measured' if v is None else f'{v:.4f}'}"
+        for k, v in split.items()), flush=True)
+    # the chunk length K: the whole graph and the hub alone
+    sweep = []
+    for k in (128, 256, 512, 1024, 2048):
+        row = dict(chunk_slots=k)
+        for name, o in (("all", order), ("hub", order._replace(ptr=ptr_hub))):
+            out = pc.pull_contrib(o, ranks, inv, chunk_slots=k)
+            plain = pull_contrib_ref(o, ranks, inv, chunk_slots=k)
+            check(bool(torch.allclose(out, plain, rtol=PULL_RTOL, atol=0))
+                  and torch.equal(pc.pull_contrib(o, ranks, inv,
+                                                  chunk_slots=k), out),
+                  f"K={k} {name}: kernel == plain on the card within rtol "
+                  f"{PULL_RTOL:g}, bitwise run to run")
+            row[f"{name}_ms"] = time_ms(
+                torch, lambda: pc.pull_contrib(o, ranks, inv, chunk_slots=k))
+            del out, plain
+        sweep.append(row)
+        print(f"  K={k}: all {row['all_ms']:.4f} ms, hub "
+              f"{row['hub_ms']:.4f} ms", flush=True)
     del order, ptr_hub, weight
     torch.cuda.empty_cache()
     return dict(cases=cases, max_abs_err=max_err, order_ms=order_ms,
-                hub_vertex=hub, hub_in_edges=int(seg[hub]), info=info)
+                hub_vertex=hub, hub_in_edges=int(seg[hub]), info=info,
+                chunk_slots=K, plan_chunks=plan.window.shape[0],
+                plan_partials=plan.num_partials,
+                plan_splits=plan.split_window.shape[0],
+                split_vertices=n_split, plan_ms=plan_ms,
+                device_split=split, sweep=sweep)
 
 
 def int32_sectors(torch, mask):
@@ -1339,8 +1392,10 @@ def spmm_cases(torch, packed, feats, gen, batch_awin, plain):
         check(torch.equal(sm.gated_spmm(packed, feats, aw), out),
               f"{tag}: bitwise equal run to run")
         del out
-        ms = time_ms(torch, lambda: sm.gated_spmm(packed, feats, aw),
-                     reps=5, warmup=1)
+        call = lambda: sm.gated_spmm(packed, feats, aw)
+        ms = time_ms(torch, call, reps=5, warmup=1)
+        call_host_ms = host_ms(torch, call, reps=5)
+        call_device_ms = device_ms(torch, call, ("gated_spmm",), reps=5)
         plain_ms = time_ms(torch, lambda: plain(packed, aw), reps=2,
                            warmup=1)
         bound_ms, bound_by, detail = spmm_bound(torch, packed, aw, d)
@@ -1365,11 +1420,15 @@ def spmm_cases(torch, packed, feats, gen, batch_awin, plain):
             del lib
         del ref
         case = dict(case=tag, active_windows=int(aw.sum()), max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    ms=ms, host_ms=call_host_ms, device_ms=call_device_ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=library_ms,
                     library_note=library_note, **detail)
         cases.append(case)
-        print(f"  gated_spmm {tag}: kernel_ms={ms:.4f} plain_ms="
+        dev_txt = ("not measured" if call_device_ms is None
+                   else f"{call_device_ms:.4f}")
+        print(f"  gated_spmm {tag}: kernel_ms={ms:.4f} (host "
+              f"{call_host_ms:.4f}, device {dev_txt}) plain_ms="
               f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
               f"library_ms="
               f"{'-' if library_ms is None else f'{library_ms:.4f}'} "
@@ -1433,8 +1492,10 @@ def row_sum_cases(torch, graph, feats):
         check(bad == 0, f"pull_rows d={d}: kernel == plain within the GNN "
               f"tolerance (max abs err {err:.3e}, largest {big:.3e})")
         del out
-        ms = time_ms(torch, lambda: pc.pull_rows(order, x), reps=5,
-                     warmup=1)
+        call = lambda: pc.pull_rows(order, x)
+        ms = time_ms(torch, call, reps=5, warmup=1)
+        call_host_ms = host_ms(torch, call, reps=5)
+        call_device_ms = device_ms(torch, call, ("pull_rows",), reps=5)
         plain_ms = time_ms(torch, lambda: pull_rows_ref(order, x), reps=2,
                            warmup=1)
         lib_out = torch.sparse.mm(a, x)
@@ -1445,13 +1506,17 @@ def row_sum_cases(torch, graph, feats):
                               warmup=1))
         bound_ms, bound_by, detail = pull_rows_bound(torch, order, d)
         case = dict(case=f"d={d}", max_abs_err=err, ms=ms,
+                    host_ms=call_host_ms, device_ms=call_device_ms,
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms, library_err=lerr, **detail)
         cases.append(case)
         lib_txt = ("- (cuSPARSE disagrees with the plain version, max abs "
                    f"err {lerr:.3e})" if library_ms is None
                    else f"{library_ms:.4f} (cuSPARSE CSR SpMM)")
-        print(f"  pull_rows d={d}: kernel_ms={ms:.4f} plain_ms="
+        dev_txt = ("not measured" if call_device_ms is None
+                   else f"{call_device_ms:.4f}")
+        print(f"  pull_rows d={d}: kernel_ms={ms:.4f} (host "
+              f"{call_host_ms:.4f}, device {dev_txt}) plain_ms="
               f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
               f"library_ms={lib_txt} live_slots={n_live:,} "
               f"distinct_sources={detail['distinct_sources']:,} "

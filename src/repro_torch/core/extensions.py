@@ -15,10 +15,12 @@ The loop reads one boolean back per iteration (``delta > tol``), as
 reference's; ``PageRankResult.host_syncs`` counts the reads.
 
 Sums run in a fixed order, as in ``core.pagerank``: each solve sorts its
-slots by dst once and adds each vertex's terms in slot order from +0.0
-(``kernels.pull_contrib``, with the edge weights as per-slot weights),
-and the weighted out-degree adds each vertex's out-edge weights in slot
-order over a src-sorted order.  The ranks are the same bit for bit from
+slots by dst once and sums each vertex's terms over them in
+``kernels.pull_contrib``'s chunked order (chunks of at most
+``PULL_CHUNK`` slots, each added in slot order from +0.0, then the chunks
+in order; with the edge weights as per-slot weights), and the weighted
+out-degree sums each vertex's out-edge weights the same way over a
+src-sorted order (``segment_sum``).  The ranks are the same bit for bit from
 run to run, and equal on the card and on the CPU.
 """
 from __future__ import annotations

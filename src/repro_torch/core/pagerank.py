@@ -19,11 +19,14 @@ each read (and each pulse of ``reachability_mask``) is also recorded with
 ``device.note_host_syncs``.
 
 Summation order: each solve sorts its edge slots by dst once
-(``pull_order``), and every iteration adds each vertex's in-edge terms in
-that slot order from +0.0 (``kernels.pull_contrib``: the CUDA kernel on
-the card, ``index_add_`` on the CPU, which adds in the same order).  The
-ranks are therefore the same bit for bit from run to run, and equal on
-the card and on the CPU.
+(``pull_order``), and every iteration sums each vertex's in-edge terms in
+one fixed order over that slot order (``kernels.pull_contrib``): chunks of
+at most ``PULL_CHUNK`` slots, each added in slot order from +0.0, then
+the chunks in order (a vertex of at most ``PULL_CHUNK`` in-edges: its
+terms one at a time from +0.0).  The CUDA kernel on the card and its
+plain version on the CPU add in that order, so the ranks are the same bit
+for bit from run to run, and equal on the card and on the CPU.  The
+chunk plan is built once a solve, with the order.
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ class PageRankResult(NamedTuple):
 def _contrib(order: PullOrder, ranks: torch.Tensor,
              inv_out_deg: torch.Tensor) -> torch.Tensor:
     """c[v] = Σ_{u∈in(v), u≠v} R[u]/d_u  (pull step; self-loop excluded),
-    each vertex's terms added in the slot order of ``order``."""
+    each vertex's terms summed in ``pull_contrib``'s fixed chunked order
+    over the slots of ``order``."""
     return pull_contrib(order, ranks, inv_out_deg)
 
 

@@ -11,8 +11,10 @@ serves a whole update stream:
 
 Degrees and frontier pushes count live slots with
 ``kernels.slot_count`` (a CUDA kernel on the card: no atomic for a free
-or dead slot); ``push`` sums in slot order with ``kernels.pull_contrib``,
-so every sum here is the same bit for bit from run to run.
+or dead slot); ``push`` sums over a dst-sorted slot order with
+``kernels.pull_contrib`` (chunks of at most ``PULL_CHUNK`` slots, each in
+slot order from +0.0, then the chunks in order), so every sum here is the
+same bit for bit from run to run.
 
 Every vertex carries an implicit **self-loop** (paper §3.1): out-degree is
 ``valid_out_degree + 1`` and the self contribution is folded into the rank
@@ -78,7 +80,9 @@ class EdgeListGraph:
     # ---- message passing primitives --------------------------------------
     def push(self, values: torch.Tensor) -> torch.Tensor:
         """sum_{(u,v) in E} values[u] -> out[v] (f64 on the card), each
-        vertex's terms added in slot order from +0.0."""
+        vertex's terms summed in ``pull_contrib``'s fixed chunked order
+        over its slots (one at a time from +0.0 for a vertex of at most
+        ``PULL_CHUNK`` in-edges)."""
         order = pull_order(self.src, self.dst, self.valid,
                            self.in_degree(include_self_loop=False))
         return pull_contrib(order, values, torch.ones_like(values))

@@ -5,7 +5,7 @@
 // or with a per-slot weight w of (R[u] * w) / W_u (weighted PageRank), and
 // the other f64 segment sums of the port (PPR visit counts, weighted
 // degrees).  `pull_rows`: its row variant, f32 neighbour-row sums for
-// GraphSAGE (below the f64 kernel).
+// GraphSAGE (below the f64 kernels).
 //
 // The port's own kernels: they replace no Pallas kernel.  `pull_contrib`
 // replaces the f64 `index_add_`s of repro_torch/core/pagerank.py
@@ -17,37 +17,54 @@
 //
 // What it computes.  The solve sorts the edge slots once by dst (stable,
 // live slots first: `pull_order`), giving each vertex v the segment
-// [ptr[v], ptr[v+1]) of sorted slots and their sources src[k].  Each call
-//     out[v] = ((0.0 + w_0) + w_1) + ...,   w_k = ranks[s] * inv[s],
-//     s = src[k]
-// over v's segment in slot order: each product one IEEE f64 multiply
-// (with a weight, w_k = (ranks[s] * weight[k]) * inv[s], two), the sum the
-// segment's terms added one at a time from +0.0.  That is
-// what the CPU `index_add_` of the old `_contrib` computes (it walks the
-// slots in order), so the card's sum equals the CPU's bit for bit and is
-// the same from run to run.
+// [ptr[v], ptr[v+1]) of sorted slots and their sources src[k].  The term
+// of slot k is w_k = ranks[s] * inv[s], s = src[k], one IEEE f64 multiply
+// (with a weight, w_k = (ranks[s] * weight[k]) * inv[s], two).  A segment
+// is cut into chunks of at most K slots (ref.py PULL_CHUNK), by the chunk
+// plan of repro_torch/kernels/segment_ops/plan.py (windows = vertices,
+// entries = sorted slots); each chunk's terms are added in slot order
+// from +0.0, and a vertex's chunk sums are then added to its first
+// chunk's sum in chunk order:
+//     out[v] = ((c_0 + c_1) + c_2) + ...,  c_j = ((0.0 + w_a) + w_a+1) + ...
+// A segment of at most K slots is one chunk: its terms added one at a
+// time from +0.0.  The plain version computes the same adds on the CPU,
+// so the card's sum equals the CPU's bit for bit and is the same from
+// run to run.
 //
-// Design.  A warp owns a vertex.  Its lanes load 4 rounds of 32 slots at
-// a time (src coalesced, ranks and inv gathered) and form the products;
-// the warp then adds them in slot order, the 32 terms of a round passed
-// to every lane with __shfl_sync, while the next 4 rounds' loads are in
-// flight.  The one chain of dependent adds a segment needs is the floor:
-// the hub's in-degree sets the time of a call.  No atomics.  Measured on an
-// H100 (PERF.md §6): 4-warp blocks beat 8; 2 or 8 rounds at a time, or all
-// 32 terms of a round shuffled before the adds (97-111 registers), were
-// slower.
+// Design.  Three launches on the caller's stream:
+//   1. y[i] = ranks[i] * inv[i] over the N values: a slot's term depends
+//      on its source alone, so one pass forms the same IEEE products and
+//      the chunks gather one f64 a slot, not two.  With weights the pass
+//      writes the pairs z[i] = (ranks[i], inv[i]): one 16-byte gather.
+//   2. One thread a chunk, in the plan's (vertex) order: it walks its
+//      chunk's slots in order, reading the sources 16 bytes (4 slots) a
+//      load two steps ahead, and gathers a step's 8 terms before the
+//      previous step's 8 are added.  Chunk 0 writes out[v]; chunk j >= 1
+//      of a split vertex writes its partial slot.  No segment's chain is
+//      longer than K adds, and no term passes between lanes.
+//   3. One thread a split vertex adds its partials to out[v] in chunk
+//      order (the smoke graph's hub: 243 adds).
+// No atomics, no host read; it allocates nothing (the wrapper hands in
+// the scratch: y or z, and the plan's E // K partials).
+//
+// What was measured (chip_smoke.py phase 3b, R-MAT 2^21; NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md §6): the terms pass halves the gathers and
+// pays (0.60 ms a call with two gathers a slot, 0.34 with one); plan
+// order beats chunks sorted longest first (0.42 ms: neighbouring lanes
+// share source lines and out's lines); 8 slots a step beats 16 (96
+// registers, 5 blocks a SM); without the gathers held across the loop,
+// the compiler issues each gather next to its add (one L2 latency a slot,
+// ~120 ns: the hub's chunks took 0.045 ms).  K = 256 (128 to 2048 swept):
+// 128 halves the hub's chain but slows the whole graph.
 //
 // Bitwise contract.  __dmul_rn and __dadd_rn, so no multiply-add is
 // contracted into an FMA; no --use_fast_math.
 //
-// Bound.  A gather and a sum: bytes bound on paper (ptr, the live slots'
-// src, ranks and inv once per distinct source, the output; 2 f64
-// operations a live slot), latency bound by the longest segment's chain
-// in practice (chip_smoke.py pull_contrib_bound).  At R-MAT 2^21 (phase
-// 3b; NVIDIA H100 80GB HBM3, 700 W): 1.09 ms a call against a 0.05 ms
-// bound, of which the hub's chain of 62,458 adds alone takes 0.89 ms;
-// `index_add_` of the same products takes 29.5 ms.  With weights: 1.30 ms
-// against a 0.13 ms bound (the weights' 8 bytes a live slot).
+// Bound.  A gather and a sum: bytes bound (ptr, the live slots' src,
+// ranks and inv once per distinct source, the output; 2 f64 operations a
+// live slot; chip_smoke.py pull_contrib_bound).  In practice the random
+// gathers: ~32.4 M a call, one L2 sector each, ~3.5 TB/s of sectors at
+// 0.29 ms.
 //
 // It launches on the caller's stream, allocates nothing and does not
 // synchronise; the C entry points return cudaGetLastError().
@@ -57,75 +74,158 @@
 
 namespace {
 
-constexpr int kWarps = 4;                 // vertices a block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRounds = 4;                // 32-slot rounds loaded at once
+constexpr int kThreads = 128;             // chunks (or split vertices) a block
+constexpr int kGroups = 2;                // 4-slot source groups a step
+constexpr int kSlots = 4 * kGroups;       // slots a step
+constexpr int kSplitUnroll = 16;          // partials loaded at once
 constexpr unsigned kAll = 0xffffffffu;
 
-// the term of sorted slot k: ranks[s] * inv[s], or with a weight
-// (ranks[s] * weight[k]) * inv[s]
+// how a slot's term is formed: y[s], the products of launch 1, or with a
+// weight (z[s].x * weight[k]) * z[s].y, z[s] = (ranks[s], inv[s])
 template <bool kWeighted>
-__device__ __forceinline__ double term(const int32_t* __restrict__ src,
-                                       const double* __restrict__ ranks,
-                                       const double* __restrict__ inv,
-                                       const double* __restrict__ weight,
-                                       int k, int end) {
-  if (k >= end) return 0.0;
-  const int32_t s = __ldcs(src + k);
-  if (kWeighted)
-    return __dmul_rn(__dmul_rn(__ldg(ranks + s), __ldcs(weight + k)),
-                     __ldg(inv + s));
-  return __dmul_rn(__ldg(ranks + s), __ldg(inv + s));
+__device__ __forceinline__ double term(int32_t s, int k,
+                                       const double* __restrict__ y,
+                                       const double* __restrict__ weight) {
+  if (!kWeighted) return __ldg(y + s);
+  const double2 z = __ldg(reinterpret_cast<const double2*>(y) + s);
+  return __dmul_rn(__dmul_rn(z.x, __ldg(weight + k)), z.y);
 }
 
-// acc + w[0] + ... + w[n-1] of lane i's w[i], in lane order
-__device__ __forceinline__ double fold(double acc, double w, int n) {
-  if (n == 32) {
+// launch 1: y[i] = ranks[i] * inv[i], or with weights z[i] = (ranks[i],
+// inv[i]): the chunks then gather one 8- or 16-byte value a slot
+template <bool kWeighted>
+__global__ void __launch_bounds__(kThreads)
+pull_contrib_terms_kernel(const double* __restrict__ ranks,
+                          const double* __restrict__ inv,
+                          double* __restrict__ y, int n) {
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += gridDim.x * kThreads) {
+    if (kWeighted)
+      reinterpret_cast<double2*>(y)[i] = make_double2(__ldg(ranks + i),
+                                                      __ldg(inv + i));
+    else
+      y[i] = __dmul_rn(__ldg(ranks + i), __ldg(inv + i));
+  }
+}
+
+// the terms of the kSlots slots from k0 on, their sources in q: a slot
+// outside [b, e) gathers source 0's term at slot b (both exist: the chunk
+// is not empty), so every gather is unconditional
+template <bool kWeighted>
+__device__ __forceinline__ void gather(double (&t)[kSlots],
+                                       const int4 (&q)[kGroups], int k0,
+                                       int b, int e,
+                                       const double* __restrict__ y,
+                                       const double* __restrict__ weight) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      acc = __dadd_rn(acc, __shfl_sync(kAll, w, i));
-  } else {
-    for (int i = 0; i < n; ++i)
-      acc = __dadd_rn(acc, __shfl_sync(kAll, w, i));
+  for (int i = 0; i < kSlots; ++i) {
+    const int k = k0 + i;
+    const int4 g = q[i / 4];
+    const int s = i % 4 == 0 ? g.x : i % 4 == 1 ? g.y : i % 4 == 2 ? g.z : g.w;
+    const bool in = k >= b && k < e;
+    t[i] = term<kWeighted>(in ? s : 0, in ? k : b, y, weight);
+  }
+}
+
+// ((0.0 + w_b) + w_b+1) + ... + w_e-1, in steps of kSlots slots.  The
+// sources are read 16 bytes (4 slots, a group) a load, two steps ahead;
+// the next step's terms are gathered before this step's are added, so
+// they are in flight during the adds (held across the loop, they cannot
+// be scheduled next to their adds).  A slot outside [b, e) adds +0.0:
+// the sum starts at +0.0 and so is never -0.0, and acc + 0.0 == acc bit
+// for bit for every other acc, NaN and infinities included.
+template <bool kWeighted>
+__device__ __forceinline__ double chunk_sum(
+    int b, int e, const int32_t* __restrict__ src,
+    const double* __restrict__ y, const double* __restrict__ weight) {
+  double acc = 0.0;
+  if (b >= e) return acc;
+  // src[k] is element k + off of the 16-byte aligned src4
+  const int off = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2)
+                                   & 3);
+  const int4* src4 = reinterpret_cast<const int4*>(src - off);
+  const int g_end = (e + off + 3) >> 2;      // one past e - 1's group
+  int g = (b + off) >> 2;                    // the group holding slot b
+  const int4 none = make_int4(0, 0, 0, 0);
+  int4 q[kGroups];
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i)
+    q[i] = g + i < g_end ? __ldg(src4 + g + i) : none;
+  double t[kSlots];
+  gather<kWeighted>(t, q, 4 * g - off, b, e, y, weight);
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i)
+    q[i] = g + kGroups + i < g_end ? __ldg(src4 + g + kGroups + i) : none;
+  for (; g < g_end; g += kGroups) {
+    const int k0 = 4 * g - off;
+    double tn[kSlots];
+    if (g + kGroups < g_end) {
+      gather<kWeighted>(tn, q, k0 + kSlots, b, e, y, weight);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) tn[i] = 0.0;
+    }
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i)
+      q[i] = g + 2 * kGroups + i < g_end
+                 ? __ldg(src4 + g + 2 * kGroups + i) : none;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i)
+      acc = __dadd_rn(acc, k0 + i >= b && k0 + i < e ? t[i] : 0.0);
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) t[i] = tn[i];
   }
   return acc;
 }
 
 template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
-pull_contrib_kernel(const int32_t* __restrict__ ptr,
-                    const int32_t* __restrict__ src,
-                    const double* __restrict__ ranks,
-                    const double* __restrict__ inv,
-                    const double* __restrict__ weight,
-                    double* __restrict__ out, int num_vertices) {
-  const int lane = threadIdx.x & 31;
-  const int v = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (v >= num_vertices) return;                     // warp-uniform
-  const int begin = __ldg(ptr + v), end = __ldg(ptr + v + 1);
-  double w[kRounds];
+pull_contrib_chunks_kernel(const int32_t* __restrict__ chunk_vertex,
+                           const int32_t* __restrict__ chunk_begin,
+                           const int32_t* __restrict__ chunk_end,
+                           const int32_t* __restrict__ chunk_part,
+                           const int32_t* __restrict__ src,
+                           const double* __restrict__ y,
+                           const double* __restrict__ weight,
+                           double* __restrict__ out,
+                           double* __restrict__ partial, int num_chunks,
+                           int num_vertices) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= num_chunks) return;
+  const int v = __ldg(chunk_vertex + c);
+  if (v >= num_vertices) return;                     // a surplus slot
+  const int b = __ldg(chunk_begin + c), e = __ldg(chunk_end + c);
+  const int part = __ldg(chunk_part + c);
+  const double acc = chunk_sum<kWeighted>(b, e, src, y, weight);
+  if (part < 0) out[v] = acc;
+  else partial[part] = acc;
+}
+
+// out[v] += the split vertex's partials, in chunk order
+__global__ void __launch_bounds__(kThreads)
+pull_contrib_splits_kernel(const int32_t* __restrict__ split_vertex,
+                           const int32_t* __restrict__ split_part,
+                           const int32_t* __restrict__ split_count,
+                           const double* __restrict__ partial,
+                           double* __restrict__ out, int num_splits,
+                           int num_vertices) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= num_splits) return;
+  const int v = __ldg(split_vertex + s);
+  if (v >= num_vertices) return;                     // a surplus slot
+  const int p0 = __ldg(split_part + s), n = __ldg(split_count + s);
+  double acc = out[v];
+  int j = 0;
+  for (; j + kSplitUnroll <= n; j += kSplitUnroll) {
+    double p[kSplitUnroll];
 #pragma unroll
-  for (int q = 0; q < kRounds; ++q)
-    w[q] = term<kWeighted>(src, ranks, inv, weight, begin + 32 * q + lane,
-                           end);
-  double acc = 0.0;
-  for (int base = begin; base < end; base += 32 * kRounds) {
-    // the next rounds' terms, in flight while these are added
-    double wn[kRounds];
+    for (int i = 0; i < kSplitUnroll; ++i)
+      p[i] = __ldg(partial + p0 + j + i);
 #pragma unroll
-    for (int q = 0; q < kRounds; ++q)
-      wn[q] = term<kWeighted>(src, ranks, inv, weight,
-                              base + 32 * (kRounds + q) + lane, end);
-#pragma unroll
-    for (int q = 0; q < kRounds; ++q) {
-      const int n = end - (base + 32 * q);
-      if (n <= 0) break;
-      acc = fold(acc, w[q], n < 32 ? n : 32);
-    }
-#pragma unroll
-    for (int q = 0; q < kRounds; ++q) w[q] = wn[q];
+    for (int i = 0; i < kSplitUnroll; ++i) acc = __dadd_rn(acc, p[i]);
   }
-  if (lane == 0) out[v] = acc;
+  for (; j < n; ++j) acc = __dadd_rn(acc, __ldg(partial + p0 + j));
+  out[v] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -245,31 +345,68 @@ pull_rows_split_kernel(const int32_t* __restrict__ split_vertex,
 
 }  // namespace
 
-extern "C" int pull_contrib_launch(int device, const void* ptr,
-                                   const void* src, const void* ranks,
-                                   const void* inv, const void* weight,
-                                   void* out, int num_vertices,
-                                   void* stream) {
+namespace {
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+// The f64 pull sum.  chunk_* and split_* are the chunk plan's arrays
+// (segment_ops/plan.py ChunkPlan); `y` scratch of num_values f64
+// (unweighted: the terms) or 2 * num_values (weighted: the (ranks, inv)
+// pairs); `partial` scratch of the plan's partials.
+extern "C" int pull_contrib_launch(
+    int device, const void* chunk_vertex, const void* chunk_begin,
+    const void* chunk_end, const void* chunk_part, const void* split_vertex,
+    const void* split_part, const void* split_count, const void* src,
+    const void* ranks, const void* inv, const void* weight, void* y,
+    void* out, void* partial, int num_chunks, int num_splits,
+    int num_vertices, int num_values, void* stream) {
   // this library links its own CUDA runtime, whose current device is not
   // the caller's: select the tensors' device explicitly
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_vertices > 0) {
-    const int blocks = (num_vertices + kWarps - 1) / kWarps;
-    auto* p = static_cast<const int32_t*>(ptr);
-    auto* s = static_cast<const int32_t*>(src);
-    auto* r = static_cast<const double*>(ranks);
-    auto* i = static_cast<const double*>(inv);
-    auto* w = static_cast<const double*>(weight);
-    auto* o = static_cast<double*>(out);
-    auto st = static_cast<cudaStream_t>(stream);
+  if (num_vertices == 0) return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* cv = static_cast<const int32_t*>(chunk_vertex);
+  auto* cb = static_cast<const int32_t*>(chunk_begin);
+  auto* ce = static_cast<const int32_t*>(chunk_end);
+  auto* cp = static_cast<const int32_t*>(chunk_part);
+  auto* s = static_cast<const int32_t*>(src);
+  auto* r = static_cast<const double*>(ranks);
+  auto* i = static_cast<const double*>(inv);
+  auto* w = static_cast<const double*>(weight);
+  auto* yy = static_cast<double*>(y);
+  auto* o = static_cast<double*>(out);
+  auto* p = static_cast<double*>(partial);
+  const int term_blocks = blocks_for(num_values) < 4096
+                              ? blocks_for(num_values) : 4096;
+  if (num_values > 0) {
     if (w != nullptr)
-      pull_contrib_kernel<true><<<blocks, kThreads, 0, st>>>(
-          p, s, r, i, w, o, num_vertices);
+      pull_contrib_terms_kernel<true><<<term_blocks, kThreads, 0, st>>>(
+          r, i, yy, num_values);
     else
-      pull_contrib_kernel<false><<<blocks, kThreads, 0, st>>>(
-          p, s, r, i, w, o, num_vertices);
+      pull_contrib_terms_kernel<false><<<term_blocks, kThreads, 0, st>>>(
+          r, i, yy, num_values);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  if (w != nullptr)
+    pull_contrib_chunks_kernel<true><<<blocks_for(num_chunks), kThreads, 0,
+                                       st>>>(cv, cb, ce, cp, s, yy, w, o, p,
+                                             num_chunks, num_vertices);
+  else
+    pull_contrib_chunks_kernel<false><<<blocks_for(num_chunks), kThreads, 0,
+                                        st>>>(cv, cb, ce, cp, s, yy, w, o, p,
+                                              num_chunks, num_vertices);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_splits > 0)
+    pull_contrib_splits_kernel<<<blocks_for(num_splits), kThreads, 0, st>>>(
+        static_cast<const int32_t*>(split_vertex),
+        static_cast<const int32_t*>(split_part),
+        static_cast<const int32_t*>(split_count), p, o, num_splits,
+        num_vertices);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,32 +448,42 @@ extern "C" int pull_rows_launch(int device, const void* chunk_vertex,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// info[0..1]: registers a thread and resident blocks a SM of `f`
+template <typename F>
+cudaError_t func_info(F f, int threads, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, f);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], f, threads,
+                                                       0);
+}
+
+}  // namespace
+
 // info[0..3]: registers a thread, resident blocks a SM, the SMs, and
-// threads a block, of the unweighted f64 kernel; info[4..5]: registers a
-// thread and resident blocks a SM of the row kernel.
+// threads a block, of the unweighted chunk kernel; info[4..5]: registers a
+// thread and resident blocks a SM of the row kernel; info[6..7] of the
+// weighted chunk kernel; info[8..9] of the split kernel.
 extern "C" int pull_contrib_info(int device, int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr, row_attr;
-  err = cudaFuncGetAttributes(&attr, pull_contrib_kernel<false>);
-  int blocks = 0, sms = 0, row_blocks = 0;
+  int sms = 0;
+  err = func_info(pull_contrib_chunks_kernel<false>, kThreads, info);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, pull_contrib_kernel<false>, kThreads, 0);
+    err = func_info(pull_rows_kernel, kRowThreads, info + 4);
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&row_attr, pull_rows_kernel);
+    err = func_info(pull_contrib_chunks_kernel<true>, kThreads, info + 6);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &row_blocks, pull_rows_kernel, kRowThreads, 0);
+    err = func_info(pull_contrib_splits_kernel, kThreads, info + 8);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = blocks;
+  // func_info wrote blocks a SM into info[1]; the SMs and threads follow
   info[2] = sms;
   info[3] = kThreads;
-  info[4] = row_attr.numRegs;
-  info[5] = row_blocks;
   return static_cast<int>(cudaSuccess);
 }

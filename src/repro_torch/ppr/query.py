@@ -16,9 +16,10 @@ raw R-walk estimator.
 
 Everything is f64.  Visit counts are summed in a fixed order: the walk
 positions are sorted stably by the vertex they visit, and each vertex's
-terms are added in position order from +0.0 (``kernels.pull_contrib``),
-so an estimate is the same bit for bit from run to run and on the card
-and the CPU.  That is another order than the reference's
+terms are summed over them in ``kernels.pull_contrib``'s chunked order
+(chunks of at most ``PULL_CHUNK`` positions, each added in position order
+from +0.0, then the chunks in order), so an estimate is the same bit for
+bit from run to run and on the card and the CPU.  That is another order than the reference's
 ``segment_sum``: estimates agree with the reference to rounding, not bit
 for bit.  Nothing is
 compiled, so seed and neighbour blocks are not padded to power-of-two
@@ -44,9 +45,9 @@ _MAX_NBR_WIDTH = 1024   # neighbour-slab width cap (bounds the gather)
 def _keyed_sum(keys: torch.Tensor, rows: int, values: torch.Tensor,
                V: int) -> torch.Tensor:
     """f64[V]: out[v] = Σ values[i // rows] over the positions i with
-    ``keys[i] == v`` (a negative key is no vertex), added in position
-    order from +0.0: one stable sort of the positions by key, then the
-    fixed-order pull sum of ``values`` (every source i // rows lies in
+    ``keys[i] == v`` (a negative key is no vertex), in a fixed order: one
+    stable sort of the positions by key, then the chunked pull sum of
+    ``values`` (every source i // rows lies in
     [0, len(values)) when ``keys`` has ``rows`` positions a value)."""
     live = keys >= 0
     ptr, perm = sorted_slots(keys, live,

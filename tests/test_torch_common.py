@@ -56,6 +56,27 @@ def assert_bitwise(a, b, what=""):
     assert np.array_equal(a, b), what
 
 
+def chunked_sum(dst, terms, n, k):
+    """The chunked order in NumPy: the terms of each vertex (``dst``, in
+    slot order) cut into chunks of at most ``k``, each summed into its own
+    row by ``np.add.at`` (in slot order, from +0.0), then a vertex's rows
+    added to its first in chunk order."""
+    counts = np.bincount(dst, minlength=n)
+    order = np.argsort(dst, kind="stable")
+    pos = np.empty(len(dst), np.int64)          # index within its vertex
+    pos[order] = (np.arange(len(dst))
+                  - (np.cumsum(counts) - counts)[dst[order]])
+    per = np.maximum((counts + k - 1) // k, 1)  # chunks a vertex
+    first = np.cumsum(per) - per
+    rows = np.zeros(int(per.sum()))
+    np.add.at(rows, first[dst] + pos // k, terms)
+    out = rows[first].copy()
+    for j in range(1, int(per.max())):
+        more = per > j
+        out[more] = out[more] + rows[first[more] + j]
+    return out
+
+
 def assert_graph_equal(port, ref, what=""):
     for name in ("src", "dst", "valid", "num_edges"):
         assert_bitwise(getattr(port, name), getattr(ref, name),

@@ -1,12 +1,13 @@
 """Tests of the port that need the CUDA card (marked ``cuda``).
 
-They skip where ``torch.cuda.is_available()`` is false.  This file imports
-only the port, torch and numpy, so it also runs on a machine without JAX:
+They skip where ``torch.cuda.is_available()`` is false.  This file
+imports only the port, torch and numpy, so it also runs on a machine
+without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The SpMV kernel sums in a fixed order, so it is bitwise equal from run
-to run, but not in the plain version's order: rtol 1e-4 / atol 1e-6 (f32
+The SpMV kernel sums in a fixed order, so it is bitwise equal from run to
+run, but not in the plain version's order: rtol 1e-4 / atol 1e-6 (f32
 summation order) against the plain version and against its split-order
 plain version (``frontier_spmv_split_ref``).  Its split path (windows cut
 into chunks of at most ``chunk_entries`` entries, partial rows summed by
@@ -14,11 +15,13 @@ a second pass) is forced at small K: 1, 2, 7 and the widest window.  The
 walk-repair kernel makes its own threefry draws and has no atomics and no
 float sums: it is held to its keyed plain version
 (``resample_rows_keyed_ref``) bit for bit.  The f64 pull sum of the rank
-loop (``pull_contrib``) adds each vertex's terms in slot order from +0.0:
-it is held bit for bit to the CPU's ``index_add_``, and the f64 loop on
-the card to the loop on the CPU; the kernel engine's served ranks are
-held bit for bit from run to run, and a batch's ``batch_host_syncs`` to
-``torch.cuda.set_sync_debug_mode``'s count.  The segment-SpMM kernel
+loop (``pull_contrib``) cuts each vertex's terms into chunks of at most K
+slots, adds each in slot order from +0.0, then the chunks in order: it is
+held bit for bit to its plain version on the CPU at K = 1, 7 and
+``PULL_CHUNK``, builds its chunk plan once an order, and the f64 loop on
+the card is held to the loop on the CPU; the kernel engine's served ranks
+are held bit for bit from run to run, and a batch's ``batch_host_syncs``
+to ``torch.cuda.set_sync_debug_mode``'s count.  The segment-SpMM kernel
 sums in a fixed order (bitwise equal from run to run) but not in the
 order of the plain version's CUDA ``index_add_``: rtol 1e-4 / atol 1e-5
 times the output's largest magnitude.  Its split path (windows cut into
@@ -26,10 +29,11 @@ chunks of at most ``chunk_entries`` entries, partial tiles summed by a
 second pass) is forced at small K here: 1, 2, 7 and 64 entries a chunk.
 The edge-slot count (``slot_count``: degrees and ``push_or``) sums
 integers, so it equals its plain version exactly.  The weighted pull sum
-is held bit for bit to the CPU's ``index_add_`` as the unweighted one is,
-and the row sum of GraphSAGE (``pull_rows``: chunks of K slots, then the
-chunks in order) bit for bit to its plain version on the CPU, and within
-atol 1e-5 times its largest magnitude to the plain version on the card.
+is held bit for bit to its plain version on the CPU as the unweighted one
+is, and the row sum of GraphSAGE (``pull_rows``: chunks of K slots, then
+the chunks in order) bit for bit to its plain version on the CPU, and
+within atol 1e-5 times its largest magnitude to the plain version on the
+card.
 """
 import dataclasses
 
@@ -47,7 +51,8 @@ from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded, \
 from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed, \
     pack_graph
 from repro_torch.kernels.pull_contrib import pull_contrib as pc
-from repro_torch.kernels.pull_contrib.ref import PullOrder, pull_contrib_ref
+from repro_torch.kernels.pull_contrib.ref import PULL_CHUNK, PullOrder, \
+    pull_contrib_ref
 from repro_torch.kernels.segment_ops import segment_matmul as sm
 from repro_torch.kernels.segment_ops.ops import aggregate_features
 from repro_torch.kernels.segment_ops.ref import gated_spmm_ref
@@ -726,27 +731,55 @@ def _pull_inputs(dev, kind):
     return order, ranks, inv
 
 
+@pytest.mark.parametrize("k", [1, 7, PULL_CHUNK])
 @pytest.mark.parametrize("kind", ["rmat", "hub", "dead"])
-def test_pull_contrib_kernel_equals_cpu_sum_bitwise(cuda, kind):
+def test_pull_contrib_kernel_equals_cpu_sum_bitwise(cuda, kind, k):
     order, ranks, inv = _pull_inputs(cuda, kind)
     before = pc.LAUNCH_COUNTS["pull_contrib"]
-    out = pc.pull_contrib(order, ranks, inv)
+    out = pc.pull_contrib(order, ranks, inv, chunk_slots=k)
     torch.cuda.synchronize()
     assert pc.LAUNCH_COUNTS["pull_contrib"] == before + 1
-    # the contract: each segment added in slot order from +0.0, as the
-    # CPU's index_add_ adds it
+    # the contract: chunks of at most k slots, each added in slot order
+    # from +0.0, then the chunks in order, as the CPU's plain version adds
     cpu = pull_contrib_ref(PullOrder(*(t.cpu() for t in order)),
-                           ranks.cpu(), inv.cpu())
+                           ranks.cpu(), inv.cpu(), chunk_slots=k)
     assert torch.equal(out.cpu(), cpu)
     for _ in range(3):
-        assert torch.equal(pc.pull_contrib(order, ranks, inv), out)
+        assert torch.equal(pc.pull_contrib(order, ranks, inv,
+                                           chunk_slots=k), out)
     # the plain version on the card adds with atomics: close, not equal
-    torch.testing.assert_close(out, pull_contrib_ref(order, ranks, inv),
+    torch.testing.assert_close(out, pull_contrib_ref(order, ranks, inv,
+                                                     chunk_slots=k),
                                rtol=1e-12, atol=0)
     if kind == "dead":
         assert float(out.abs().max()) == 0.0
     if kind == "hub":
         assert int(order.ptr[8] - order.ptr[7]) >= 299_999
+
+
+def test_pull_contrib_builds_its_plan_once_an_order(cuda, monkeypatch):
+    """The chunk plan is built at the first call on an order's ``ptr`` and
+    handed back on every later one (the f64 loop makes one order a solve):
+    no second build, and the same result bit for bit."""
+    from repro_torch.kernels.segment_ops import plan as plan_mod
+    order, ranks, inv = _pull_inputs(cuda, "rmat")
+    builds = []
+
+    def counted(*args):
+        builds.append(args[1:])
+        return chunk_plan(*args)
+    chunk_plan = plan_mod.chunk_plan
+    monkeypatch.setattr(plan_mod, "chunk_plan", counted)
+    out = pc.pull_contrib(order, ranks, inv)
+    assert len(builds) == 1
+    for _ in range(3):
+        assert torch.equal(pc.pull_contrib(order, ranks, inv), out)
+    assert torch.equal(pc.pull_values(order, ranks * inv), out)
+    assert len(builds) == 1
+    # another K is another plan; a new order (a new ptr) another again
+    pc.pull_contrib(order, ranks, inv, chunk_slots=64)
+    pc.pull_contrib(order._replace(ptr=order.ptr.clone()), ranks, inv)
+    assert len(builds) == 3
 
 
 def test_pull_contrib_wrapper_checks_inputs(cuda):

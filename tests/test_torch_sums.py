@@ -5,8 +5,12 @@
     for bit: on R-MAT with dead and free slots, on a graph of only free
     slots, and on a one-hub graph.
   * The weighted ``pull_contrib``: each vertex's terms (r[u] * w) * inv[u]
-    added in slot order from +0.0, compared bit for bit with ``np.add.at``;
-    so are ``pull_values`` (values of any length) and ``segment_sum``.
+    in chunks of at most K slots, each added in slot order from +0.0, then
+    the chunks in order, compared bit for bit with the NumPy oracle
+    (``test_torch_common.chunked_sum``: ``np.add.at`` a chunk, then chunk
+    order) and, on segments of at most K slots, with ``np.add.at``
+    straight into the vertex; so are ``pull_values`` (values of any
+    length) and ``segment_sum``, each also through a split hub (K = 4).
   * Each f64 site routed through it (the personalized and weighted solves,
     PPR visit counts and seed masses, ``push``) against its old
     ``index_add_`` form on the CPU, bit for bit; its parity with
@@ -37,13 +41,14 @@ from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
 from repro_torch.graph.generators import random_batch_update, rmat_edges
 from repro_torch.graph.structure import from_coo
 from repro_torch.kernels.pull_contrib import pull_contrib as pc
-from repro_torch.kernels.pull_contrib.ref import pull_contrib_ref, \
-    pull_rows_ref, slot_vertex
+from repro_torch.kernels.pull_contrib.ref import PULL_CHUNK, \
+    pull_contrib_ref, pull_rows_ref, slot_vertex
 from repro_torch.kernels.slot_count.slot_count import slot_count
 from repro_torch.models import gnn as tgnn
 from repro_torch.ppr import IndexConfig, build_walk_index
 from repro_torch.ppr import query as tquery
-from test_torch_common import CPU, assert_bitwise, np_, port_graph
+from test_torch_common import CPU, assert_bitwise, chunked_sum, np_, \
+    port_graph
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +122,8 @@ def _stream_graph():
     return g, g2, touched_vertices_mask(upd, n), w
 
 
-def test_weighted_pull_contrib_ref_equals_sequential_sum():
+@pytest.mark.parametrize("k", [4, PULL_CHUNK])
+def test_weighted_pull_contrib_ref_equals_sequential_sum(k):
     _, g, _, w = _stream_graph()
     n = g.num_vertices
     rng = np.random.default_rng(9)
@@ -125,54 +131,70 @@ def test_weighted_pull_contrib_ref_equals_sequential_sum():
     inv = 1.0 / g.out_degree(include_self_loop=True).to(torch.float64)
     ptr, perm = pc.sorted_slots(g.dst, g.valid, g.in_degree(False))
     order = pc.PullOrder(ptr, g.src[perm])
-    out = pc.pull_contrib(order, ranks, inv, w[perm])
-    # np.add.at adds each live slot's term to its dst in slot order
+    out = pc.pull_contrib(order, ranks, inv, w[perm], chunk_slots=k)
     src, dst, live = np_(g.src), np_(g.dst), np_(g.valid)
     r, d, ww = np_(ranks), np_(inv), np_(w)
+    terms = r[src[live]] * ww[live] * d[src[live]]
+    # the chunked order: np.add.at a chunk, then the chunks in order
+    assert_bitwise(out, chunked_sum(dst[live], terms, n, k))
+    # np.add.at adds each live slot's term to its dst in slot order: the
+    # same sum on every segment of at most K slots
+    one_chunk = np.bincount(dst[live], minlength=n) <= k
     want = np.zeros(n)
-    np.add.at(want, dst[live], r[src[live]] * ww[live] * d[src[live]])
-    assert_bitwise(out, want)
+    np.add.at(want, dst[live], terms)
+    assert_bitwise(np_(out)[one_chunk], want[one_chunk])
+    assert bool(one_chunk.all()) == (k == PULL_CHUNK)
     # and index_add_ of the same products over the sorted slots
     s = order.src.long()
     prod = ranks[s] * w[perm] * inv[s]
     again = torch.zeros(n + 1, dtype=torch.float64).index_add_(
         0, slot_vertex(ptr, s.shape[0]), prod)[:n]
-    assert torch.equal(out, again)
+    assert torch.equal(out[torch.from_numpy(one_chunk)],
+                       again[torch.from_numpy(one_chunk)])
     # weight 1 is the unweighted sum, bit for bit
-    assert torch.equal(pull_contrib_ref(order, ranks, inv),
+    assert torch.equal(pull_contrib_ref(order, ranks, inv, chunk_slots=k),
                        pc.pull_contrib(order, ranks, inv,
-                                       torch.ones_like(w)))
+                                       torch.ones_like(w), chunk_slots=k))
 
 
+@pytest.mark.parametrize("k", [4, PULL_CHUNK])
 @pytest.mark.parametrize("rows", [1, 3])
-def test_pull_values_and_segment_sum_equal_sequential_sums(rows):
+def test_pull_values_and_segment_sum_equal_sequential_sums(rows, k):
     """Values shorter than V, ``rows`` positions a value (the PPR visit
-    counts' keyed sum), and the segment sum: each segment's terms added in
-    slot order from +0.0, as ``np.add.at`` adds them."""
+    counts' keyed sum), and the segment sum, with a hub of 150 keys: the
+    NumPy oracle's chunked order, and where a segment is one chunk the
+    sequential sum ``np.add.at`` computes."""
     n, m = 40, 600
     rng = np.random.default_rng(rows)
     keys = rng.integers(-1, n, m).astype(np.int32)
     keys[:150] = 5                                  # a hub of keys
     values = rng.random(m // rows + 1)
     w = rng.random(m) + 0.5
-    k = torch.from_numpy(keys)
-    live = k >= 0
-    ptr, perm = pc.sorted_slots(k, live, slot_count(k.clamp(min=0), live, n))
+    k_ = torch.from_numpy(keys)
+    live = k_ >= 0
+    ptr, perm = pc.sorted_slots(k_, live,
+                                slot_count(k_.clamp(min=0), live, n))
     order = pc.PullOrder(ptr, torch.div(perm, rows, rounding_mode="floor")
                          .to(torch.int32))
     pos, kl = np.nonzero(keys >= 0)[0], keys[keys >= 0]
+    one_chunk = np.bincount(kl, minlength=n) <= k
+    assert bool(one_chunk[5]) == (k == PULL_CHUNK)
     for weight, want_terms in ((None, values[pos // rows]),
                                (w, values[pos // rows] * w[pos])):
-        want = np.zeros(n)
-        np.add.at(want, kl, want_terms)
         out = pc.pull_values(order, torch.from_numpy(values),
                              None if weight is None
-                             else torch.from_numpy(weight)[perm])
+                             else torch.from_numpy(weight)[perm],
+                             chunk_slots=k)
         assert out.shape == (n,)
-        assert_bitwise(out, want)
+        assert_bitwise(out, chunked_sum(kl, want_terms, n, k))
+        want = np.zeros(n)
+        np.add.at(want, kl, want_terms)
+        assert_bitwise(np_(out)[one_chunk], want[one_chunk])
+    out = pc.segment_sum(ptr, torch.from_numpy(w)[perm], chunk_slots=k)
+    assert_bitwise(out, chunked_sum(kl, w[pos], n, k))
     want = np.zeros(n)
     np.add.at(want, kl, w[pos])
-    assert_bitwise(pc.segment_sum(ptr, torch.from_numpy(w)[perm]), want)
+    assert_bitwise(np_(out)[one_chunk], want[one_chunk])
 
 
 def _old_extension_sums(graph, edge_weight):
