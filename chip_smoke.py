@@ -9,9 +9,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 The second form runs only the set-up (build, device, graph) and phase 3's
 frontier_spmv and phase 3b's pull_contrib and slot_count kernel cases;
-the third only the set-up and phase 6's gated_spmm kernel cases, on the
-first batch's packed graph.  Neither prints a summary: they are the quick loops for
-work on one kernel.
+the third only the set-up and phase 6's kernel cases: pull_rows's on the
+set-up graph, gated_spmm's on the first batch's packed graph.  Neither
+prints a summary: they are the quick loops for work on one kernel.
 
 It exits non-zero on the first failed check; no failure is passed over.
 
@@ -106,7 +106,11 @@ It exits non-zero on the first failed check; no failure is passed over.
              launched once a layer of each refresh.  Then ``pull_rows``
              at d = 602 and 128: twice, bitwise equal; within the GNN
              tolerance of its plain version; timed beside it and one
-             cuSPARSE SpMM, with its bytes bound.  Then kernel cases at
+             cuSPARSE SpMM, with its bytes bound; its row path (float2,
+             float4 or scalar loads), its hot set (sources, bytes, share
+             of the live slots, build time apart from the call) and a
+             sweep of the hot set's budget (0 to 40 MB), every budget
+             bitwise equal to budget 0 and run to run.  Then kernel cases at
              0 %, ~5 %,
              100 %, the batch's own active windows, only the widest
              window (``hub``) and all but it (``rest``): kernel, plain and
@@ -1457,11 +1461,38 @@ def pull_rows_bound(torch, order, d):
                                          gathered_bytes=4 * d * n_live)
 
 
+# the hot-row budgets phase 6 sweeps pull_rows over, bytes
+HOT_SWEEP = (0, 10_000_000, 20_000_000, 30_000_000, 40_000_000)
+
+
+def hot_set_info(torch, pc, order, n, d, budget):
+    """The hot set of rows of ``d`` f32 in ``budget`` bytes, built apart
+    from any call: its sources, bytes, share of the live slots, and the
+    build's host time (the sources' ranking, then the hot set's table)."""
+    rows = min(n, budget // (4 * d))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count, rank = pc.source_ranking(order, n)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hot = pc.hot_set(order, n, rows, (count, rank))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_hot = int(hot.hot.sum())
+    n_live = max(int(order.ptr[-1]), 1)
+    return dict(budget=budget, sources=n_hot, bytes=4 * d * n_hot,
+                share=int(count[hot.hot].sum()) / n_live,
+                ranking_ms=(t1 - t0) * 1e3, table_ms=(t2 - t1) * 1e3)
+
+
 def row_sum_cases(torch, graph, feats):
     """Phase 6, GraphSAGE's neighbour-row sum (``pull_rows``, both layers'
     widths): run twice, bitwise equal; within the GNN tolerance of the
     plain version on the card (atomics); timed beside it and one cuSPARSE
-    SpMM of the same matrix, with its bytes bound."""
+    SpMM of the same matrix, with its bytes bound.  Prints the row path
+    taken, the hot set (sources, bytes, share of the live slots, build
+    time apart from the call) and a sweep of its budget (``HOT_SWEEP``):
+    every budget bitwise equal to budget 0 and run to run."""
     from repro_torch.kernels.pull_contrib import pull_contrib as pc
     from repro_torch.kernels.pull_contrib.ref import ROW_CHUNK, \
         pull_rows_ref
@@ -1472,10 +1503,12 @@ def row_sum_cases(torch, graph, feats):
     n_live = int(order.ptr[-1])
     info = pc.kernel_info()
     _, parts, splits = plan_sizes(n, order.src.shape[0], ROW_CHUNK)
-    print(f"  pull_rows: K={ROW_CHUNK} slots a chunk, {info['row_registers']}"
-          f" registers a thread, {info['row_blocks_per_sm']} blocks of 128 "
-          f"a SM; scratch bound {parts:,} partial rows, {splits:,} split "
-          f"vertices at most", flush=True)
+    paths = ", ".join(f"{p}: {r} registers, {b} blocks a SM"
+                      for p, (r, b) in info["row_paths"].items())
+    print(f"  pull_rows: K={ROW_CHUNK} slots a chunk, blocks of 128; row "
+          f"paths (floats a load x loads a lane) {paths}; scratch bound "
+          f"{parts:,} partial rows, {splits:,} split vertices at most",
+          flush=True)
     a = torch.sparse_csr_tensor(
         order.ptr.long(), order.src[:n_live].long(),
         torch.ones(n_live, dtype=torch.float32, device=feats.device),
@@ -1483,6 +1516,14 @@ def row_sum_cases(torch, graph, feats):
     cases, max_err = [], 0.0
     for d in (feats.shape[1], 128):
         x = feats if d == feats.shape[1] else feats[:, :d].contiguous()
+        path = "{}x{}".format(*pc.row_path(d, x.data_ptr()))
+        hot = hot_set_info(torch, pc, order, n, d, pc.HOT_BYTES)
+        print(f"  pull_rows d={d}: path {path} "
+              f"({info['row_paths'][path][0]} registers); hot set "
+              f"{hot['sources']:,} sources, {hot['bytes']:,} bytes, "
+              f"{100 * hot['share']:.1f} % of the live slots; built "
+              f"apart from the call in {hot['ranking_ms']:.3f} ms (ranking) "
+              f"+ {hot['table_ms']:.3f} ms (table)", flush=True)
         out = pc.pull_rows(order, x)
         check(torch.equal(pc.pull_rows(order, x), out),
               f"pull_rows d={d}: bitwise equal run to run")
@@ -1496,6 +1537,8 @@ def row_sum_cases(torch, graph, feats):
         ms = time_ms(torch, call, reps=5, warmup=1)
         call_host_ms = host_ms(torch, call, reps=5)
         call_device_ms = device_ms(torch, call, ("pull_rows",), reps=5)
+        split_ms = {k: device_ms(torch, call, (f"pull_rows_{k}",), reps=5)
+                    for k in ("tag", "kernel", "split", "release")}
         plain_ms = time_ms(torch, lambda: pull_rows_ref(order, x), reps=2,
                            warmup=1)
         lib_out = torch.sparse.mm(a, x)
@@ -1508,7 +1551,9 @@ def row_sum_cases(torch, graph, feats):
         case = dict(case=f"d={d}", max_abs_err=err, ms=ms,
                     host_ms=call_host_ms, device_ms=call_device_ms,
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms, library_err=lerr, **detail)
+                    library_ms=library_ms, library_err=lerr, path=path,
+                    registers=info["row_paths"][path][0], hot=hot,
+                    device_split_ms=split_ms, **detail)
         cases.append(case)
         lib_txt = ("- (cuSPARSE disagrees with the plain version, max abs "
                    f"err {lerr:.3e})" if library_ms is None
@@ -1520,8 +1565,30 @@ def row_sum_cases(torch, graph, feats):
               f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
               f"library_ms={lib_txt} live_slots={n_live:,} "
               f"distinct_sources={detail['distinct_sources']:,} "
-              f"gathered_bytes={detail['gathered_bytes']:,}", flush=True)
+              f"gathered_bytes={detail['gathered_bytes']:,}; device by "
+              f"launch {split_ms}", flush=True)
         del x
+    # the budget sweep, after every other case: the policy moves no sum
+    for case in cases:
+        d = int(case["case"][2:])
+        x = feats if d == feats.shape[1] else feats[:, :d].contiguous()
+        base = pc.pull_rows(order, x, hot_bytes=0)
+        case["sweep"] = []
+        for budget in sorted(set(HOT_SWEEP) | {pc.HOT_BYTES}):
+            def call(budget=budget):
+                return pc.pull_rows(order, x, hot_bytes=budget)
+            got = call()
+            same = torch.equal(got, base) and torch.equal(call(), got)
+            del got
+            check(same, f"pull_rows d={d} budget {budget:,}: bitwise equal "
+                  f"to budget 0 and run to run")
+            ms = time_ms(torch, call, reps=5, warmup=1)
+            h = hot_set_info(torch, pc, order, n, d, budget)
+            case["sweep"].append(dict(ms=ms, **h))
+            print(f"    sweep d={d} budget {budget:>11,}: {ms:.4f} ms; "
+                  f"{h['sources']:,} hot sources, {100 * h['share']:.1f} % "
+                  f"of the live slots", flush=True)
+        del base, x
     del order, a
     torch.cuda.empty_cache()
     return dict(cases=cases, max_abs_err=max_err, info=info)
@@ -1714,10 +1781,11 @@ def gnn_checks(args, torch, dev, edges, n, graph):
 
 
 def gnn_kernel_cases(args, torch, dev, edges, n, graph):
-    """``--gnn-kernels-only``: phase 6's set-up and its gated_spmm cases,
-    the ``batch`` case on the first batch's affected set, with no stream
-    and no refresh (for iterating on the kernel)."""
-    phase("6. gated_spmm kernel cases only")
+    """``--gnn-kernels-only``: phase 6's set-up, its pull_rows cases on
+    the set-up graph and its gated_spmm cases, the ``batch`` case on the
+    first batch's affected set, with no stream and no refresh (for
+    iterating on the kernels)."""
+    phase("6. pull_rows and gated_spmm kernel cases only")
     from repro_torch.graph.dynamic import apply_batch, make_batch_update, \
         touched_vertices_mask
     from repro_torch.kernels.pagerank_spmv.update import apply_batch_packed
@@ -1734,12 +1802,13 @@ def gnn_kernel_cases(args, torch, dev, edges, n, graph):
     touched = touched_vertices_mask(upd, n)
     awin = packed.active_windows(touched | graph2.push_or(touched))
     del graph2
+    rows_sum = row_sum_cases(torch, graph, setup["feats"])
     info = spmm_info(packed, setup["feats"].shape[1])
     cases = spmm_cases(torch, packed, setup["feats"], setup["gen"], awin,
                        setup["plain"])
     return dict(**{k: setup[k] for k in (
         "pack_s", "hub_window", "hub_entries", "hub_live_lanes")},
-        spmm=info, cases=cases)
+        spmm=info, cases=cases, row_sum=rows_sum)
 
 
 def scipy_pagerank(src, dst, n, alpha=0.85, tol=1e-10, max_iter=500):
@@ -1952,9 +2021,9 @@ def main(argv=None) -> int:
                          "the PPR phase with torch.profiler (its latency "
                          "then includes the tracing)")
     ap.add_argument("--gnn-kernels-only", action="store_true",
-                    help="run only the set-up and phase 6's gated_spmm "
-                         "kernel cases; prints their JSON last and no "
-                         "summary")
+                    help="run only the set-up and phase 6's pull_rows and "
+                         "gated_spmm kernel cases; prints their JSON last "
+                         "and no summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
                     help="run only the set-up, phase 3's frontier_spmv and "
                          "phase 3b's pull_contrib kernel cases; prints "
@@ -1984,7 +2053,8 @@ def main(argv=None) -> int:
         print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
         write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
                              gnn=only))
-        print(json.dumps({"gnn_cases": only["cases"]}))
+        print(json.dumps({"gnn_cases": only["cases"],
+                          "row_cases": only["row_sum"]["cases"]}))
         return 0
     cases, max_err, spmv_kernel = kernel_checks(torch, dev, graph)
     contrib = contrib_checks(torch, dev, graph)

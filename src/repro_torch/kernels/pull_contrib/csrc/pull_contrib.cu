@@ -239,49 +239,119 @@ pull_contrib_splits_kernel(const int32_t* __restrict__ split_vertex,
 // A vertex's segment is cut into chunks of at most K slots by the chunk
 // plan of repro_torch/kernels/segment_ops/plan.py (windows = vertices,
 // entries = sorted slots), so a hub (62,458 in-edges of 602 floats at the
-// smoke's size) is walked by ~1,000 warps, not one.  One warp a chunk;
-// lane i owns columns i, i + 32, ..., 32 * kCols - 32 + i of a pass of
-// 32 * kCols columns, passes until the row's D columns are done.  The
-// warp walks its chunk's slots in order, 4 rows' loads in flight before
-// their adds, each column summed in slot order from +0.0 (__fadd_rn, no
-// FMA).  Chunk 0 of a vertex writes its row of `out`; chunk j >= 1 of a
-// split vertex writes a partial row to scratch, and a second launch adds
-// a split vertex's partial rows to its row in chunk order.  No atomics:
-// the result is the same bit for bit from run to run, and equals the
-// plain version's sum on the CPU (whose index_add_ walks in order).
+// smoke's size) is walked by ~1,000 warps, not one.  One warp a chunk: it
+// walks its chunk's slots in order, R rows' loads in flight before their
+// adds, each column summed in slot order from +0.0 (__fadd_rn, no FMA).
+// Chunk 0 of a vertex writes its row of `out`; chunk j >= 1 of a split
+// vertex writes a partial row to scratch, and a second launch adds a split
+// vertex's partial rows to its row in chunk order.  No atomics: the result
+// is the same bit for bit from run to run, and equals the plain version's
+// sum on the CPU (whose index_add_ walks in order).
 //
 // Bound.  Bytes: ptr, the live slots' src, x's rows once per distinct
-// source, out written once (chip_smoke.py pull_rows_bound).  The kernel
-// reads a row once per live slot, not once per distinct source, as
-// cuSPARSE's SpMM does: at R-MAT 2^21 and D = 602 (phase 6; NVIDIA H100
-// 80GB HBM3, 700 W) 26.30 ms against a 2.30 ms bound and cuSPARSE's
-// 24.32 ms; 72 registers a thread, 7 blocks a SM.
+// source, out written once (chip_smoke.py pull_rows_bound).  What sets the
+// time is the bytes that reach DRAM: a row is gathered once per live slot
+// (32.4 M gathers, 78 GB at D = 602 on the smoke's R-MAT 2^21 graph), and
+// with plain loads the 50 MB L2 kept almost none of it: the first design
+// was slower than cuSPARSE's SpMM over the same rows.  The sources are
+// skewed (30 MB of rows, those of the 12,458
+// sources with the most live out-edges, feed 44 % of the slots at D = 602;
+// 70 % at D = 128), so the rows of the hot sources stay in L2 and the
+// others stream past them:
+//   - a first launch tags each live slot of a hot source by the sign bit
+//     of its src (ids are < 2^31) into scratch, from a table of the hot
+//     sources (pull_contrib.py hot_set), so the row launch reads the tag
+//     with the id;
+//   - a hot row is loaded with an L2 evict_last policy, a cold row with
+//     evict_first, so the cold rows do not push the hot ones out; a last
+//     launch sets the hot rows' lines back to the normal priority, so that
+//     none stays at evict_last after the sum (lines a first variant left
+//     at a persisting priority slowed every kernel after it);
+//   - a row is read in one pass of vector loads where its width and x's
+//     address allow: float2 at D = 602 (2,408-byte rows, 8-byte aligned:
+//     10 a lane cover 640 columns), float4 at D = 128; else scalar loads,
+//     8 a lane, in passes of 256 columns.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): 19.98 ms at
+// D = 602 and 3.89 at D = 128, the tag launch's 0.22 included, against
+// cuSPARSE's 23.86 and 4.31 in the same run; the first design took 25.16
+// and 4.93 beside cuSPARSE's 23.85 and 4.32 in another.  A 20-40 MB
+// budget is as fast as 30; a copy of the hot rows under a persisting L2
+// access-policy window was no faster and left its lines in L2.
 
 constexpr int kRowWarps = 4;              // chunks a block
 constexpr int kRowThreads = 32 * kRowWarps;
-constexpr int kCols = 8;                  // columns a lane a pass
-constexpr int kRowsInFlight = 4;
+constexpr int32_t kIdBits = 0x7fffffff;   // the id of a tagged src
 
-__device__ __forceinline__ void add_rows(float (&acc)[kCols],
-                                         const float* __restrict__ x,
-                                         const int32_t (&s)[kRowsInFlight],
-                                         int n, int64_t d, int col) {
-  float r[kRowsInFlight][kCols];
-#pragma unroll
-  for (int i = 0; i < kRowsInFlight; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      r[i][c] = (i < n && col + 32 * c < d)
-                    ? __ldg(x + s[i] * d + col + 32 * c) : 0.0f;
-#pragma unroll
-  for (int i = 0; i < kRowsInFlight; ++i)
-    if (i < n) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] = __fadd_rn(acc[c], r[i][c]);
-    }
+// By the floats a lane loads from a row: the rows whose loads a warp has
+// in flight before their adds (16 floats a lane, or one row), and the
+// blocks a SM the compiler must fit (at most 64 registers; 51 at 4
+// floats).  Resident warps hide more latency than rows in flight a warp:
+// at D = 602, one row and 8 blocks (62 registers) took 19.65 ms against
+// 21.76 for two rows and 5 blocks (93); at D = 128, 4 rows and 10 blocks
+// (42) 3.65 against 4.25 for 8 rows and 7 blocks (66) (PERF.md §6).
+__host__ __device__ constexpr int rows_in_flight(int floats) {
+  return floats >= 16 ? 1 : 16 / floats;
+}
+__host__ __device__ constexpr int min_blocks(int floats) {
+  return floats <= 4 ? 10 : 8;
 }
 
-__global__ void __launch_bounds__(kRowThreads)
+__device__ __forceinline__ uint64_t l2_policy_keep() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_policy_stream() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+// r = the V floats at p (4V-byte aligned), read through the non-coherent
+// path with the L2 policy `pol`
+__device__ __forceinline__ void load_vec(float (&r)[1], const float* p,
+                                         uint64_t pol) {
+  asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+               : "=f"(r[0]) : "l"(p), "l"(pol));
+}
+
+__device__ __forceinline__ void load_vec(float (&r)[2], const float* p,
+                                         uint64_t pol) {
+  asm volatile("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+               : "=f"(r[0]), "=f"(r[1]) : "l"(p), "l"(pol));
+}
+
+__device__ __forceinline__ void load_vec(float (&r)[4], const float* p,
+                                         uint64_t pol) {
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3])
+      : "l"(p), "l"(pol));
+}
+
+// the V floats of a written row go out with the streaming (evict-first)
+// store: they are not read again by this launch
+__device__ __forceinline__ void store_vec(float* p, const float (&a)[1]) {
+  __stcs(p, a[0]);
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&a)[2]) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&a)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
+}
+
+// One warp a chunk.  Lane l owns the V-float vectors l, l + 32, ...,
+// l + 32 (N - 1) of a pass of 32 N vectors (32 N V columns); passes until
+// the row's d / V vectors are done (d % V == 0, x 4V-byte aligned: the
+// wrapper's choice).  A slot's src < 0 is a hot source: its row, x's row
+// src & kIdBits, is loaded with the L2 evict_last policy; any other row
+// with evict_first.
+template <int V, int N>
+__global__ void __launch_bounds__(kRowThreads, min_blocks(V * N))
 pull_rows_kernel(const int32_t* __restrict__ chunk_vertex,
                  const int32_t* __restrict__ chunk_begin,
                  const int32_t* __restrict__ chunk_end,
@@ -290,6 +360,7 @@ pull_rows_kernel(const int32_t* __restrict__ chunk_vertex,
                  const float* __restrict__ x, float* __restrict__ out,
                  float* __restrict__ partial, int num_chunks,
                  int num_vertices, int d) {
+  constexpr int R = rows_in_flight(V * N);
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (c >= num_chunks) return;                       // warp-uniform
@@ -299,28 +370,64 @@ pull_rows_kernel(const int32_t* __restrict__ chunk_vertex,
   const int part = __ldg(chunk_part + c);
   float* row = part < 0 ? out + static_cast<int64_t>(v) * d
                         : partial + static_cast<int64_t>(part) * d;
-  for (int col = lane; col - lane < d; col += 32 * kCols) {
-    float acc[kCols];
+  const uint64_t keep = l2_policy_keep(), stream = l2_policy_stream();
+  const int dv = d / V;                              // vectors a row
+  for (int col = lane; col - lane < dv; col += 32 * N) {
+    float acc[N][V];
 #pragma unroll
-    for (int q = 0; q < kCols; ++q) acc[q] = 0.0f;
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[j][e] = 0.0f;
     for (int base = begin; base < end; base += 32) {
       const int n = min(32, end - base);
-      const int32_t mine = lane < n ? __ldg(src + base + lane) : 0;
-      for (int i = 0; i < n; i += kRowsInFlight) {
-        int32_t s[kRowsInFlight];
+      const int32_t mine = lane < n ? __ldcs(src + base + lane) : 0;
+      for (int i = 0; i < n; i += R) {
+        float r[R][N][V];
 #pragma unroll
-        for (int q = 0; q < kRowsInFlight; ++q)
-          s[q] = __shfl_sync(kAll, mine, (i + q) & 31);
-        add_rows(acc, x, s, n - i, d, col);
+        for (int q = 0; q < R; ++q) {
+          // the slot's tag and id, the same in every lane
+          const int32_t t = __shfl_sync(kAll, mine, (i + q) & 31);
+          const float* p = x + static_cast<int64_t>(t & kIdBits) * d;
+          const uint64_t pol = t < 0 ? keep : stream;
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            const int cv = col + 32 * j;
+            if (i + q < n && cv < dv) {
+              load_vec(r[q][j], p + cv * V, pol);
+            } else {
+#pragma unroll
+              for (int e = 0; e < V; ++e) r[q][j][e] = 0.0f;
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (i + q < n) {
+#pragma unroll
+            for (int j = 0; j < N; ++j)
+#pragma unroll
+              for (int e = 0; e < V; ++e)
+                acc[j][e] = __fadd_rn(acc[j][e], r[q][j][e]);
+          }
       }
     }
 #pragma unroll
-    for (int q = 0; q < kCols; ++q)
-      if (col + 32 * q < d) row[col + 32 * q] = acc[q];
+    for (int j = 0; j < N; ++j)
+      if (col + 32 * j < dv) store_vec(row + (col + 32 * j) * V, acc[j]);
   }
 }
 
-// out[v, :] += the split vertex's partial rows, in chunk order
+// the row paths (floats a load V, loads a lane a pass N) the wrapper picks
+// from (pull_contrib.py ROW_PATHS)
+#define PULL_ROWS_PATHS(X) X(1, 8) X(2, 10) X(4, 1)
+
+// out[v, :] += the split vertex's partial rows, in chunk order.  The plan
+// lists the split vertices first and its surplus slots after them, so a
+// block walks split vertices blockIdx.x, + gridDim.x, ... up to the first
+// surplus slot: a grid of at most kSplitBlocks, not a block a slot of the
+// plan's bound (748,067 at the smoke's size).
+constexpr int kSplitBlocks = 2048;
+
 __global__ void __launch_bounds__(kRowThreads)
 pull_rows_split_kernel(const int32_t* __restrict__ split_vertex,
                        const int32_t* __restrict__ split_part,
@@ -328,18 +435,67 @@ pull_rows_split_kernel(const int32_t* __restrict__ split_vertex,
                        const float* __restrict__ partial,
                        float* __restrict__ out, int num_splits,
                        int num_vertices, int d) {
-  const int s = blockIdx.x;
-  const int v = __ldg(split_vertex + s);
-  if (v >= num_vertices) return;
-  const int p0 = __ldg(split_part + s), n = __ldg(split_count + s);
-  for (int col = blockIdx.y * kRowThreads + threadIdx.x; col < d;
-       col += gridDim.y * kRowThreads) {
-    float* o = out + static_cast<int64_t>(v) * d + col;
-    float acc = *o;
-    for (int j = 0; j < n; ++j)
-      acc = __fadd_rn(acc, __ldg(partial + static_cast<int64_t>(p0 + j) * d
-                                 + col));
-    *o = acc;
+  for (int s = blockIdx.x; s < num_splits; s += gridDim.x) {
+    const int v = __ldg(split_vertex + s);
+    if (v >= num_vertices) return;                   // surplus from here on
+    const int p0 = __ldg(split_part + s), n = __ldg(split_count + s);
+    for (int col = blockIdx.y * kRowThreads + threadIdx.x; col < d;
+         col += gridDim.y * kRowThreads) {
+      float* o = out + static_cast<int64_t>(v) * d + col;
+      float acc = *o;
+      for (int j = 0; j < n; ++j)
+        acc = __fadd_rn(acc, __ldg(partial
+                                   + static_cast<int64_t>(p0 + j) * d
+                                   + col));
+      *o = acc;
+    }
+  }
+}
+
+// The slots' tags, the first launch of a sum with a hot set: tagged[k] =
+// src[k] | tag[src[k]] (the sign bit for a hot source, else 0) for the
+// live slots k < *live_end, 4 slots (16 bytes) a load where src is
+// 16-byte aligned (tagged, fresh scratch, always is).
+__global__ void __launch_bounds__(kRowThreads)
+pull_rows_tag_kernel(const int32_t* __restrict__ src,
+                     const int32_t* __restrict__ tag,
+                     const int32_t* __restrict__ live_end,
+                     int32_t* __restrict__ tagged) {
+  const int end = __ldg(live_end);
+  const int step = gridDim.x * kRowThreads;
+  int k = blockIdx.x * kRowThreads + threadIdx.x;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (; 4 * k + 3 < end; k += step) {
+      int4 s = __ldcs(reinterpret_cast<const int4*>(src) + k);
+      s.x |= __ldg(tag + s.x);
+      s.y |= __ldg(tag + s.y);
+      s.z |= __ldg(tag + s.z);
+      s.w |= __ldg(tag + s.w);
+      __stcs(reinterpret_cast<int4*>(tagged) + k, s);
+    }
+    k = (end & ~3) + blockIdx.x * kRowThreads + threadIdx.x;  // the tail
+  }
+  for (; k < end; k += step) {
+    const int32_t s = __ldcs(src + k);
+    __stcs(tagged + k, s | __ldg(tag + s));
+  }
+}
+
+// After the sum, the L2 lines of x's rows top[0..rows) go back to the
+// normal eviction priority, so that they do not crowd the next kernels'
+// lines out of L2.
+__global__ void __launch_bounds__(kRowThreads)
+pull_rows_release_kernel(const int64_t* __restrict__ top, int rows,
+                         const float* __restrict__ x, int d) {
+  const int lane = threadIdx.x & 31;
+  for (int i = blockIdx.x * kRowWarps + (threadIdx.x >> 5); i < rows;
+       i += gridDim.x * kRowWarps) {
+    const uintptr_t b = reinterpret_cast<uintptr_t>(x + __ldg(top + i) * d);
+    const uintptr_t e = b + 4 * static_cast<uintptr_t>(d);
+    for (uintptr_t line = (b & ~static_cast<uintptr_t>(127)) + 128 * lane;
+         line < e; line += 128 * 32)
+      asm volatile("applypriority.L2::evict_normal [%0], 128;"
+                   :: "l"(line) : "memory");
   }
 }
 
@@ -410,6 +566,29 @@ extern "C" int pull_contrib_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+using RowKernel = void (*)(const int32_t*, const int32_t*, const int32_t*,
+                           const int32_t*, const int32_t*, const float*,
+                           float*, float*, int, int, int);
+
+// the row kernel of path (vec, loads), or nullptr if there is none
+RowKernel row_kernel(int vec, int loads) {
+#define PULL_ROWS_CASE(V, N) \
+  if (vec == V && loads == N) return pull_rows_kernel<V, N>;
+  PULL_ROWS_PATHS(PULL_ROWS_CASE)
+#undef PULL_ROWS_CASE
+  return nullptr;
+}
+
+}  // namespace
+
+// The f32 row sum.  chunk_* and split_* are the chunk plan's arrays; `src`
+// the order's num_slots sources; (vec, loads) the row path.  With a hot
+// set (`tag` not null: tag[s] is the sign bit for a hot source s, else 0)
+// the live slots (k < *live_end) are first tagged into `tagged`, which the
+// row launch reads, and after it the lines of x's top_rows rows top[i] go
+// back to the normal L2 priority.
 extern "C" int pull_rows_launch(int device, const void* chunk_vertex,
                                 const void* chunk_begin,
                                 const void* chunk_end,
@@ -417,27 +596,54 @@ extern "C" int pull_rows_launch(int device, const void* chunk_vertex,
                                 const void* split_vertex,
                                 const void* split_part,
                                 const void* split_count, const void* src,
-                                const void* x, void* out, void* partial,
-                                int num_chunks, int num_splits,
-                                int num_vertices, int d, void* stream) {
+                                const void* tag, const void* live_end,
+                                void* tagged, int num_slots, const void* x,
+                                const void* top, int top_rows, void* out,
+                                void* partial, int num_chunks,
+                                int num_splits, int num_vertices, int d,
+                                int vec, int loads, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
+  const RowKernel kernel = row_kernel(vec, loads);
+  if (kernel == nullptr || d % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* xs = static_cast<const float*>(x);
+  auto* slots = static_cast<const int32_t*>(src);
   if (num_chunks > 0 && d > 0) {
-    const int blocks = (num_chunks + kRowWarps - 1) / kRowWarps;
-    pull_rows_kernel<<<blocks, kRowThreads, 0, st>>>(
+    int blocks;
+    if (tag != nullptr && num_slots > 0) {
+      blocks = (num_slots + kRowThreads - 1) / kRowThreads;
+      pull_rows_tag_kernel<<<blocks < 4096 ? blocks : 4096, kRowThreads, 0,
+                             st>>>(slots, static_cast<const int32_t*>(tag),
+                                   static_cast<const int32_t*>(live_end),
+                                   static_cast<int32_t*>(tagged));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      slots = static_cast<const int32_t*>(tagged);
+    }
+    blocks = (num_chunks + kRowWarps - 1) / kRowWarps;
+    kernel<<<blocks, kRowThreads, 0, st>>>(
         static_cast<const int32_t*>(chunk_vertex),
         static_cast<const int32_t*>(chunk_begin),
         static_cast<const int32_t*>(chunk_end),
         static_cast<const int32_t*>(chunk_part),
-        static_cast<const int32_t*>(src), static_cast<const float*>(x),
-        static_cast<float*>(out), static_cast<float*>(partial), num_chunks,
-        num_vertices, d);
+        slots, xs, static_cast<float*>(out),
+        static_cast<float*>(partial), num_chunks, num_vertices, d);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (top_rows > 0) {
+      blocks = (top_rows + kRowWarps - 1) / kRowWarps;
+      pull_rows_release_kernel<<<blocks < 1024 ? blocks : 1024, kRowThreads,
+                                 0, st>>>(static_cast<const int64_t*>(top),
+                                          top_rows, xs, d);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   if (num_splits > 0 && d > 0) {
-    const dim3 grid(num_splits, (d + kRowThreads - 1) / kRowThreads);
+    const dim3 grid(num_splits < kSplitBlocks ? num_splits : kSplitBlocks,
+                    (d + kRowThreads - 1) / kRowThreads);
     pull_rows_split_kernel<<<grid, kRowThreads, 0, st>>>(
         static_cast<const int32_t*>(split_vertex),
         static_cast<const int32_t*>(split_part),
@@ -465,15 +671,15 @@ cudaError_t func_info(F f, int threads, int* info) {
 
 // info[0..3]: registers a thread, resident blocks a SM, the SMs, and
 // threads a block, of the unweighted chunk kernel; info[4..5]: registers a
-// thread and resident blocks a SM of the row kernel; info[6..7] of the
-// weighted chunk kernel; info[8..9] of the split kernel.
+// thread and resident blocks a SM of the scalar row kernel (path (1, 8));
+// info[6..7] of the weighted chunk kernel; info[8..9] of the split kernel.
 extern "C" int pull_contrib_info(int device, int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
   err = func_info(pull_contrib_chunks_kernel<false>, kThreads, info);
   if (err == cudaSuccess)
-    err = func_info(pull_rows_kernel, kRowThreads, info + 4);
+    err = func_info(row_kernel(1, 8), kRowThreads, info + 4);
   if (err == cudaSuccess)
     err = func_info(pull_contrib_chunks_kernel<true>, kThreads, info + 6);
   if (err == cudaSuccess)
@@ -486,4 +692,14 @@ extern "C" int pull_contrib_info(int device, int* info) {
   info[2] = sms;
   info[3] = kThreads;
   return static_cast<int>(cudaSuccess);
+}
+
+// info[0..1]: registers a thread and resident blocks a SM of the row
+// kernel of path (vec, loads)
+extern "C" int pull_rows_info(int device, int vec, int loads, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const RowKernel kernel = row_kernel(vec, loads);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(func_info(kernel, kRowThreads, info));
 }

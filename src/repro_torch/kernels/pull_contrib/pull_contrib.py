@@ -15,26 +15,35 @@ Both dispatch on where their tensors lie: on the CPU they run the plain
 versions (``ref.pull_contrib_ref``, ``ref.pull_rows_ref``); on a CUDA
 device they launch the hand-written kernels of ``csrc/pull_contrib.cu``
 over the chunk plan of ``segment_ops.plan`` (built on the device at the
-first call on an ``order.ptr`` and cached with it).  A failed build or
-launch raises.  ``LAUNCH_COUNTS`` counts calls that launch each kernel.
+first call on an ``order.ptr`` and cached with it).  ``pull_rows`` keeps
+the rows of the sources with the most live slots (``HOT_BYTES`` of them,
+``hot_set``, cached with the plan; the kernel tags their slots,
+``tag_slots``) in the card's L2 and reads each row
+in one pass of float2 or float4 loads where d and x's address allow
+(``row_path``).  A failed build or launch raises.  ``LAUNCH_COUNTS``
+counts calls that launch each kernel.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
-from typing import Optional
+import weakref
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pull_contrib.ref import PULL_CHUNK, ROW_CHUNK, \
     PullOrder, pull_contrib_ref, pull_order, pull_rows_ref, sorted_slots
-from repro_torch.kernels.segment_ops.plan import cached_plan
+from repro_torch.kernels.segment_ops.plan import cached, cached_plan
+from repro_torch.kernels.slot_count.slot_count import slot_count
 
-__all__ = ["LAUNCH_COUNTS", "PULL_CHUNK", "PullOrder", "ROW_CHUNK",
-           "kernel_info", "pull_contrib", "pull_order", "pull_rows",
-           "pull_values", "segment_sum", "sorted_slots"]
+__all__ = ["HOT_BYTES", "HOT_TAG", "HotSet", "LAUNCH_COUNTS", "PULL_CHUNK",
+           "PullOrder", "ROW_CHUNK", "ROW_PATHS", "cached_hot_set",
+           "hot_set", "kernel_info", "pull_contrib", "pull_order",
+           "pull_rows", "pull_values", "row_path", "segment_sum",
+           "sorted_slots", "source_ranking", "tag_slots"]
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
@@ -52,8 +61,12 @@ def _lib() -> ctypes.CDLL:
                                         + [ctypes.c_void_p])
     lib.pull_contrib_launch.restype = ctypes.c_int
     lib.pull_rows_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                                     + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.pull_rows_launch.restype = ctypes.c_int
+    lib.pull_rows_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.pull_rows_info.restype = ctypes.c_int
     lib.pull_contrib_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.pull_contrib_info.restype = ctypes.c_int
     return lib
@@ -62,7 +75,9 @@ def _lib() -> ctypes.CDLL:
 def kernel_info(device=None) -> dict:
     """Registers a thread, resident blocks a SM, the SMs and threads a
     block of the f64 chunk kernel on the card; registers and blocks a SM
-    of the row kernel, the weighted chunk kernel and the split kernel."""
+    of the scalar row kernel, the weighted chunk kernel and the split
+    kernel; and ``row_paths``: {"<floats a load>x<loads a lane>":
+    (registers, blocks a SM)} of every row path."""
     index = None if device is None else torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
@@ -70,11 +85,18 @@ def kernel_info(device=None) -> dict:
     rc = _lib().pull_contrib_info(index, ctypes.addressof(info))
     if rc != 0:
         raise RuntimeError(f"pull_contrib_info failed: CUDA error {rc}")
+    paths = {}
+    for vec, loads in ROW_PATHS.items():
+        row = (ctypes.c_int * 2)()
+        rc = _lib().pull_rows_info(index, vec, loads, ctypes.addressof(row))
+        if rc != 0:
+            raise RuntimeError(f"pull_rows_info failed: CUDA error {rc}")
+        paths[f"{vec}x{loads}"] = (row[0], row[1])
     return dict(registers=info[0], blocks_per_sm=info[1], sms=info[2],
                 threads_per_block=info[3], row_registers=info[4],
                 row_blocks_per_sm=info[5], weighted_registers=info[6],
                 weighted_blocks_per_sm=info[7], split_registers=info[8],
-                split_blocks_per_sm=info[9])
+                split_blocks_per_sm=info[9], row_paths=paths)
 
 
 def _launch_kernel(order: PullOrder, ranks: torch.Tensor,
@@ -169,14 +191,108 @@ def segment_sum(ptr: torch.Tensor, weight: torch.Tensor, *,
                        chunk_slots=chunk_slots)
 
 
-def _launch_rows(order: PullOrder, x: torch.Tensor,
-                 chunk_slots: int) -> torch.Tensor:
+# bytes of source rows the row sum keeps in L2 (the hot set's budget)
+HOT_BYTES = 30_000_000
+# the sign bit of a sorted slot's src: its source is hot
+HOT_TAG = -2**31
+# the row kernel's paths (csrc/pull_contrib.cu PULL_ROWS_PATHS): floats a
+# load -> loads a lane a pass (a pass of 32 lanes covers 128, 640 or 256
+# columns: d = 128 and 602 in one pass)
+ROW_PATHS = {4: 1, 2: 10, 1: 8}
+
+
+def row_path(d: int, data_ptr: int) -> Tuple[int, int]:
+    """(floats a load, loads a lane a pass) of the row kernel for rows of
+    ``d`` f32 from address ``data_ptr``: float4, else float2 loads where
+    ``d`` and the address allow them, else scalar loads."""
+    vec = next(v for v in (4, 2, 1)
+               if d % v == 0 and data_ptr % (4 * v) == 0)
+    return vec, ROW_PATHS[vec]
+
+
+class HotSet(NamedTuple):
+    """The sources whose rows the row sum keeps in L2."""
+
+    tag: torch.Tensor   # int32[n]: HOT_TAG for a hot source, else 0
+    hot: torch.Tensor   # bool[n]: the hot sources
+    top: torch.Tensor   # int64[H]: the sources ranked first (the hot ones
+                        # and any of no live slot), most live slots first
+
+
+def source_ranking(order: PullOrder, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(count int32[n], rank int64[n]): each of the ``n`` sources' live
+    slots in ``order`` (``slot_count`` over the live sorted src), and the
+    sources by count, most first, ties by the lower id (a stable sort)."""
+    E = order.src.shape[0]
+    live = torch.arange(E, dtype=torch.int32,
+                        device=order.src.device) < order.ptr[-1]
+    count = slot_count(torch.where(live, order.src, 0), live, n)
+    return count, torch.sort(count, descending=True, stable=True).indices
+
+
+def hot_set(order: PullOrder, n: int, rows: int,
+            ranking: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> HotSet:
+    """The hot set of at most ``rows`` sources of ``n``: those ranked first
+    by ``source_ranking`` (``ranking``, built here if not given) that have
+    a live slot.  No host read, and nothing the size of the slots."""
+    dev = order.src.device
+    if rows <= 0 or n == 0:
+        return HotSet(torch.zeros(0, dtype=torch.int32, device=dev),
+                      torch.zeros(n, dtype=torch.bool, device=dev),
+                      torch.zeros(0, dtype=torch.int64, device=dev))
+    count, rank = source_ranking(order, n) if ranking is None else ranking
+    top = rank[:rows]
+    hot = torch.zeros(n, dtype=torch.bool, device=dev).scatter_(
+        0, top, count[top] > 0)
+    return HotSet(torch.where(hot, HOT_TAG, 0).to(torch.int32), hot, top)
+
+
+def tag_slots(order: PullOrder, hot: HotSet) -> torch.Tensor:
+    """int32[E]: the order's src with ``HOT_TAG`` set on the live slots of
+    hot sources: the plain version of the row kernel's first launch (which
+    writes only the live slots)."""
+    if hot.top.shape[0] == 0:
+        return order.src
+    live = torch.arange(order.src.shape[0], dtype=torch.int32,
+                        device=order.src.device) < order.ptr[-1]
+    idx = torch.where(live, order.src, 0)
+    return torch.where(live, order.src | hot.tag.index_select(0, idx),
+                       order.src)
+
+
+def _per_order(order: PullOrder, key: tuple, build):
+    """``build()`` once per order: cached with its chunk plan (on
+    ``order.ptr``), and built anew if the order's src is another tensor."""
+    ref, value = cached(order.ptr, key + (id(order.src),),
+                        lambda: (weakref.ref(order.src), build()))
+    return value if ref() is order.src else build()
+
+
+def cached_hot_set(order: PullOrder, n: int, d: int,
+                   hot_bytes: int) -> HotSet:
+    """The hot set of rows of ``d`` f32 in ``hot_bytes``, built at the
+    first call on this order and width: the sources' ranking is built once
+    an order, so the layers of a forward (one order, two widths) share
+    it."""
+    rows = min(n, max(hot_bytes, 0) // (4 * max(d, 1)))
+    if rows == 0:
+        return hot_set(order, n, 0)
+    ranking = _per_order(order, ("source_ranking", n),
+                         lambda: source_ranking(order, n))
+    return _per_order(order, ("hot_set", n, rows),
+                      lambda: hot_set(order, n, rows, ranking))
+
+
+def _launch_rows(order: PullOrder, x: torch.Tensor, chunk_slots: int,
+                 hot_bytes: int) -> torch.Tensor:
     V, E = order.ptr.shape[0] - 1, order.src.shape[0]
     dev = x.device
-    d = x.shape[1]
+    n, d = x.shape
     _check_rows("ptr", order.ptr, torch.int32, (V + 1,), dev)
     _check_rows("src", order.src, torch.int32, (E,), dev)
-    _check_rows("x", x, torch.float32, (x.shape[0], d), dev)
+    _check_rows("x", x, torch.float32, (n, d), dev)
     if chunk_slots < 1:
         raise ValueError(f"pull_rows: chunk_slots must be >= 1, got "
                          f"{chunk_slots}")
@@ -188,6 +304,10 @@ def _launch_rows(order: PullOrder, x: torch.Tensor,
         return out
     # the chunk plan of gated_spmm, over vertices and their sorted slots
     plan = cached_plan(order.ptr, E, chunk_slots)
+    hot = cached_hot_set(order, n, d, hot_bytes)
+    # the tagged slots the kernel's first launch writes (live ones only)
+    tagged = torch.empty_like(order.src) if hot.top.shape[0] else None
+    vec, loads = row_path(d, x.data_ptr())
     partial = torch.empty(plan.num_partials * d, dtype=torch.float32,
                           device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -195,8 +315,12 @@ def _launch_rows(order: PullOrder, x: torch.Tensor,
         rc = _lib().pull_rows_launch(
             torch.cuda.current_device(),
             *(t.data_ptr() for t in plan[:7]), order.src.data_ptr(),
-            x.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            plan.window.shape[0], plan.split_window.shape[0], V, d, stream)
+            None if tagged is None else hot.tag.data_ptr(),
+            order.ptr[V:].data_ptr(),
+            None if tagged is None else tagged.data_ptr(), E,
+            x.data_ptr(), hot.top.data_ptr(), hot.top.shape[0],
+            out.data_ptr(), partial.data_ptr(), plan.window.shape[0],
+            plan.split_window.shape[0], V, d, vec, loads, stream)
     if rc != 0:
         raise RuntimeError(f"pull_rows kernel launch failed: CUDA error "
                            f"{rc}")
@@ -205,11 +329,14 @@ def _launch_rows(order: PullOrder, x: torch.Tensor,
 
 
 def pull_rows(order: PullOrder, x: torch.Tensor, *,
-              chunk_slots: int = ROW_CHUNK) -> torch.Tensor:
+              chunk_slots: int = ROW_CHUNK,
+              hot_bytes: int = HOT_BYTES) -> torch.Tensor:
     """f32[V, D]: out[v] = the sum of the rows x[u] (x: f32[N, D]) over
     v's live in-edges (u, v) of ``order``: each chunk of at most
     ``chunk_slots`` slots summed in slot order from +0.0, then a vertex's
-    chunks added in chunk order."""
+    chunks added in chunk order.  On the card the rows of the sources with
+    the most live slots, ``hot_bytes`` of them, are kept in L2 by the
+    loads' cache policy (``hot_set``); that changes no sum."""
     if x.dim() != 2:
         raise ValueError(f"pull_rows: x must be [N, D], got "
                          f"{tuple(x.shape)}")
@@ -217,4 +344,4 @@ def pull_rows(order: PullOrder, x: torch.Tensor, *,
         return pull_rows_ref(order, x, chunk_slots)
     if x.device.type != "cuda":
         raise ValueError(f"pull_rows: no kernel for device {x.device}")
-    return _launch_rows(order, x, chunk_slots)
+    return _launch_rows(order, x, chunk_slots, hot_bytes)

@@ -25,9 +25,11 @@ structure and K, and hands the same one back on every later call.
 from __future__ import annotations
 
 import weakref
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple, TypeVar
 
 import torch
+
+T = TypeVar("T")
 
 
 class ChunkPlan(NamedTuple):
@@ -87,29 +89,36 @@ def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
         split_count=i32(parts[swc], sw < nw), num_partials=n_parts)
 
 
-# id(entry_start) -> (weak reference to it, {(ne, k): plan}); an entry goes
-# with its tensor, so a freed tensor's address cannot reach a stale plan
-_PLANS: Dict[int, Tuple[weakref.ref, Dict[Tuple[int, int], ChunkPlan]]] = {}
+# id(entry_start) -> (weak reference to it, {key: value}): the plans, and
+# what else is built once per tensor (the row sum's hot set); an entry goes
+# with its tensor, so a freed tensor's address cannot reach a stale value
+_PLANS: Dict[int, Tuple[weakref.ref, Dict[Any, Any]]] = {}
 
 
-def _forget(key: int, ref: weakref.ref) -> None:
-    hit = _PLANS.get(key)
+def _forget(slot: int, ref: weakref.ref) -> None:
+    hit = _PLANS.get(slot)
     if hit is not None and hit[0] is ref:
-        del _PLANS[key]
+        del _PLANS[slot]
+
+
+def cached(entry_start: torch.Tensor, key, build: Callable[[], T]) -> T:
+    """``build()``, called at the first call on this ``entry_start`` tensor
+    with this ``key`` and then handed back as is.  The value is dropped
+    when the tensor is freed (a repack or a new order makes a new one)."""
+    slot = id(entry_start)
+    hit = _PLANS.get(slot)
+    if hit is None or hit[0]() is not entry_start:
+        ref = weakref.ref(entry_start, lambda r, slot=slot: _forget(slot, r))
+        hit = _PLANS[slot] = (ref, {})
+    values = hit[1]
+    if key not in values:
+        values[key] = build()
+    return values[key]
 
 
 def cached_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
     """``chunk_plan(entry_start, ne, k)``, built at the first call on this
     ``entry_start`` tensor and then handed back as is: no launch and no
-    host read.  The plan is dropped when the tensor is freed (a repack
-    makes a new one)."""
-    key = id(entry_start)
-    hit = _PLANS.get(key)
-    if hit is None or hit[0]() is not entry_start:
-        ref = weakref.ref(entry_start, lambda r, key=key: _forget(key, r))
-        hit = _PLANS[key] = (ref, {})
-    plans = hit[1]
-    plan = plans.get((ne, k))
-    if plan is None:
-        plan = plans[(ne, k)] = chunk_plan(entry_start, ne, k)
-    return plan
+    host read."""
+    return cached(entry_start, (ne, k),
+                  lambda: chunk_plan(entry_start, ne, k))

@@ -1036,3 +1036,116 @@ def test_pull_values_kernel_equals_cpu_sum_bitwise(cuda, rows):
                 pc.pull_values(order, values.to(dev).float())
     for a, b in zip(outs[cuda], outs["cpu"]):
         assert a.shape == (n,) and torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# pull_rows' hot rows kept in L2, and its vector paths
+# ---------------------------------------------------------------------------
+
+def _rows_case(dev, d, kind="rmat", offset=0):
+    """(order, x on ``dev``, x on the CPU) for ``_count_graph(kind)`` and
+    seeded f32 features; with ``offset`` x and the order's src are
+    contiguous views that start ``offset`` elements into their storage."""
+    from repro_torch.models.gnn import neighbor_order
+    g = _count_graph(dev, kind)
+    n = g.num_vertices
+    order = neighbor_order(g.src, g.dst, g.valid, n)
+    if offset:
+        order = order._replace(src=torch.cat(
+            [order.src.new_zeros(offset), order.src])[offset:])
+    rows = np.random.default_rng(d).standard_normal((n, d)).astype(
+        np.float32)
+    flat = np.concatenate([np.zeros(offset, np.float32), rows.ravel()])
+    x = torch.from_numpy(flat).to(dev)[offset:].view(n, d)
+    return order, x, torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize("d,kind", [(602, "rmat"), (602, "hub"),
+                                    (128, "hub"), (128, "rmat"),
+                                    (37, "rmat"), (37, "hub")])
+def test_pull_rows_hot_budgets_equal_bitwise(cuda, d, kind):
+    """Budget 0 (no hot row), a partial hot set and every source hot give
+    the same sums bit for bit, equal to the CPU's plain version: the cache
+    policy moves no add."""
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    order, x, xc = _rows_case(cuda, d, kind)
+    cpu = pull_rows_ref(PullOrder(*(t.cpu() for t in order)), xc)
+    n = x.shape[0]
+    outs = []
+    for budget in (0, 4 * d * 1000, 4 * d * n):
+        hot = pc.cached_hot_set(order, n, d, budget)
+        held = int(hot.hot.sum())
+        assert held <= budget // (4 * d)
+        if budget:
+            assert held > 0 and bool((hot.tag < 0).any())
+        before = pc.LAUNCH_COUNTS["pull_rows"]
+        out = pc.pull_rows(order, x, hot_bytes=budget)
+        torch.cuda.synchronize()
+        assert pc.LAUNCH_COUNTS["pull_rows"] == before + 1
+        assert torch.equal(pc.pull_rows(order, x, hot_bytes=budget), out)
+        outs.append(out)
+    for out in outs:
+        assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("d", [602, 128, 64, 37, 5, 1030, 1024])
+def test_pull_rows_vector_paths_equal_scalar_path(cuda, d):
+    """The float2 and float4 paths (chosen from d and x's address; 1030
+    and 1024 take two passes) against the scalar path, which a view one
+    float into its storage (4-byte aligned) takes: bitwise equal, and
+    equal to the CPU's sum."""
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    order, x, xc = _rows_case(cuda, d, "hub")
+    order1, x1, _ = _rows_case(cuda, d, "hub", offset=1)
+    assert torch.equal(x1, x) and x1.data_ptr() % 8 == 4
+    assert torch.equal(order1.src, order.src)
+    assert order1.src.data_ptr() % 16 == 4     # the tag launch's scalar loop
+    assert pc.row_path(d, x1.data_ptr()) == (1, 8)
+    want = {602: (2, 10), 1030: (2, 10), 128: (4, 1), 64: (4, 1),
+            1024: (4, 1)}.get(d, (1, 8))
+    assert pc.row_path(d, x.data_ptr()) == want
+    out = pc.pull_rows(order, x)
+    assert torch.equal(pc.pull_rows(order, x1), out)
+    assert torch.equal(pc.pull_rows(order1, x1), out)
+    cpu = pull_rows_ref(PullOrder(*(t.cpu() for t in order)), xc)
+    assert torch.equal(out.cpu(), cpu)
+    paths = pc.kernel_info()["row_paths"]
+    assert set(paths) == {f"{v}x{k}" for v, k in pc.ROW_PATHS.items()}
+    assert all(r > 0 and b >= 1 for r, b in paths.values())
+
+
+def test_pull_rows_hot_set_cached_per_order(cuda, monkeypatch):
+    """sage_forward's two layers (d_in and d_hidden) build the sources'
+    ranking once for their one order, and a hot set a width; a later call
+    on the order builds nothing."""
+    from repro_torch.configs.graphsage_reddit import CONFIG as cfg
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn import GraphBatch, init_sage, sage_forward
+    g = _count_graph(cuda, "rmat")
+    n = g.num_vertices
+    built = {"ranking": 0, "hot_set": 0}
+
+    def counting(name, fn):
+        def call(*a, **kw):
+            built[name] += 1
+            return fn(*a, **kw)
+        return call
+    monkeypatch.setattr(pc, "source_ranking",
+                        counting("ranking", pc.source_ranking))
+    monkeypatch.setattr(pc, "hot_set", counting("hot_set", pc.hot_set))
+    orders, neighbor_order = [], gnn.neighbor_order
+
+    def recording(*a):
+        orders.append(neighbor_order(*a))
+        return orders[-1]
+    monkeypatch.setattr(gnn, "neighbor_order", recording)
+    params = init_sage(cfg, torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn(n, cfg.d_in, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    every = torch.ones(n, dtype=torch.bool, device=cuda)
+    sage_forward(cfg, params, GraphBatch(x, g.src, g.dst, g.valid, every))
+    assert len(orders) == 1
+    # d_in and d_hidden hold different numbers of rows in the budget
+    assert built == {"ranking": 1, "hot_set": cfg.n_layers}
+    pc.pull_rows(orders[0], x)
+    assert built == {"ranking": 1, "hot_set": cfg.n_layers}
