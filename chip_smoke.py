@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --gnn-kernels-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
-frontier_spmv and phase 3b's pull_contrib and slot_count kernel cases;
+frontier_spmv and phase 3b's pull_contrib, slot_count, segment_bounds
+and segment_or kernel cases;
 the third only the set-up and phase 6's kernel cases: pull_rows's on the
 set-up graph, gated_spmm's on the first batch's packed graph.  Neither
 prints a summary: they are the quick loops for work on one kernel.
@@ -44,12 +45,17 @@ It exits non-zero on the first failed check; no failure is passed over.
              the call's device time by launch (terms pass, chunks, split
              vertices), and a sweep of K (128 to 2048) on ``all`` and
              ``hub``, each checked against the plain version at that K.
-             Then the edge-slot count: the old ``_count`` (an int32
+             Then the edge-slot counts: the old ``_count`` (an int32
              ``index_add_``) timed over every slot, the live slots only
-             and the free slots only (all of them vertex 0); the
-             slot_count kernel on ``in_degree``'s call and on a ~1 %
-             ``push_or``, equal to ``index_add_`` on the card and on the
-             CPU, timed beside it with its bytes bound.
+             and the free slots only (all of them vertex 0); the order's
+             sort; segment_bounds on its keys (== searchsorted, == the
+             cumsum of the atomic in-degree count); slot_count on
+             ``in_degree``'s old call (by dst) and ``out_degree``'s (by
+             src); segment_or (``push_or``) at a 1 %, a ~50 % and a 100 %
+             frontier beside the old route (slot_count gathered > 0).
+             Each kernel equal to its plain version on the card and on
+             the CPU, exactly, and timed beside it and one library call
+             (searchsorted, ``index_add_``) with its bytes bound.
 4. Serve   — the paper's §5.2.2 regime at the size of sx-stackoverflow: an
              R-MAT graph of 2**21 vertices and ~30 M edges, random
              80 % insert / 20 % delete batches.  ``ServeEngine(engine=
@@ -67,7 +73,14 @@ It exits non-zero on the first failed check; no failure is passed over.
              final snapshots must be bitwise equal, with equal per-batch
              iteration and affected counts.  Every batch's
              ``batch_host_syncs`` must equal the synchronizing calls
-             ``torch.cuda.set_sync_debug_mode("warn")`` reports for it.
+             ``torch.cuda.set_sync_debug_mode("warn")`` reports for it,
+             and every batch must build one order (one segment_bounds)
+             and one out-degree count (one slot_count); it prints the
+             segment_or launches (one a ``push_or``), the cudaMalloc
+             calls and peak memory.  Last, the feed once more on the
+             kernel engine from a released allocator cache, with the
+             allocator's history recorded (untimed): where each batch's
+             cudaMalloc calls come from, and a bitwise equal snapshot.
 5. PPR     — the same graph and feed through ``ServeEngine(engine=
              "kernel", ppr_index=IndexConfig(num_walks=64, max_len=16))``:
              a 2**21 x 64 x 16 int32 walk index (8.6 GB) built at bootstrap
@@ -97,7 +110,8 @@ It exits non-zero on the first failed check; no failure is passed over.
              ``sage_forward``, then ``aggregate_features`` (the gated_spmm
              kernel) on ``touched | push_or(touched)``; prints latency, its
              device split, the kernel's time, nodes recomputed, the share
-             of active windows and host syncs.  Checks: (a) the kernel ==
+             of active windows, host syncs and cudaMalloc calls.
+             Checks: (a) the kernel ==
              its plain version; (b) its active rows == ``sage_forward``'s
              layer-1 neighbour sum; (c) the refreshed embeddings == a full
              forward on ``affected_ever``; (d) inactive windows exactly 0;
@@ -123,8 +137,11 @@ It exits non-zero on the first failed check; no failure is passed over.
              streaming driver's loop (``launch.pagerank.run_batches``)
              on the set-up graph: 3 random batches (80 % insertions) of
              1024 edges and 3 of 10^-3 |E|, each batch's latency,
-             iterations, ``affected_ever``, host syncs, ``_count`` calls
-             and L1 against a static f64 solve of its graph (<= 1e-4).
+             iterations, ``affected_ever``, host syncs, cudaMalloc
+             calls, orders built and slot_count, segment_bounds and
+             segment_or launches (one
+             order and one out-degree count a batch, checked) and L1
+             against a static f64 solve of its graph (<= 1e-4).
              Then restart: 3 batches of DF-P uninterrupted, against 2
              with a checkpoint every 2 and a restart from it
              (``restore_stream``): final ranks bitwise equal.  Then the
@@ -133,7 +150,8 @@ It exits non-zero on the first failed check; no failure is passed over.
              ``restored at batch 2``.
 8. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
              launches on its path, max error and times; then, last,
-             ``{"ok": true, "device": {...}}``.
+             ``{"ok": true, "device": {...}}``.  Each phase prints its
+             peak of allocated device memory.
 
 frontier_spmv sums in a fixed order (bitwise equal run to run), but not
 the plain version's: rtol 1e-4 / atol 1e-6 on f32 sums.  walk_repair has
@@ -143,7 +161,8 @@ there, rtol PULL_RTOL against its atomic form on the card.
 gated_spmm sums in a fixed order, but not the plain version's: rtol 1e-4 /
 atol 1e-5 relative to the output's largest magnitude; pull_rows adds in
 its plain version's order, which on the card adds with atomics: the same
-tolerance.  slot_count sums integers: exactly equal.
+tolerance.  slot_count, segment_bounds and segment_or give integers and
+booleans: exactly equal.
 """
 from __future__ import annotations
 
@@ -511,10 +530,9 @@ def contrib_checks(torch, dev, graph):
         pull_contrib_ref, slot_vertex
     from repro_torch.kernels.segment_ops.plan import cached_plan, chunk_plan
     n = graph.num_vertices
-    in_deg = graph.in_degree(include_self_loop=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    order = pc.pull_order(graph.src, graph.dst, graph.valid, in_deg)
+    order = pc.pull_order(graph.src, graph.dst, graph.valid, n)
     torch.cuda.synchronize()
     order_ms = (time.perf_counter() - t0) * 1e3
     gen = torch.Generator(device=dev)
@@ -537,7 +555,8 @@ def contrib_checks(torch, dev, graph):
           f"{info['weighted_registers']} registers, "
           f"{info['weighted_blocks_per_sm']} blocks; split kernel "
           f"{info['split_registers']} registers; order (one stable sort of "
-          f"{graph.edge_capacity:,} slots) {order_ms:.2f} ms; longest "
+          f"{graph.edge_capacity:,} slots and segment_bounds) "
+          f"{order_ms:.2f} ms; longest "
           f"segment: vertex {hub}, {int(seg[hub]):,} in-edges", flush=True)
     print(f"  plan: K={K}, {plan.window.shape[0]:,} chunks, "
           f"{plan.num_partials:,} partial slots "
@@ -662,15 +681,61 @@ def slot_count_bound(torch, live, counted, gathered, n):
                                          gather_bytes=gather_bytes)
 
 
+def segment_bounds_bound(torch, n_live, n):
+    """(bound_ms, bound_by, detail) for one segment_bounds call: the live
+    sorted int32 keys read once and the int32 ptr[n + 1] written once; a
+    compare a live key."""
+    nbytes = 4 * n_live + 4 * (n + 1)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_live / H100_INT32_OPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, dict(bytes=nbytes, live_slots=n_live)
+
+
+def segment_or_bound(torch, order, flags, n):
+    """(bound_ms, bound_by, detail) for one segment_or call, by
+    ``slot_count_bound``'s convention, over the lesser of the two byte
+    counts that compute it: the int32 src of every live sorted slot (its
+    32-byte sectors), the bool flags read once and the bool output written
+    once, and either the int32 sorted dst of a live slot whose flag is set
+    (its sectors; ``dst_route_bytes``, the shipped design's) or the int32
+    ptr[n + 1] (``ptr_only_bytes``, a design that reads each segment's
+    ends); a test a live slot."""
+    E = order.src.shape[0]
+    n_live = int(order.ptr[n])
+    live = torch.arange(E, device=order.src.device) < n_live
+    hit = live & flags[torch.where(live, order.src, 0).long()]
+    src_bytes = 32 * int32_sectors(torch, live)
+    dst_bytes = 32 * int32_sectors(torch, hit)
+    dst_route = src_bytes + dst_bytes + 2 * n
+    ptr_only = src_bytes + 4 * (n + 1) + 2 * n
+    nbytes = min(dst_route, ptr_only)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_live / H100_INT32_OPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, dict(
+        bytes=nbytes, live_slots=n_live, set_slots=int(hit.sum()),
+        src_bytes=src_bytes, dst_bytes=dst_bytes,
+        dst_route_bytes=dst_route, ptr_only_bytes=ptr_only,
+        dst_route_bound_ms=dst_route / H100_BYTES_PER_S * 1e3,
+        ptr_only_bound_ms=ptr_only / H100_BYTES_PER_S * 1e3)
+
+
 def count_checks(torch, dev, graph):
-    """Phase 3b, the edge-slot count: first the old ``_count`` (the int32
-    ``index_add_`` that is now the plain version) over every slot, over
-    the live slots only and over the free ones only, timed; then the
-    ``slot_count`` kernel on ``in_degree``'s call and on a ~1 % frontier
-    ``push_or``, each equal to the plain version on the card and on the
-    CPU, timed beside it and ``index_add_`` with its bound."""
+    """Phase 3b, the edge-slot counts: first the old ``_count`` (the int32
+    ``index_add_`` that is slot_count's plain version) over every slot,
+    over the live slots only and over the free ones only, timed; then, on
+    the graph's dst-sorted order, ``segment_bounds`` (its ptr) and
+    ``segment_or`` (``push_or``) at a 1 %, a ~50 % and a 100 % frontier,
+    beside the old route (``slot_count`` gathered, its atomic count by
+    dst) and ``index_add_``; and ``slot_count`` on ``in_degree``'s old
+    call (by dst) and ``out_degree``'s (by src, the only count the rank
+    path still makes).  Every kernel equal to its plain version on the
+    card and on the CPU, exactly; each timed with its bytes bound."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
     from repro_torch.kernels.slot_count import slot_count as sc
-    from repro_torch.kernels.slot_count.ref import slot_count_ref
+    from repro_torch.kernels.slot_count.ref import segment_bounds_ref, \
+        segment_or_ref, slot_count_ref
     n = graph.num_vertices
     live = graph.valid
     n_live = int(live.sum())
@@ -688,48 +753,137 @@ def count_checks(torch, dev, graph):
           f"{old['live']:.4f} ms, free {len(dst_free):,} slots (dst "
           f"{hub}) {old['free']:.4f} ms", flush=True)
     del dst_live, dst_free
+    cases = []
+
+    def report(case, note=""):
+        cases.append(case)
+        dev_txt = ("not measured" if case["device_ms"] is None
+                   else f"{case['device_ms']:.4f}")
+        lib_txt = ("-" if case["library_ms"] is None
+                   else f"{case['library_ms']:.4f}")
+        print(f"  {case['kernel']} {case['case']}: kernel_ms="
+              f"{case['ms']:.4f} (host {case['host_ms']:.4f}, device "
+              f"{dev_txt}) plain_ms={case['plain_ms']:.4f} bound_ms="
+              f"{case['bound_ms']:.4f} ({case['bound_by']}, "
+              f"{case['bytes']:,} B) library_ms={lib_txt}{note}",
+              flush=True)
+
+    def timed(call, names):
+        return (time_ms(torch, call), host_ms(torch, call),
+                device_ms(torch, call, names))
+
+    # the order: one stable sort of the slots by dst, then its ptr
+    key = torch.where(live, graph.dst, torch.full_like(graph.dst, n))
+    sort_ms = time_ms(torch, lambda: torch.sort(key, stable=True), reps=5)
+    order = pc.pull_order(graph.src, graph.dst, graph.valid, n)
+    del key
+    print(f"  the order's sort: {graph.edge_capacity:,} slots "
+          f"{sort_ms:.4f} ms (torch.sort, stable, keys and permutation)",
+          flush=True)
+    # segment_bounds on the sorted keys
+    ptr = sc.segment_bounds(order.dst, n)
+    check(torch.equal(ptr, segment_bounds_ref(order.dst, n)),
+          "segment_bounds: kernel == plain (searchsorted) on the card, "
+          "exactly")
+    check(torch.equal(ptr.cpu(), segment_bounds_ref(order.dst.cpu(), n)),
+          "segment_bounds: kernel == the CPU's plain version, exactly")
+    in_deg = sc.slot_count(graph.dst, live, n)
+    check(torch.equal(ptr[1:].long(), torch.cumsum(in_deg.long(), 0))
+          and int(ptr[0]) == 0,
+          "segment_bounds: ptr == the cumsum of the atomic in-degree "
+          "count, exactly")
+    check(all(torch.equal(sc.segment_bounds(order.dst, n), ptr)
+              for _ in range(3)), "segment_bounds: equal run to run")
+    call = lambda: sc.segment_bounds(order.dst, n)
+    ms, h_ms, d_ms = timed(call, ("segment_bounds",))
+    vs = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    library_ms = time_ms(torch, lambda: torch.searchsorted(order.dst, vs))
+    bound_ms, bound_by, detail = segment_bounds_bound(torch, n_live, n)
+    report(dict(kernel="segment_bounds", case="order", max_abs_err=0.0,
+                ms=ms, host_ms=h_ms, device_ms=d_ms,
+                plain_ms=time_ms(torch,
+                                 lambda: segment_bounds_ref(order.dst, n)),
+                library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, **detail),
+           " (torch.searchsorted)")
+    del vs
+    # slot_count: in_degree's old call (by dst), out_degree's (by src)
+    for tag, index in (("in_degree", graph.dst), ("out_degree", graph.src)):
+        out = sc.slot_count(index, live, n)
+        check(torch.equal(out, slot_count_ref(index, live, n)),
+              f"slot_count {tag}: kernel == plain (index_add_) on the card, "
+              f"exactly")
+        check(torch.equal(out.cpu(), slot_count_ref(index.cpu(),
+                                                     live.cpu(), n)),
+              f"slot_count {tag}: kernel == the CPU's index_add_, exactly")
+        call = lambda: sc.slot_count(index, live, n)
+        ms, h_ms, d_ms = timed(call, ("slot_count",))
+        idx, w = index.long(), live.to(torch.int32)
+        buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        library_ms = time_ms(torch,
+                             lambda: buf.zero_().index_add_(0, idx, w))
+        bound_ms, bound_by, detail = slot_count_bound(torch, live, live,
+                                                      False, n)
+        report(dict(kernel="slot_count", case=tag, max_abs_err=0.0, ms=ms,
+                    host_ms=h_ms, device_ms=d_ms,
+                    plain_ms=time_ms(torch,
+                                     lambda: slot_count_ref(index, live, n)),
+                    library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, counted_slots=n_live, **detail),
+               " (index_add_)")
+        del idx, w, buf
+    # push_or: segment_or over the order against the old gathered count
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
-    flags = torch.rand(n, generator=gen, device=dev) < 0.01
-    cases = []
-    for tag, extra in (("in_degree", ()),
-                       ("push_or", (graph.src, flags))):
-        args = (graph.dst, live, n) + extra
-        out = sc.slot_count(*args)
-        plain = slot_count_ref(*args)
-        check(torch.equal(out, plain), f"slot_count {tag}: kernel == plain "
-              f"(index_add_) on the card, exactly")
-        cpu = slot_count_ref(*(t.cpu() for t in args[:2]), n,
-                             *(t.cpu() for t in extra))
-        check(torch.equal(out.cpu(), cpu),
-              f"slot_count {tag}: kernel == the CPU's index_add_, exactly")
-        call = lambda: sc.slot_count(*args)
-        ms, call_host_ms = time_ms(torch, call), host_ms(torch, call)
-        call_device_ms = device_ms(torch, call, ("slot_count",))
-        plain_ms = time_ms(torch, lambda: slot_count_ref(*args))
-        hit = live if not extra else live & flags[graph.src.long()]
+    for tag, frac in (("1 %", 0.01), ("~50 %", 0.5), ("100 %", 1.0)):
+        flags = torch.rand(n, generator=gen, device=dev) < frac
+        args = (order.ptr, order.src, order.dst, flags)
+        out = sc.segment_or(*args)
+        check(torch.equal(out, segment_or_ref(*args)),
+              f"segment_or {tag}: kernel == plain on the card, exactly")
+        check(torch.equal(out.cpu(), segment_or_ref(*(t.cpu()
+                                                      for t in args))),
+              f"segment_or {tag}: kernel == the CPU's plain version, "
+              f"exactly")
+        old_args = (graph.dst, live, n, graph.src, flags)
+        check(torch.equal(out, sc.slot_count(*old_args) > 0),
+              f"segment_or {tag}: == the old route (slot_count gathered "
+              f"> 0), exactly")
+        call = lambda: sc.segment_or(*args)
+        ms, h_ms, d_ms = timed(call, ("segment_or", "pack_flags"))
+        old_call = lambda: sc.slot_count(*old_args) > 0
+        old_ms, old_h_ms, old_d_ms = timed(old_call, ("slot_count",))
+        hit = live & flags[graph.src.long()]
         idx, w = graph.dst.long(), hit.to(torch.int32)
         buf = torch.zeros(n, dtype=torch.int32, device=dev)
-        library_ms = time_ms(torch, lambda: buf.zero_().index_add_(0, idx, w))
-        counted = int(hit.sum())
-        bound_ms, bound_by, detail = slot_count_bound(
-            torch, live, hit, bool(extra), n)
+        library_ms = time_ms(torch,
+                             lambda: buf.zero_().index_add_(0, idx, w))
+        old_bound, _, old_detail = slot_count_bound(torch, live, hit, True,
+                                                    n)
         del idx, w, buf, hit
-        case = dict(case=tag, max_abs_err=0.0, ms=ms, host_ms=call_host_ms,
-                    device_ms=call_device_ms, plain_ms=plain_ms,
+        bound_ms, bound_by, detail = segment_or_bound(torch, order, flags,
+                                                      n)
+        old_dev = ("not measured" if old_d_ms is None
+                   else f"{old_d_ms:.4f}")
+        report(dict(kernel="segment_or", case=tag, frac=frac,
+                    max_abs_err=0.0, ms=ms, host_ms=h_ms, device_ms=d_ms,
+                    plain_ms=time_ms(torch,
+                                     lambda: segment_or_ref(*args)),
                     library_ms=library_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, counted_slots=counted, **detail)
-        cases.append(case)
-        dev_txt = ("not measured" if call_device_ms is None
-                   else f"{call_device_ms:.4f}")
-        print(f"  slot_count {tag}: kernel_ms={ms:.4f} (host "
-              f"{call_host_ms:.4f}, device {dev_txt}) plain_ms={plain_ms:.4f}"
-              f" bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
-              f"{library_ms:.4f} (index_add_) counted_slots={counted:,} "
-              f"bound_bytes={detail['bytes']:,}",
-              flush=True)
+                    bound_by=bound_by, old_route_ms=old_ms,
+                    old_route_host_ms=old_h_ms,
+                    old_route_device_ms=old_d_ms,
+                    old_route_bound_ms=old_bound,
+                    old_route_bytes=old_detail["bytes"], **detail),
+               f" (index_add_ of the hits); old route (slot_count "
+               f"gathered > 0) {old_ms:.4f} ms (host {old_h_ms:.4f}, "
+               f"device {old_dev}, bound {old_bound:.4f}); set slots "
+               f"{detail['set_slots']:,}; bounds: ptr-only "
+               f"{detail['ptr_only_bound_ms']:.4f} ms, flagged dst "
+               f"{detail['dst_route_bound_ms']:.4f} ms")
+    del order, ptr, in_deg
     torch.cuda.empty_cache()
-    return dict(old_ms=old, free_hub=hub, cases=cases)
+    return dict(old_ms=old, free_hub=hub, sort_ms=sort_ms, cases=cases)
 
 
 def library_case(torch, packed, awin, rsc, ref, tag):
@@ -766,12 +920,61 @@ def library_case(torch, packed, awin, rsc, ref, tag):
             host_ms(torch, call))
 
 
-def serve_run(args, torch, dev, graph, feed, engine_name):
-    """Drive ServeEngine over ``feed`` (a list of event batches)."""
+def count_marks(torch, builds, counts) -> dict:
+    """The counters a batch's counts are read from: orders and out-degree
+    counts built (``graph.structure.CACHE_BUILDS``), the launches of the
+    count kernels (``slot_count.LAUNCH_COUNTS``) and the caching
+    allocator's cudaMalloc calls."""
+    return dict(orders=builds["pull_order"],
+                out_degrees=builds["out_degree"],
+                slot_count=counts["slot_count"],
+                segment_bounds=counts["segment_bounds"],
+                segment_or=counts["segment_or"],
+                cuda_mallocs=cuda_mallocs(torch))
+
+
+def count_text(c) -> str:
+    return (f"orders built {c['orders']}, slot_count {c['slot_count']}, "
+            f"segment_bounds {c['segment_bounds']}, segment_or "
+            f"{c['segment_or']}, cudaMalloc {c['cuda_mallocs']}")
+
+
+def cuda_mallocs(torch) -> int:
+    """cudaMalloc calls the caching allocator has made (segments it asked
+    the driver for, this process)."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def malloc_sites(torch, seen: int):
+    """(trace length, [(bytes, site)]): the cudaMalloc calls recorded in
+    the allocator's history (``torch.cuda.memory._record_memory_history``)
+    past its first ``seen`` entries, each with the innermost frames of
+    ``src/repro_torch`` that asked for the memory."""
+    trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    out = []
+    for ev in trace[seen:]:
+        if ev["action"] != "segment_alloc":
+            continue
+        frames = [f for f in ev.get("frames", [])
+                  if "repro_torch" in f["filename"]]
+        site = " < ".join(
+            f"{f['filename'].split('repro_torch/')[-1]}:{f['line']} "
+            f"{f['name']}" for f in frames[:3]) or "outside the port"
+        out.append((ev["size"], site))
+    return len(trace), out
+
+
+def serve_run(args, torch, dev, graph, feed, engine_name, sites=False):
+    """Drive ServeEngine over ``feed`` (a list of event batches).
+    ``sites``: record the allocator's history and print where each
+    batch's cudaMalloc calls come from (slows the run; not timed)."""
     import numpy as np
     from repro_torch.kernels.pagerank_spmv.pagerank_spmv import LAUNCH_COUNTS
+    from repro_torch.graph.structure import CACHE_BUILDS
     from repro_torch.kernels.pull_contrib.pull_contrib import \
         LAUNCH_COUNTS as PULL_COUNTS
+    from repro_torch.kernels.slot_count.slot_count import \
+        LAUNCH_COUNTS as COUNT_COUNTS
     from repro_torch.serve import IngestQueue, QueryClient, RankStore, \
         ServeEngine, ServeMetrics
     ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9,
@@ -781,26 +984,39 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
                       method="frontier_prune", engine=engine_name)
     client = QueryClient(store, ingest, metrics)
     rng = np.random.default_rng(SEED)
-    LAUNCH_COUNTS.clear()                     # counts of this run only
-    PULL_COUNTS.clear()
+    for c in (LAUNCH_COUNTS, PULL_COUNTS, COUNT_COUNTS):
+        c.clear()                             # counts of this run only
+    if sites:
+        torch.cuda.memory._record_memory_history(
+            enabled="all", context="alloc", stacks="python",
+            max_entries=1 << 22)
+        seen = malloc_sites(torch, 0)[0]
     t0 = time.perf_counter()
     eng.bootstrap()
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     print(f"  [{engine_name}] bootstrap (static f64 solve"
           f"{' + pack' if engine_name == 'kernel' else ''}) {boot_s:.2f} s")
+    if sites:
+        seen, made = malloc_sites(torch, seen)
+        print(f"  [{engine_name}, allocator history] bootstrap: "
+              f"{len(made)} cudaMalloc, "
+              f"{sum(m[0] for m in made) / 2**20:.1f} MiB")
     rows = []
     for b, events in enumerate(feed):
         for kind, u, v in events:
             ingest.submit(kind, u, v)
         before = LAUNCH_COUNTS["frontier_spmv"]
+        counts0 = count_marks(torch, CACHE_BUILDS, COUNT_COUNTS)
         retries = alloc_retries(torch)
-        profile = args.profile and b == len(feed) - 1
+        profile = args.profile and not sites and b == len(feed) - 1
         with profiled(torch, profile, f"{engine_name}_batch{b}", args):
             with recording_syncs(torch) as syncs:
                 check(eng.step(force=True),
                       f"[{engine_name}] batch {b} served")
         launches = LAUNCH_COUNTS["frontier_spmv"] - before
+        counted = {k: v - counts0[k] for k, v in
+                   count_marks(torch, CACHE_BUILDS, COUNT_COUNTS).items()}
         m = metrics
         row = dict(batch=b, events=m.batch_events[-1],
                    latency_ms=m.update_latency_s[-1] * 1e3,
@@ -809,7 +1025,7 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
                    host_syncs=m.batch_host_syncs[-1],
                    measured_syncs=len(syncs),
                    alloc_retries=alloc_retries(torch) - retries,
-                   fallback=m.static_fallbacks)
+                   fallback=m.static_fallbacks, **counted)
         if row["host_syncs"] != row["measured_syncs"]:
             print(f"  [{engine_name}] batch {b}: synchronizing calls by "
                   f"site {sync_sites(syncs)}")
@@ -829,9 +1045,28 @@ def serve_run(args, torch, dev, graph, feed, engine_name):
               f"launches={launches} host_syncs={row['host_syncs']} "
               f"(measured {row['measured_syncs']}) "
               f"alloc_retries={row['alloc_retries']} "
-              f"top1={top.vertices[0]}", flush=True)
+              f"top1={top.vertices[0]}; {count_text(counted)}; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        check(counted["orders"] == 1 and counted["slot_count"] == 1
+              and counted["segment_bounds"] == 1
+              and counted["out_degrees"] == 1,
+              f"[{engine_name}] batch {b}: one order built (one "
+              f"segment_bounds), one out-degree count (one slot_count), "
+              f"{counted['segment_or']} push_or, each one segment_or")
+        if sites:
+            seen, made = malloc_sites(torch, seen)
+            row["malloc_sites"] = made
+            print(f"  [{engine_name}, allocator history] batch {b}: "
+                  f"{len(made)} cudaMalloc, "
+                  f"{sum(m[0] for m in made) / 2**20:.1f} MiB"
+                  + "".join(f"\n    {m[0] / 2**20:.1f} MiB at {m[1]}"
+                            for m in made), flush=True)
+    if sites:
+        torch.cuda.memory._record_memory_history(enabled=None)
     # read right after the run
-    launches = dict(LAUNCH_COUNTS, pull_contrib=PULL_COUNTS["pull_contrib"])
+    launches = dict(LAUNCH_COUNTS, pull_contrib=PULL_COUNTS["pull_contrib"],
+                    **COUNT_COUNTS)
     snap = store.snapshot()
     return dict(boot_s=boot_s, rows=rows, launches=launches,
                 metrics=metrics.as_dict(),
@@ -863,7 +1098,7 @@ def profiled(torch, enabled: bool, tag: str, args):
     print(f"  profile {tag}: step wall {wall_us / 1e3:.2f} ms (profiled), "
           f"device busy {dev_us / 1e3:.2f} ms "
           f"({100 * dev_us / wall_us:.1f} %)")
-    table = events.table(sort_by="self_device_time_total", row_limit=25)
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
     print(table)
     if args.out:
         out_dir = os.path.dirname(os.path.abspath(args.out))
@@ -938,8 +1173,18 @@ def serve_checks(args, torch, dev, edges, n, graph):
     check(repeat["snapshot_bitwise"],
           f"kernel engine run twice on one feed: final snapshots bitwise "
           f"equal (L_inf {repeat['linf']:.3e})")
+    # where the kernel engine's cudaMalloc calls come from: the feed once
+    # more from a released cache, as the first run began, with the
+    # allocator's history recorded (not timed)
+    torch.cuda.empty_cache()
+    traced, snap_t = serve_run(args, torch, dev, graph, feed, "kernel",
+                               sites=True)
+    check(torch.equal(snap_t.ranks, rk), "kernel engine with the "
+          "allocator's history recorded: final snapshot bitwise equal")
+    del snap_t
     return dict(kernel=kernel, xla=xla, kernel_again=again,
-                kernel_repeat=repeat, linf_kernel_vs_xla=linf,
+                kernel_traced=traced, kernel_repeat=repeat,
+                linf_kernel_vs_xla=linf,
                 rel_linf_kernel_vs_xla=rel,
                 l1_kernel_vs_static=l1_k, l1_xla_vs_static=l1_x,
                 static_iterations=static.iterations)
@@ -1680,6 +1925,7 @@ def gnn_checks(args, torch, dev, edges, n, graph):
         ins = np.asarray([(u, v) for k, u, v in events if k == "insert"],
                          np.int32).reshape(-1, 2)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        mallocs = cuda_mallocs(torch)
         with recording_syncs(torch) as syncs:
             t0 = time.perf_counter()
             ev[0].record()
@@ -1700,6 +1946,7 @@ def gnn_checks(args, torch, dev, edges, n, graph):
             ev[4].record()
             recomputed = int(res.nodes_recomputed)   # the batch's read
             latency_ms = (time.perf_counter() - t0) * 1e3
+        mallocs = cuda_mallocs(torch) - mallocs
         if b == 0:                     # where the first batch's syncs are
             print(f"  [gnn] batch 0 host syncs by call site: "
                   f"{sync_sites(syncs)}")
@@ -1713,15 +1960,16 @@ def gnn_checks(args, torch, dev, edges, n, graph):
                    affected_ever=ever, affected=int(affected.sum()),
                    active_windows=int(awin.sum()),
                    active_share=float(awin.float().mean()),
-                   host_syncs=len(syncs))
+                   host_syncs=len(syncs),
+                   cuda_mallocs=mallocs)
         print(f"  [gnn] batch {b}: latency_ms={latency_ms:.2f} "
               f"(update {split[0]:.2f}, packed {split[1]:.2f}, refresh "
               f"{split[2]:.2f}, gated_spmm {split[3]:.3f} ms device) "
               f"nodes_recomputed={recomputed:,} affected_ever={ever:,} "
               f"kernel affected={row['affected']:,} active windows "
               f"{row['active_windows']:,}/{packed2.num_windows:,} "
-              f"({100 * row['active_share']:.1f} %) host_syncs={len(syncs)}",
-              flush=True)
+              f"({100 * row['active_share']:.1f} %) host_syncs={len(syncs)} "
+              f"cudaMalloc={row['cuda_mallocs']}", flush=True)
         # (a) the kernel against its plain version on the same inputs
         ref = plain(packed2, awin)
         err, big, bad = compare_rows(agg, ref)
@@ -1842,6 +2090,7 @@ def paper_checks(args, torch, dev, edges, n, graph):
     from repro_torch.core.pagerank import static_pagerank
     from repro_torch.ft.checkpoint import CheckpointManager
     from repro_torch.graph.dynamic import apply_batch, make_batch_update
+    from repro_torch.graph.structure import CACHE_BUILDS
     from repro_torch.graph.generators import random_batch_update
     from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
         LAUNCH_COUNTS as SPMV_COUNTS
@@ -1900,19 +2149,22 @@ def paper_checks(args, torch, dev, edges, n, graph):
             for engine in ("xla", "kernel"):
                 for c in counts:
                     c.clear()                 # counts of this run only
-                marks = [0]
+                marks = [count_marks(torch, CACHE_BUILDS, COUNT_COUNTS)]
 
                 def log(msg, marks=marks):
-                    marks.append(COUNT_COUNTS["slot_count"])
+                    marks.append(count_marks(torch, CACHE_BUILDS,
+                                             COUNT_COUNTS))
                 _, final, rows = run_batches(
                     graph, base, lambda i: updates[i], 0, batches, method,
                     reference=lambda i, g: refs[i], engine=engine,
                     packed=packed0 if engine == "kernel" else None, log=log)
                 launches = dict(slot_count=COUNT_COUNTS["slot_count"],
+                                segment_bounds=COUNT_COUNTS["segment_bounds"],
+                                segment_or=COUNT_COUNTS["segment_or"],
                                 pull_contrib=PULL_COUNTS["pull_contrib"],
                                 frontier_spmv=SPMV_COUNTS["frontier_spmv"])
                 for row, a, z in zip(rows, marks[:-1], marks[1:]):
-                    row["slot_count_calls"] = z - a
+                    row.update({k: z[k] - a[k] for k in z})
                 l1_witness = (None if witness is None else
                               float((final - witness).abs().sum()))
                 runs.append(dict(size=size, method=method, engine=engine,
@@ -1921,7 +2173,7 @@ def paper_checks(args, torch, dev, edges, n, graph):
                 print(f"  [{engine}] {method} batch {size:,}: " + "; ".join(
                     f"{r['ms']:.2f} ms, {r['iterations']} it, affected "
                     f"{r['affected']:,}, L1 {r['l1']:.3e}, syncs "
-                    f"{r['host_syncs']}, _count {r['slot_count_calls']}"
+                    f"{r['host_syncs']}, {count_text(r)}"
                     for r in rows) + f"; launches {launches}"
                     + ("" if witness is None else
                        f"; last batch L1 vs SciPy {l1_witness:.3e}"),
@@ -1931,12 +2183,17 @@ def paper_checks(args, torch, dev, edges, n, graph):
                 check(worst <= 1e-4, f"[{engine}] {method} batch {size:,}: "
                       f"L1 vs static f64 (and SciPy) {worst:.3e} <= 1e-4")
                 check(launches["slot_count"] > 0
+                      and launches["segment_bounds"] > 0
                       and launches["pull_contrib"] > 0
                       and (engine == "xla")
                       == (launches["frontier_spmv"] == 0),
-                      f"[{engine}] {method}: slot_count and pull_contrib "
-                      f"launched, frontier_spmv "
+                      f"[{engine}] {method}: slot_count, segment_bounds and "
+                      f"pull_contrib launched, frontier_spmv "
                       f"{'not ' if engine == 'xla' else ''}launched")
+                check(all(r["orders"] == 1 and r["out_degrees"] == 1
+                          for r in rows),
+                      f"[{engine}] {method}: one order and one out-degree "
+                      f"count built a batch")
         del updates, refs, witness
     del packed0
     torch.cuda.empty_cache()
@@ -2002,6 +2259,13 @@ def paper_checks(args, torch, dev, edges, n, graph):
                 phase_s=phase_s)
 
 
+def peak_memory(torch, name: str) -> None:
+    """Print the phase's peak of allocated device memory, then reset it."""
+    print(f"  phase {name} peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+
 def write_out(args, record) -> None:
     """``--out FILE``: every measurement of the run as JSON."""
     if args.out:
@@ -2026,8 +2290,9 @@ def main(argv=None) -> int:
                          "and no summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
                     help="run only the set-up, phase 3's frontier_spmv and "
-                         "phase 3b's pull_contrib kernel cases; prints "
-                         "their JSON last and no summary")
+                         "phase 3b's pull_contrib and edge-slot count "
+                         "kernel cases; prints their JSON last and no "
+                         "summary")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2057,8 +2322,10 @@ def main(argv=None) -> int:
                           "row_cases": only["row_sum"]["cases"]}))
         return 0
     cases, max_err, spmv_kernel = kernel_checks(torch, dev, graph)
+    peak_memory(torch, "3")
     contrib = contrib_checks(torch, dev, graph)
     counts = count_checks(torch, dev, graph)
+    peak_memory(torch, "3b")
     if args.spmv_kernels_only:
         print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
         write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
@@ -2070,12 +2337,16 @@ def main(argv=None) -> int:
         print(json.dumps({"spmv_cases": cases}))
         return 0
     serve = serve_checks(args, torch, dev, edges, n, graph)
+    peak_memory(torch, "4")
     torch.cuda.empty_cache()              # phase 4's engines are gone
     ppr = ppr_checks(args, torch, dev, edges, n, graph)
+    peak_memory(torch, "5")
     torch.cuda.empty_cache()              # phase 5's walk index is gone
     gnn = gnn_checks(args, torch, dev, edges, n, graph)
+    peak_memory(torch, "6")
     torch.cuda.empty_cache()              # phase 6's features are gone
     paper = paper_checks(args, torch, dev, edges, n, graph)
+    peak_memory(torch, "7")
 
     phase("8. summary")
     main_case = next(c for c in cases
@@ -2117,8 +2388,10 @@ def main(argv=None) -> int:
         plain_ms=contrib_case["plain_ms"], bound_ms=contrib_case["bound_ms"],
         bound_by=contrib_case["bound_by"],
         library_ms=contrib_case["library_ms"]))
-    count_case = next(c for c in counts["cases"]
-                      if c["case"] == "in_degree")
+    def case(kernel, name):
+        return next(c for c in counts["cases"]
+                    if c["kernel"] == kernel and c["case"] == name)
+    count_case = case("slot_count", "out_degree")
     kernels.append(dict(
         name="slot_count", route="cuda",
         source="src/repro_torch/kernels/slot_count/csrc/slot_count.cu",
@@ -2130,6 +2403,22 @@ def main(argv=None) -> int:
         plain_ms=count_case["plain_ms"], bound_ms=count_case["bound_ms"],
         bound_by=count_case["bound_by"],
         library_ms=count_case["library_ms"]))
+    for kname, label, replaces in (
+            ("segment_bounds", "order",
+             "none: the port's own kernel, slot_count's atomic count by dst "
+             "(in_degree) of src/repro_torch/graph/structure.py"),
+            ("segment_or", "~50 %",
+             "none: the port's own kernel, slot_count's gathered atomic "
+             "count by dst (push_or) of src/repro_torch/graph/structure.py")):
+        c = case(kname, label)
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="src/repro_torch/kernels/slot_count/csrc/slot_count.cu",
+            replaces=replaces,
+            launches=serve["kernel"]["launches"].get(kname, 0),
+            max_abs_err=0.0, ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"]))
     row_case = gnn["row_sum"]["cases"][0]
     kernels.append(dict(
         name="pull_rows", route="cuda",

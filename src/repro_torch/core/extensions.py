@@ -51,18 +51,19 @@ def _generalized_loop(graph: EdgeListGraph,
     dev = graph.device
     zero = torch.zeros((), dtype=F64, device=dev)
     zero_i = torch.zeros((), dtype=torch.int64, device=dev)
-    out_deg = graph.out_degree(include_self_loop=False)
-    in_deg = graph.in_degree(include_self_loop=False)
-    # the order every iteration adds each vertex's terms in
-    ptr, perm = sorted_slots(graph.dst, graph.valid, in_deg)
-    order = PullOrder(ptr, graph.src[perm])
+    # the order every iteration adds each vertex's terms in: the graph's
+    # own (cached) unweighted, and one with its permutation for the weights
     if edge_weight is None:
-        w_out = out_deg.to(F64)
+        order = graph.pull_order()
+        w_out = graph.out_degree(include_self_loop=False).to(F64)
         slot_w = None                      # weight 1: r * 1.0 * inv == r * inv
     else:
-        ptr_out, perm_out = sorted_slots(graph.src, graph.valid, out_deg)
+        ptr, perm, keys = sorted_slots(graph.dst, graph.valid, V)
+        order = PullOrder(ptr, graph.src[perm], keys)
+        ptr_out, perm_out, _ = sorted_slots(graph.src, graph.valid, V)
         w_out = segment_sum(ptr_out, edge_weight[perm_out])
         slot_w = edge_weight[perm]
+    in_deg = order.ptr[1:] - order.ptr[:-1]
     self_w = torch.ones(V, dtype=F64, device=dev)     # self-loop weight 1
     inv_w = 1.0 / (w_out + self_w)                     # incl. the self-loop
     base = (1.0 - alpha) * teleport

@@ -18,15 +18,19 @@ the reference's; ``PageRankResult.host_syncs`` counts the reads, and
 each read (and each pulse of ``reachability_mask``) is also recorded with
 ``device.note_host_syncs``.
 
-Summation order: each solve sorts its edge slots by dst once
-(``pull_order``), and every iteration sums each vertex's in-edge terms in
-one fixed order over that slot order (``kernels.pull_contrib``): chunks of
-at most ``PULL_CHUNK`` slots, each added in slot order from +0.0, then
-the chunks in order (a vertex of at most ``PULL_CHUNK`` in-edges: its
-terms one at a time from +0.0).  The CUDA kernel on the card and its
+Summation order: each graph's edge slots are sorted by dst once
+(``EdgeListGraph.pull_order``, cached with the graph, so a served batch
+reuses the previous batch's order for its old graph), and every
+iteration sums each vertex's in-edge terms in one fixed order over that
+slot order (``kernels.pull_contrib``): chunks of at most ``PULL_CHUNK``
+slots, each added in slot order from +0.0, then the chunks in order (a
+vertex of at most ``PULL_CHUNK`` in-edges: its terms one at a time from
++0.0).  The CUDA kernel on the card and its
 plain version on the CPU add in that order, so the ranks are the same bit
 for bit from run to run, and equal on the card and on the CPU.  The
-chunk plan is built once a solve, with the order.
+chunk plan is built once an order, with it.  The in-degrees are the
+order's segment lengths, and the frontier pushes OR over its segments
+(``push_or``): no count by dst issues an atomic.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import torch
 from repro_torch.device import note_host_syncs
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
-    pull_contrib, pull_order
+    pull_contrib
 
 ALPHA = 0.85
 TOL = 1e-10
@@ -101,9 +105,9 @@ def _pagerank_loop(graph: EdgeListGraph,
     dev = graph.device
     inv_deg = 1.0 / graph.out_degree(include_self_loop=True).to(F64)
     c0 = (1.0 - alpha) / V
-    in_deg = graph.in_degree(include_self_loop=False).to(torch.int64)
     # the order every iteration adds each vertex's terms in
-    order = pull_order(graph.src, graph.dst, graph.valid, in_deg)
+    order = graph.pull_order()
+    in_deg = (order.ptr[1:] - order.ptr[:-1]).to(torch.int64)
     zero = torch.zeros((), dtype=F64, device=dev)
     zero_i = torch.zeros((), dtype=torch.int64, device=dev)
 

@@ -9,12 +9,18 @@ serves a whole update stream:
     free slots;
   * degrees are derived from ``valid`` on demand, never stored stale.
 
-Degrees and frontier pushes count live slots with
-``kernels.slot_count`` (a CUDA kernel on the card: no atomic for a free
-or dead slot); ``push`` sums over a dst-sorted slot order with
-``kernels.pull_contrib`` (chunks of at most ``PULL_CHUNK`` slots, each in
-slot order from +0.0, then the chunks in order), so every sum here is the
-same bit for bit from run to run.
+A graph's counts by dst ride one dst-sorted slot order (``pull_order``:
+one stable sort, whose keys give each vertex's segment through
+``kernels.slot_count.segment_bounds``): ``in_degree`` is the segments'
+lengths, ``push_or`` an OR over each segment (``segment_or``), ``push`` a
+``kernels.pull_contrib`` sum over them (chunks of at most ``PULL_CHUNK``
+slots, each in slot order from +0.0, then the chunks in order).  The
+counts by src (``out_degree``) count live slots with
+``kernels.slot_count``.  None issues an atomic by dst, and every sum here
+is the same bit for bit from run to run.  The order and the out-degree
+count are built once a graph and cached on its tensors (graphs are
+frozen: ``apply_batch`` makes new ones); a cached value goes with the
+tensors it was built from.
 
 Every vertex carries an implicit **self-loop** (paper §3.1): out-degree is
 ``valid_out_degree + 1`` and the self contribution is folded into the rank
@@ -22,16 +28,43 @@ update, so no self-loop edges are materialised.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.pull_contrib.pull_contrib import pull_contrib, \
-    pull_order
-from repro_torch.kernels.slot_count.slot_count import slot_count
+from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
+    pull_contrib, pull_order
+from repro_torch.kernels.segment_ops.plan import cached
+from repro_torch.kernels.slot_count.slot_count import segment_or, slot_count
+
+# builds of what is cached once a graph ("pull_order", "out_degree")
+CACHE_BUILDS: collections.Counter = collections.Counter()
+
+
+def _per_graph(tensors: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+               key: tuple, build: Callable[[], Any]) -> Any:
+    """``build()`` at the first call on these (src, dst, valid) tensors
+    with this ``key``, then handed back as is (``plan.cached``: the value
+    goes when any of the tensors is freed); ``CACHE_BUILDS`` counts the
+    builds."""
+    def counted():
+        value = build()
+        CACHE_BUILDS[key[0]] += 1
+        return value
+    return cached(tensors, key, counted)
+
+
+def cached_pull_order(src: torch.Tensor, dst: torch.Tensor,
+                      valid: torch.Tensor, n: int) -> PullOrder:
+    """``pull_order(src, dst, valid, n)``, built at the first call on these
+    tensors and cached with them: a graph's solve, its frontier pushes and
+    a GNN forward over its edge tensors share one sort."""
+    return _per_graph((src, dst, valid), ("pull_order", n),
+                      lambda: pull_order(src, dst, valid, n))
 
 
 class CSRView(NamedTuple):
@@ -65,13 +98,25 @@ class EdgeListGraph:
         return self.src.device
 
     # ---- derived quantities (masked by `valid`) --------------------------
+    def pull_order(self) -> PullOrder:
+        """The live slots sorted by dst (stable; dead slots last), built at
+        the first call on this graph's tensors and cached with them."""
+        return cached_pull_order(self.src, self.dst, self.valid,
+                                 self.num_vertices)
+
     def out_degree(self, include_self_loop: bool = True) -> torch.Tensor:
-        """int32[V] out-degree; +1 for the implicit self-loop."""
-        deg = slot_count(self.src, self.valid, self.num_vertices)
-        return deg + 1 if include_self_loop else deg
+        """int32[V] out-degree; +1 for the implicit self-loop.  The count
+        is made once a graph (``slot_count`` by src) and cached."""
+        V = self.num_vertices
+        deg = _per_graph((self.src, self.dst, self.valid), ("out_degree", V),
+                         lambda: slot_count(self.src, self.valid, V))
+        return deg + 1 if include_self_loop else deg.clone()
 
     def in_degree(self, include_self_loop: bool = True) -> torch.Tensor:
-        deg = slot_count(self.dst, self.valid, self.num_vertices)
+        """int32[V] in-degree, the lengths of the pull order's segments;
+        +1 for the implicit self-loop."""
+        ptr = self.pull_order().ptr
+        deg = ptr[1:] - ptr[:-1]
         return deg + 1 if include_self_loop else deg
 
     def num_valid_edges(self) -> torch.Tensor:
@@ -83,14 +128,14 @@ class EdgeListGraph:
         vertex's terms summed in ``pull_contrib``'s fixed chunked order
         over its slots (one at a time from +0.0 for a vertex of at most
         ``PULL_CHUNK`` in-edges)."""
-        order = pull_order(self.src, self.dst, self.valid,
-                           self.in_degree(include_self_loop=False))
-        return pull_contrib(order, values, torch.ones_like(values))
+        return pull_contrib(self.pull_order(), values,
+                            torch.ones_like(values))
 
     def push_or(self, flags: torch.Tensor) -> torch.Tensor:
-        """Boolean frontier propagation: out[v] |= flags[u] for (u,v) in E."""
-        return slot_count(self.dst, self.valid, self.num_vertices,
-                          self.src, flags) > 0
+        """Boolean frontier propagation: out[v] |= flags[u] for (u,v) in E,
+        an OR over each vertex's segment of the pull order."""
+        order = self.pull_order()
+        return segment_or(order.ptr, order.src, order.dst, flags)
 
     def to_device_csr(self) -> CSRView:
         """CSR view over valid edges, neighbour order stable in slot order.
@@ -102,7 +147,7 @@ class EdgeListGraph:
         key = torch.where(self.valid, self.src,
                           torch.full_like(self.src, V))
         order = torch.argsort(key, stable=True)
-        deg = slot_count(self.src, self.valid, V)
+        deg = self.out_degree(include_self_loop=False)
         indptr = torch.cat([torch.zeros(1, dtype=torch.int32,
                                         device=deg.device),
                             torch.cumsum(deg, 0, dtype=torch.int32)])

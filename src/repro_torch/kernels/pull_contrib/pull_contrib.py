@@ -28,16 +28,16 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pull_contrib.ref import PULL_CHUNK, ROW_CHUNK, \
-    PullOrder, pull_contrib_ref, pull_order, pull_rows_ref, sorted_slots
+    PullOrder, pull_contrib_ref, pull_rows_ref
 from repro_torch.kernels.segment_ops.plan import cached, cached_plan
-from repro_torch.kernels.slot_count.slot_count import slot_count
+from repro_torch.kernels.slot_count.slot_count import segment_bounds, \
+    slot_count
 
 __all__ = ["HOT_BYTES", "HOT_TAG", "HotSet", "LAUNCH_COUNTS", "PULL_CHUNK",
            "PullOrder", "ROW_CHUNK", "ROW_PATHS", "cached_hot_set",
@@ -49,6 +49,27 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 _check = functools.partial(check_arg, "pull_contrib")
 _check_rows = functools.partial(check_arg, "pull_rows")
+
+
+def sorted_slots(key: torch.Tensor, valid: torch.Tensor, n: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(ptr int32[n + 1], perm int64[E], keys int32[E]) for the slots keyed
+    by ``key`` (int32, each live one in [0, n)) sorted once, stably: live
+    slots by key, dead ones (keyed n) last; segment v is
+    ``perm[ptr[v]:ptr[v + 1]]`` and ``keys`` the sorted keys.  The sort
+    returns the keys with the permutation, and ``segment_bounds`` writes
+    each segment from them: no count first, no atomic, no host read."""
+    k = torch.where(valid, key, torch.full_like(key, n))
+    keys, perm = torch.sort(k, stable=True)
+    return segment_bounds(keys, n), perm, keys
+
+
+def pull_order(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+               n: int) -> PullOrder:
+    """The sorted slots of an edge list of ``n`` vertices: one stable sort,
+    live slots by dst, dead ones last; the order keeps the sorted dst."""
+    ptr, perm, keys = sorted_slots(dst, valid, n)
+    return PullOrder(ptr=ptr, src=src[perm], dst=keys)
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,11 +284,8 @@ def tag_slots(order: PullOrder, hot: HotSet) -> torch.Tensor:
 
 
 def _per_order(order: PullOrder, key: tuple, build):
-    """``build()`` once per order: cached with its chunk plan (on
-    ``order.ptr``), and built anew if the order's src is another tensor."""
-    ref, value = cached(order.ptr, key + (id(order.src),),
-                        lambda: (weakref.ref(order.src), build()))
-    return value if ref() is order.src else build()
+    """``build()`` once per order, cached on its ``ptr`` and ``src``."""
+    return cached((order.ptr, order.src), key, build)
 
 
 def cached_hot_set(order: PullOrder, n: int, d: int,

@@ -33,33 +33,15 @@ EDGE_CHUNK = 1 << 21
 
 
 class PullOrder(NamedTuple):
-    """A graph's edge slots sorted once by dst (stable; live slots first),
-    fixed for one solve."""
+    """A graph's edge slots sorted once by dst (stable; live slots first;
+    ``pull_contrib.pull_order``)."""
 
     ptr: torch.Tensor   # int32[V + 1]: vertex v's live slots are
                         # [ptr[v], ptr[v + 1]) of the sorted order
     src: torch.Tensor   # int32[E_cap]: source of each sorted slot
-
-
-def sorted_slots(key: torch.Tensor, valid: torch.Tensor,
-                 counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ptr int32[V + 1], perm int64[E]) for slots keyed by ``key`` with
-    ``counts[v]`` live slots of each key v: one stable sort, live slots by
-    key, dead ones last; segment v is ``perm[ptr[v]:ptr[v + 1]]``."""
-    V = counts.shape[0]
-    k = torch.where(valid, key, torch.full_like(key, V))
-    perm = torch.argsort(k, stable=True)
-    ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=key.device),
-                     torch.cumsum(counts.to(torch.int64), 0)])
-    return ptr.to(torch.int32), perm
-
-
-def pull_order(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
-               in_deg: torch.Tensor) -> PullOrder:
-    """The sorted slots of an edge list with ``in_deg[v]`` live in-edges
-    of each vertex: one stable sort, live slots by dst, dead ones last."""
-    ptr, perm = sorted_slots(dst, valid, in_deg)
-    return PullOrder(ptr=ptr, src=src[perm])
+    # int32[E_cap]: the sort's keys, the dst of each sorted slot (V for a
+    # dead one); None for an order built without a sort (``segment_sum``)
+    dst: Optional[torch.Tensor] = None
 
 
 def slot_vertex(ptr: torch.Tensor, num_slots: int) -> torch.Tensor:

@@ -25,7 +25,8 @@ structure and K, and hands the same one back on every later call.
 from __future__ import annotations
 
 import weakref
-from typing import Any, Callable, Dict, NamedTuple, Tuple, TypeVar
+from typing import Any, Callable, Dict, NamedTuple, Tuple, TypeVar, \
+    Union
 
 import torch
 
@@ -89,27 +90,35 @@ def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
         split_count=i32(parts[swc], sw < nw), num_partials=n_parts)
 
 
-# id(entry_start) -> (weak reference to it, {key: value}): the plans, and
-# what else is built once per tensor (the row sum's hot set); an entry goes
-# with its tensor, so a freed tensor's address cannot reach a stale value
-_PLANS: Dict[int, Tuple[weakref.ref, Dict[Any, Any]]] = {}
+# id(tensor), or the ids of a tuple of tensors -> (weak references to
+# them, {key: value}): the plans, and what else is built once per tensor
+# (the row sum's hot set) or per tuple of tensors (a graph's pull order);
+# an entry goes when any of its tensors is freed, so a freed tensor's
+# address cannot reach a stale value
+_PLANS: Dict[Any, Tuple[Tuple[weakref.ref, ...], Dict[Any, Any]]] = {}
 
 
-def _forget(slot: int, ref: weakref.ref) -> None:
+def _forget(slot, ref: weakref.ref) -> None:
     hit = _PLANS.get(slot)
-    if hit is not None and hit[0] is ref:
+    if hit is not None and any(r is ref for r in hit[0]):
         del _PLANS[slot]
 
 
-def cached(entry_start: torch.Tensor, key, build: Callable[[], T]) -> T:
-    """``build()``, called at the first call on this ``entry_start`` tensor
-    with this ``key`` and then handed back as is.  The value is dropped
-    when the tensor is freed (a repack or a new order makes a new one)."""
-    slot = id(entry_start)
+def cached(tensors: Union[torch.Tensor, Tuple[torch.Tensor, ...]], key,
+           build: Callable[[], T]) -> T:
+    """``build()``, called at the first call on this tensor (or tuple of
+    tensors) with this ``key`` and then handed back as is.  The value is
+    dropped when any of the tensors is freed (a repack or a new order
+    makes a new one)."""
+    if isinstance(tensors, torch.Tensor):
+        tensors = (tensors,)
+    ids = tuple(id(t) for t in tensors)
+    slot = ids[0] if len(ids) == 1 else ids
     hit = _PLANS.get(slot)
-    if hit is None or hit[0]() is not entry_start:
-        ref = weakref.ref(entry_start, lambda r, slot=slot: _forget(slot, r))
-        hit = _PLANS[slot] = (ref, {})
+    if hit is None or any(r() is not t for r, t in zip(hit[0], tensors)):
+        refs = tuple(weakref.ref(t, lambda r, slot=slot: _forget(slot, r))
+                     for t in tensors)
+        hit = _PLANS[slot] = (refs, {})
     values = hit[1]
     if key not in values:
         values[key] = build()

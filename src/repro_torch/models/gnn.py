@@ -2,16 +2,18 @@
 ``repro.models.gnn``).
 
 Message passing is a gather by edge src and a segment sum by edge dst.
-``sage_forward`` sorts the edge slots by dst once (``pull_order``) and
-both layers sum each vertex's neighbour rows over that order with
-``kernels.pull_contrib.pull_rows``: a CUDA kernel on the card that cuts a
+``sage_forward`` sorts the edge slots by dst once (``pull_order``, cached
+with the edge tensors) and both layers sum each vertex's neighbour rows
+over that order with ``kernels.pull_contrib.pull_rows``: a CUDA kernel on
+the card that cuts a
 vertex's slots into chunks, sums each chunk in slot order and the chunks
 in chunk order, with no atomics, so the forward is the same bit for bit
 from run to run.  It is the function of the reference's one-shot
 ``segment_sum``, summed in another f32 order.  The plain version (on the
 CPU) gathers the messages ``EDGE_CHUNK`` slots at a time
 (``kernels.pull_contrib.ref``): at full width they would not fit at once
-(48.6 M edge slots x 602 f32 = 117 GB on the smoke's graph).  In-degrees are integer counts (``kernels.slot_count``).
+(48.6 M edge slots x 602 f32 = 117 GB on the smoke's graph).  In-degrees
+are the order's segment lengths (``kernels.slot_count.segment_bounds``).
 
 Not ported yet (ROADMAP): PNA, NequIP, GraphCast, the minibatch
 ``sage_block_forward`` and ``GraphBatch``'s fields for them.  The
@@ -26,9 +28,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.graph.structure import cached_pull_order
 from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
-    pull_order, pull_rows
-from repro_torch.kernels.slot_count.slot_count import slot_count
+    pull_rows
 
 
 class GraphBatch(NamedTuple):
@@ -41,8 +43,11 @@ class GraphBatch(NamedTuple):
 
 def neighbor_order(src, dst, mask, n: int) -> PullOrder:
     """The edge slots sorted by dst (masked ones last), with each vertex's
-    in-degree as its segment: one sort, shared by a forward's layers."""
-    return pull_order(src, dst, mask, slot_count(dst, mask, n))
+    in-edges as its segment: one sort, cached with the edge tensors
+    (``graph.structure.cached_pull_order``), so a forward's layers, the
+    graph's frontier pushes and a later forward on the same tensors share
+    it."""
+    return cached_pull_order(src, dst, mask, n)
 
 
 def neighbor_sum(feats, src, dst, mask, n: int,

@@ -35,7 +35,6 @@ import torch
 
 from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
     pull_values, sorted_slots
-from repro_torch.kernels.slot_count.slot_count import slot_count
 from repro_torch.ppr.walks import WalkIndex
 
 F64 = torch.float64
@@ -49,9 +48,7 @@ def _keyed_sum(keys: torch.Tensor, rows: int, values: torch.Tensor,
     stable sort of the positions by key, then the chunked pull sum of
     ``values`` (every source i // rows lies in
     [0, len(values)) when ``keys`` has ``rows`` positions a value)."""
-    live = keys >= 0
-    ptr, perm = sorted_slots(keys, live,
-                             slot_count(keys.clamp(min=0), live, V))
+    ptr, perm, _ = sorted_slots(keys, keys >= 0, V)
     order = PullOrder(ptr, torch.div(perm, rows, rounding_mode="floor")
                       .to(torch.int32))
     return pull_values(order, values)

@@ -727,7 +727,7 @@ def _pull_inputs(dev, kind):
     ranks = torch.from_numpy(rng.random(n) / n).to(dev)
     inv = 1.0 / graph.out_degree(include_self_loop=True).to(torch.float64)
     order = pc.pull_order(graph.src, graph.dst, graph.valid,
-                          graph.in_degree(include_self_loop=False))
+                          graph.num_vertices)
     return order, ranks, inv
 
 
@@ -1006,7 +1006,6 @@ def test_pull_values_kernel_equals_cpu_sum_bitwise(cuda, rows):
     """Sums keyed by vertex whose values are shorter than V (``rows``
     positions a value, as the PPR visit counts take them) and the segment
     sum: kernel == the CPU's plain sum, bit for bit, run to run."""
-    from repro_torch.kernels.slot_count.slot_count import slot_count
     n, m = 50_000, 300_000
     rng = np.random.default_rng(rows)
     keys = rng.integers(-1, n, m).astype(np.int32)
@@ -1017,8 +1016,7 @@ def test_pull_values_kernel_equals_cpu_sum_bitwise(cuda, rows):
     for dev in ("cpu", cuda):
         k = torch.from_numpy(keys).to(dev)
         live = k >= 0
-        ptr, perm = pc.sorted_slots(k, live,
-                                    slot_count(k.clamp(min=0), live, n))
+        ptr, perm, _ = pc.sorted_slots(k, live, n)
         order = PullOrder(ptr, torch.div(perm, rows, rounding_mode="floor")
                           .to(torch.int32))
         before = pc.LAUNCH_COUNTS["pull_contrib"]
@@ -1149,3 +1147,170 @@ def test_pull_rows_hot_set_cached_per_order(cuda, monkeypatch):
     assert built == {"ranking": 1, "hot_set": cfg.n_layers}
     pc.pull_rows(orders[0], x)
     assert built == {"ranking": 1, "hot_set": cfg.n_layers}
+
+
+# ---------------------------------------------------------------------------
+# the counts by dst over the dst-sorted order: segment_bounds, segment_or
+# ---------------------------------------------------------------------------
+
+def _segment_graph(dev, kind):
+    """``_count_graph``'s kinds, and: every slot live (``full``), no live
+    slot (``dead``), and in-edges only to vertices 1 .. n - 51, so vertex
+    0 and the last 50 have none (``gaps``); the same seeded graph on every
+    device."""
+    if kind in ("rmat", "hub", "free"):
+        return _count_graph(dev, kind)
+    rng = np.random.default_rng(23)
+    n = 70_001
+    if kind == "gaps":
+        src = rng.integers(0, n, 400_003)
+        dst = rng.integers(1, n - 50, 400_003)
+        return from_coo(src, dst, n, dedup=False, device=dev)
+    edges, n = rmat_edges(16, 8, seed=17)
+    full = from_coo(edges[:, 0], edges[:, 1], n,
+                    edge_capacity=len(edges), device=dev)
+    if kind == "full":
+        return full
+    return dataclasses.replace(full, valid=torch.zeros_like(full.valid))
+
+
+@pytest.mark.parametrize("kind", ["rmat", "hub", "free", "full", "dead",
+                                  "gaps"])
+def test_segment_bounds_kernel_equals_plain(cuda, kind):
+    from repro_torch.kernels.slot_count import slot_count as sc
+    from repro_torch.kernels.slot_count.ref import segment_bounds_ref, \
+        slot_count_ref
+    g = _segment_graph(cuda, kind)
+    n = g.num_vertices
+    keys, perm = torch.sort(torch.where(g.valid, g.dst, n), stable=True)
+    before = sc.LAUNCH_COUNTS["segment_bounds"]
+    ptr = sc.segment_bounds(keys, n)
+    torch.cuda.synchronize()
+    assert sc.LAUNCH_COUNTS["segment_bounds"] == before + 1
+    assert ptr.dtype == torch.int32 and ptr.shape == (n + 1,)
+    assert torch.equal(ptr, segment_bounds_ref(keys, n))
+    assert torch.equal(ptr.cpu(), segment_bounds_ref(keys.cpu(), n))
+    # the cumsum of the atomic count by dst, and run to run
+    counts = slot_count_ref(g.dst, g.valid, n).long()
+    assert torch.equal(ptr[1:].long(), torch.cumsum(counts, 0))
+    assert int(ptr[0]) == 0 and int(ptr[n]) == int(g.valid.sum())
+    assert torch.equal(sc.segment_bounds(keys, n), ptr)
+    # the order's perm is the old argsort's
+    assert torch.equal(perm, torch.argsort(torch.where(g.valid, g.dst, n),
+                                           stable=True))
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.01, 0.5, 1.0])
+@pytest.mark.parametrize("kind", ["rmat", "hub", "free", "full", "dead",
+                                  "gaps"])
+def test_segment_or_kernel_equals_plain(cuda, kind, frac):
+    from repro_torch.kernels.slot_count import slot_count as sc
+    from repro_torch.kernels.slot_count.ref import segment_or_ref, \
+        slot_count_ref
+    g = _segment_graph(cuda, kind)
+    n = g.num_vertices
+    order = pc.pull_order(g.src, g.dst, g.valid, n)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    flags = torch.rand(n, generator=gen, device=cuda) < frac
+    before = sc.LAUNCH_COUNTS["segment_or"]
+    out = sc.segment_or(order.ptr, order.src, order.dst, flags)
+    torch.cuda.synchronize()
+    assert sc.LAUNCH_COUNTS["segment_or"] == before + 1
+    assert out.dtype == torch.bool and out.shape == (n,)
+    assert torch.equal(out, segment_or_ref(order.ptr, order.src, order.dst,
+                                           flags))
+    cpu = segment_or_ref(*(t.cpu() for t in (order.ptr, order.src,
+                                             order.dst, flags)))
+    assert torch.equal(out.cpu(), cpu)
+    assert torch.equal(out, slot_count_ref(g.dst, g.valid, n, g.src,
+                                           flags) > 0)
+    assert torch.equal(g.push_or(flags), out)
+    assert torch.equal(sc.segment_or(order.ptr, order.src, order.dst,
+                                     flags), out)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("tail", [1, 2, 3, 4])
+def test_segment_kernels_unaligned_views_and_tail(cuda, offset, tail):
+    """Keys, sources and sorted dst that start ``offset`` int32 into their
+    storage (scalar loads), and orders whose length leaves ``tail`` slots
+    past the last 16-byte group."""
+    from repro_torch.kernels.slot_count import slot_count as sc
+    from repro_torch.kernels.slot_count.ref import segment_bounds_ref, \
+        segment_or_ref
+    g = _segment_graph(cuda, "gaps")
+    n = g.num_vertices
+    order = pc.pull_order(g.src, g.dst, g.valid, n)
+    live = int(order.ptr[n])
+    E = (live // 4) * 4 - 4 + tail
+    assert E <= live                    # the tail is live
+
+    def shifted(t):
+        return torch.cat([t.new_zeros(offset), t[:E]])[offset:]
+    keys, src = shifted(order.dst), shifted(order.src)
+    assert keys.data_ptr() % 16 != 0 and keys.shape == (E,)
+    ptr = sc.segment_bounds(keys, n)
+    assert torch.equal(ptr, segment_bounds_ref(keys, n))
+    assert torch.equal(ptr, sc.segment_bounds(order.dst[:E].clone(), n))
+    flags = torch.rand(n, generator=torch.Generator(device=cuda)
+                       .manual_seed(offset), device=cuda) < 0.3
+    for s, d in ((src, keys), (src, order.dst[:E].clone()),
+                 (order.src[:E].clone(), order.dst[:E].clone())):
+        assert torch.equal(sc.segment_or(ptr, s, d, flags),
+                           segment_or_ref(ptr, s, d, flags))
+    # flags whose length is no multiple of 32, from an unaligned base
+    m = n + 7
+    odd = torch.cat([flags.new_zeros(offset), flags,
+                     flags[:7]])[offset:]
+    assert odd.shape == (m,)
+    assert torch.equal(sc.segment_or(ptr, src, keys, odd),
+                       segment_or_ref(ptr, src, keys, odd))
+
+
+def test_segment_wrappers_check_inputs(cuda):
+    from repro_torch.kernels.slot_count import slot_count as sc
+    g = _segment_graph(cuda, "gaps")
+    n = g.num_vertices
+    order = pc.pull_order(g.src, g.dst, g.valid, n)
+    flags = torch.zeros(n, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="keys must be torch.int32"):
+        sc.segment_bounds(order.dst.long(), n)
+    with pytest.raises(ValueError, match="keys must be contiguous"):
+        sc.segment_bounds(order.dst[::2], n)
+    with pytest.raises(TypeError, match="flags must be torch.bool"):
+        sc.segment_or(order.ptr, order.src, order.dst, flags.int())
+    with pytest.raises(ValueError, match="flags is on cpu"):
+        sc.segment_or(order.ptr, order.src, order.dst, flags.cpu())
+    with pytest.raises(ValueError, match="dst must have shape"):
+        sc.segment_or(order.ptr, order.src, order.dst[1:], flags)
+    with pytest.raises(TypeError, match="ptr must be torch.int32"):
+        sc.segment_or(order.ptr.long(), order.src, order.dst, flags)
+
+
+def test_served_kernel_batch_builds_one_order(cuda):
+    """A steady served batch of the kernel engine sorts its new graph once
+    (its old graph's order is the previous batch's), counts its
+    out-degrees once, writes one ``ptr`` and ORs every ``push_or`` over
+    the order: no count by dst, and no second order."""
+    from repro_torch.graph import structure
+    from repro_torch.kernels.slot_count import slot_count as sc
+    edges, n = rmat_edges(16, 8, seed=5)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda)
+    eng = ServeEngine(graph, ingest, RankStore(), engine="kernel")
+    eng.bootstrap()
+    assert _serve_feed(eng, ingest, edges, n, 0)     # the first batch warms
+    for b in (1, 2):
+        builds = dict(structure.CACHE_BUILDS)
+        launches = dict(sc.LAUNCH_COUNTS)
+        assert _serve_feed(eng, ingest, edges, n, b)
+        torch.cuda.synchronize()
+        built = {k: structure.CACHE_BUILDS[k] - builds.get(k, 0)
+                 for k in ("pull_order", "out_degree")}
+        ran = {k: sc.LAUNCH_COUNTS[k] - launches.get(k, 0)
+               for k in ("slot_count", "segment_bounds", "segment_or")}
+        assert built == {"pull_order": 1, "out_degree": 1}, built
+        assert ran["slot_count"] == 1 and ran["segment_bounds"] == 1, ran
+        assert ran["segment_or"] >= 2, ran     # initial_affected's two
+    assert eng.metrics.static_fallbacks == 0

@@ -94,7 +94,7 @@ def _inputs(graph, seed=0):
                        dtype=torch.float64) / graph.num_vertices
     inv = 1.0 / graph.out_degree(include_self_loop=True).to(torch.float64)
     order = pc.pull_order(graph.src, graph.dst, graph.valid,
-                          graph.in_degree(include_self_loop=False))
+                          graph.num_vertices)
     return order, ranks, inv
 
 

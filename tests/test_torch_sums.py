@@ -129,7 +129,7 @@ def test_weighted_pull_contrib_ref_equals_sequential_sum(k):
     rng = np.random.default_rng(9)
     ranks = torch.from_numpy(rng.random(n) / n)
     inv = 1.0 / g.out_degree(include_self_loop=True).to(torch.float64)
-    ptr, perm = pc.sorted_slots(g.dst, g.valid, g.in_degree(False))
+    ptr, perm, _ = pc.sorted_slots(g.dst, g.valid, n)
     order = pc.PullOrder(ptr, g.src[perm])
     out = pc.pull_contrib(order, ranks, inv, w[perm], chunk_slots=k)
     src, dst, live = np_(g.src), np_(g.dst), np_(g.valid)
@@ -172,8 +172,7 @@ def test_pull_values_and_segment_sum_equal_sequential_sums(rows, k):
     w = rng.random(m) + 0.5
     k_ = torch.from_numpy(keys)
     live = k_ >= 0
-    ptr, perm = pc.sorted_slots(k_, live,
-                                slot_count(k_.clamp(min=0), live, n))
+    ptr, perm, _ = pc.sorted_slots(k_, live, n)
     order = pc.PullOrder(ptr, torch.div(perm, rows, rounding_mode="floor")
                          .to(torch.int32))
     pos, kl = np.nonzero(keys >= 0)[0], keys[keys >= 0]
