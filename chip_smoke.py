@@ -148,7 +148,30 @@ It exits non-zero on the first failed check; no failure is passed over.
              driver's command line on the card, ``--batches 3`` and
              ``--batches 5`` on one ``--ckpt-dir``: the second prints
              ``restored at batch 2``.
-8. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+8. Observ. — phase 4's graph and feed through the kernel engine four
+             ways: plain, ``telemetry=True``, with a ``CorrectnessMonitor``
+             (shadow every 2 batches on its own thread and stream, an
+             anchor every 2), and with both and the span tracer on (the
+             shadow synchronous, so that ``batch_host_syncs`` is held to
+             the debug mode's count every batch).  Checks: every
+             batch's snapshot digest equals phase 4's unmonitored run's;
+             no incident; shadow L1 <= 1e-4 and L∞ <= 1e-5; a batch's
+             telemetry rows equal its iterations and the first row's
+             affected its initial affected set; the Chrome trace loads
+             and each ``serve.step`` span holds a ``fused_update_loop``;
+             a Prometheus scrape holds the sentinel and shadow gauges.
+             Prints a batch's update latency in the four runs, the step's
+             wall time, the extra syncs, the anchors' bytes and the
+             shadow solves' ms.  Then a rank fault on the largest rank
+             at a mid generation (scale printed): a ``rank_mass`` error
+             incident there, a bundle dumped (bytes, seconds), replayed by
+             ``python -m repro_torch.launch.replay --strict`` in a
+             subprocess on the card (exit 0, every step bitwise, every
+             decision matching), then deleted; a clean monitored run on
+             the xla engine, replayed in-process bit for bit; and the
+             card's ``rank_digest`` of phase 4's final ranks equal to the
+             CPU's.
+9. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
              launches on its path, max error and times; then, last,
              ``{"ok": true, "device": {...}}``.  Each phase prints its
              peak of allocated device memory.
@@ -975,6 +998,7 @@ def serve_run(args, torch, dev, graph, feed, engine_name, sites=False):
         LAUNCH_COUNTS as PULL_COUNTS
     from repro_torch.kernels.slot_count.slot_count import \
         LAUNCH_COUNTS as COUNT_COUNTS
+    from repro_torch.obs import rank_digest
     from repro_torch.serve import IngestQueue, QueryClient, RankStore, \
         ServeEngine, ServeMetrics
     ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9,
@@ -1038,6 +1062,7 @@ def serve_run(args, torch, dev, graph, feed, engine_name, sites=False):
               and top.generation == b + 1 and len(top.vertices) == 10,
               f"[{engine_name}] batch {b}: queries answered at generation "
               f"{top.generation}")
+        row["digest"] = rank_digest(store.snapshot().ranks)
         rows.append(row)
         print(f"  [{engine_name}] batch {b}: events={row['events']} "
               f"latency_ms={row['latency_ms']:.2f} "
@@ -1184,6 +1209,7 @@ def serve_checks(args, torch, dev, edges, n, graph):
     del snap_t
     return dict(kernel=kernel, xla=xla, kernel_again=again,
                 kernel_traced=traced, kernel_repeat=repeat,
+                final_ranks=rk,
                 linf_kernel_vs_xla=linf,
                 rel_linf_kernel_vs_xla=rel,
                 l1_kernel_vs_static=l1_k, l1_xla_vs_static=l1_x,
@@ -2259,6 +2285,312 @@ def paper_checks(args, torch, dev, edges, n, graph):
                 phase_s=phase_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: observability
+# ---------------------------------------------------------------------------
+
+# the reference's shadow budgets (repro.obs.monitor.MonitorConfig)
+SHADOW_L1, SHADOW_LINF = 1e-4, 1e-5
+
+
+def obs_run(torch, dev, graph, feed, engine_name, telemetry=False,
+            monitor=None, trace=False, check_syncs=False, fault=None,
+            initial=None, pack=None):
+    """Serve ``feed`` through a ``ServeEngine`` with the given
+    observability: per batch the update latency, the step's host wall
+    time, the reported host syncs (with ``check_syncs``, held to the
+    debug mode's count), the snapshot's digest and, when telemetry is on,
+    the rows.  ``fault``: (generation, vertex, scale) of a rank fault.
+    ``initial``: a list that gets each batch's initial affected count
+    (read after the step).  ``pack``: (packed graph, pinned pack
+    keywords) of an earlier run's bootstrap, which the kernel engine then
+    takes in place of packing again (a packed graph's tensors are never
+    written: each batch's maintenance makes new ones); the result's
+    ``pack`` is this run's."""
+    from repro_torch import obs
+    from repro_torch.serve import IngestQueue, RankStore, ServeEngine, \
+        ServeMetrics
+    from repro_torch.serve import engine as serve_engine
+    ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9, device=dev)
+    store, metrics = RankStore(), ServeMetrics()
+    eng = ServeEngine(graph, ingest, store, metrics=metrics,
+                      method="frontier_prune", engine=engine_name,
+                      telemetry=telemetry, monitor=monitor)
+    if pack is not None:
+        eng._packed, eng._pack_kw = pack[0], dict(pack[1])
+    seeds = []
+    real_init = serve_engine.build_initial_state
+    if initial is not None:
+        def recording_init(*a, **kw):
+            out = real_init(*a, **kw)
+            seeds.append(out[1])
+            return out
+        serve_engine.build_initial_state = recording_init
+    tracer = obs.start_tracing() if trace else None
+    try:
+        t0 = time.perf_counter()
+        eng.bootstrap()
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        pack = (eng._packed, dict(eng._pack_kw))
+        if fault is not None:
+            eng.inject_fault(fault[0], kind="rank", vertex=fault[1],
+                             scale=fault[2])
+        rows = []
+        for b, events in enumerate(feed):
+            for kind, u, v in events:
+                ingest.submit(kind, u, v)
+            seeds.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if check_syncs:
+                with recording_syncs(torch) as syncs:
+                    check(eng.step(force=True),
+                          f"[{engine_name}] batch {b} served")
+            else:
+                check(eng.step(force=True),
+                      f"[{engine_name}] batch {b} served")
+            step_ms = (time.perf_counter() - t1) * 1e3
+            m = metrics
+            row = dict(batch=b, latency_ms=m.update_latency_s[-1] * 1e3,
+                       step_ms=step_ms, iterations=m.batch_iterations[-1],
+                       affected=m.batch_affected[-1],
+                       host_syncs=m.batch_host_syncs[-1],
+                       digest=obs.rank_digest(store.snapshot().ranks))
+            if check_syncs:
+                row["measured_syncs"] = len(syncs)
+                if row["host_syncs"] != len(syncs):
+                    print(f"  [{engine_name}] batch {b}: synchronizing "
+                          f"calls by site {sync_sites(syncs)}")
+                check(row["host_syncs"] == len(syncs),
+                      f"[{engine_name}] batch {b}: host_syncs "
+                      f"{row['host_syncs']} == {len(syncs)} synchronizing "
+                      f"calls (set_sync_debug_mode), monitor and telemetry "
+                      f"on")
+            if eng.last_telemetry is not None:
+                row["telemetry_rows"] = eng.last_telemetry.iterations
+                row["first_row_affected"] = float(
+                    eng.last_telemetry.column("affected")[0])
+            if initial is not None:
+                row["initial_affected"] = int(seeds[-1].sum())
+            rows.append(row)
+    finally:
+        serve_engine.build_initial_state = real_init
+        if trace:
+            obs.stop_tracing(write=False)
+    eng.close()
+    return dict(boot_s=boot_s, rows=rows, metrics=metrics, tracer=tracer,
+                pack=pack if engine_name == "kernel" else None)
+
+
+def obs_checks(args, torch, dev, edges, n, graph, serve):
+    phase("8. observability (telemetry, correctness monitor, replay)")
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.obs import CorrectnessMonitor, MonitorConfig
+    t_phase = time.perf_counter()
+    feed = make_feed(args, edges, n)
+    want = [r["digest"] for r in serve["kernel"]["rows"]]
+    tmp = tempfile.mkdtemp(prefix="smoke_incidents_")
+    out = dict(runs={})
+    try:
+        # the same feed four ways on the kernel engine, in turns, twice;
+        # the first run packs, the others take its bootstrap pack
+        def monitor(**kw):
+            return CorrectnessMonitor(MonitorConfig(
+                shadow_every=2, anchor_every=2, incident_dir=tmp, **kw))
+        cfgs = dict(
+            plain=lambda: dict(),
+            telemetry=lambda: dict(telemetry=True),
+            monitor=lambda: dict(monitor=monitor()),
+            both=lambda: dict(telemetry=True, trace=True, check_syncs=True,
+                              initial=[], monitor=monitor(
+                                  shadow_background=False)))
+        runs, pack, shadow, incidents = {}, None, [], []
+        for rnd in (1, 2):
+            for name, make in cfgs.items():
+                kw = make()
+                run = obs_run(torch, dev, graph, feed, "kernel", pack=pack,
+                              **kw)
+                pack = run["pack"]
+                mon = kw.get("monitor")
+                tag = f"{name}{rnd}"
+                runs[tag] = dict(boot_s=run["boot_s"], rows=run["rows"])
+                print(f"  [{tag}] bootstrap {run['boot_s']:.2f} s",
+                      flush=True)
+                if mon is None:
+                    continue
+                incidents += mon.incidents
+                shadow += [(tag, r) for r in mon.shadow.reports]
+                runs[tag]["anchor_bytes"] = {
+                    g: sum(a.nbytes for a in st.values())
+                    for g, (st, _) in mon.recorder._anchors.items()}
+                runs[tag]["shadow_samples"] = mon.shadow.samples
+                if name == "both":
+                    both = run
+                del mon, kw
+        for tag, run in runs.items():
+            got = [r["digest"] for r in run["rows"]]
+            check(got == want, f"[{tag}] every batch's snapshot digest "
+                  f"equals phase 4's unmonitored run ({len(got)} batches)")
+        check(all(r["telemetry_rows"] == r["iterations"]
+                  and r["first_row_affected"] == r["initial_affected"]
+                  <= r["affected"] for t in ("both1", "both2")
+                  for r in runs[t]["rows"]),
+              "[both] a batch's telemetry rows == its iterations; the "
+              "first row's affected == its initial affected set "
+              "(<= batch_affected, every vertex ever affected)")
+        check(incidents == [], "no incident on the clean feed (four "
+              "monitored runs)")
+        check(runs["both1"]["shadow_samples"] == 3 and all(
+            r.l1 <= SHADOW_L1 and r.linf <= SHADOW_LINF for _, r in shadow),
+              f"shadow within budget: L1 <= {SHADOW_L1:g} and L_inf <= "
+              f"{SHADOW_LINF:g} ({len(shadow)} samples, worst L1 "
+              f"{max(r.l1 for _, r in shadow):.3e}, L_inf "
+              f"{max(r.linf for _, r in shadow):.3e})")
+        tr = both["tracer"]
+        trace_path = os.path.join(tmp, "trace.json")
+        tr.write(trace_path)
+        with open(trace_path) as f:
+            doc = json.load(f)
+        spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        steps = [e for e in spans if e["name"] == "serve.step"]
+        inner = [e for e in spans if e["name"] == "fused_update_loop"]
+        check(len(steps) == len(feed) and all(
+            any(s["ts"] <= i["ts"] and i["ts"] + i["dur"]
+                <= s["ts"] + s["dur"] + 1e-3 for i in inner)
+            for s in steps),
+              f"Chrome trace loads ({len(doc['traceEvents'])} events); each "
+              f"serve.step span contains a fused_update_loop span")
+        scrape = obs.MetricsExporter(both["metrics"]).scrape()
+        check(all(k in scrape for k in (
+            "repro_sentinel_rank_mass_err", "repro_sentinel_trips",
+            "repro_shadow_l1", "repro_shadow_linf", "repro_shadow_samples")),
+              "a prometheus_text scrape holds the sentinel and shadow "
+              "gauges")
+        del both, tr
+        print(f"  card: {device_smi()}; a batch, per round: update "
+              f"latency ms plain / telemetry / monitor / both; step wall "
+              f"ms, the same four; host syncs plain / both (measured)")
+        for rnd in (1, 2):
+            for b in range(len(feed)):
+                r = {k: runs[f"{k}{rnd}"]["rows"][b] for k in cfgs}
+                anchor = runs[f"both{rnd}"]["anchor_bytes"].get(b + 1)
+                lat = " / ".join(f"{r[k]['latency_ms']:.2f}" for k in cfgs)
+                wall = " / ".join(f"{r[k]['step_ms']:.2f}" for k in cfgs)
+                print(f"  round {rnd} batch {b}: latency {lat}; step "
+                      f"{wall}; syncs {r['plain']['host_syncs']} / "
+                      f"{r['both']['host_syncs']} (+"
+                      f"{r['both']['host_syncs'] - r['plain']['host_syncs']}"
+                      f"; measured {r['both']['measured_syncs']})"
+                      + (f"; anchor {anchor / 2**20:.1f} MiB"
+                         if anchor is not None else ""), flush=True)
+        for tag, rep in shadow:
+            print(f"  [{tag}] shadow gen {rep.generation}: solve "
+                  f"{rep.solve_s * 1e3:.2f} ms, {rep.iterations} "
+                  f"iterations, L1 {rep.l1:.3e}, L_inf {rep.linf:.3e}")
+        out["runs"] = runs
+        out["shadow"] = [dict(run=t, **r._asdict()) for t, r in shadow]
+        # (b) an injected rank fault on the largest rank, caught, dumped
+        # and replayed bit for bit by the replay driver on the card
+        from repro_torch.core.pagerank import static_pagerank
+        r0 = static_pagerank(graph).ranks
+        rmax, vmax = (float(x) for x in torch.max(r0, 0))
+        del r0
+        mass_tol = MonitorConfig().sentinel.mass_tol
+        gen = max(1, len(feed) // 2 + 1)
+        scale = float(np.ceil(1.0 + 20.0 * mass_tol / rmax))
+        print(f"  fault: rank x{scale:g} at vertex {int(vmax)} (largest "
+              f"bootstrap rank {rmax:.6e}), generation {gen}: mass error "
+              f"~{rmax * (scale - 1):.3e} vs mass_tol {mass_tol:g}")
+        fdir = os.path.join(tmp, "fault")
+        fmon = CorrectnessMonitor(MonitorConfig(
+            shadow_every=0, anchor_every=2, incident_dir=fdir))
+        dumps = []
+        real_dump = fmon.recorder.dump
+
+        def timed_dump(*a, **kw):
+            t0 = time.perf_counter()
+            path = real_dump(*a, **kw)
+            dumps.append(time.perf_counter() - t0)
+            return path
+        fmon.recorder.dump = timed_dump
+        frun = obs_run(torch, dev, graph, feed, "kernel", monitor=fmon,
+                       fault=(gen, int(vmax), scale), pack=pack)
+        errors = [i for i in fmon.incidents if i.severity == "error"]
+        check(bool(errors) and errors[0].kind == "rank_mass"
+              and errors[0].generation == gen
+              and errors[0].value >= 10 * mass_tol,
+              f"an error incident rank_mass fires at generation {gen} "
+              f"(mass error {errors[0].value if errors else 0:.3e} >= "
+              f"{10 * mass_tol:g})")
+        bundle = fmon.last_bundle
+        check(bundle is not None and os.path.isdir(bundle),
+              f"the monitor dumped a bundle ({bundle})")
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(bundle) for f in fs)
+        print(f"  bundle {size / 2**20:.1f} MiB, dumped in "
+              f"{dumps[0]:.2f} s", flush=True)
+        rep_json = os.path.join(tmp, "replay.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.replay", bundle,
+             "--strict", "--json", rep_json], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+            text=True, timeout=600)
+        replay_s = time.perf_counter() - t0
+        print("\n".join("    " + ln for ln in proc.stdout.splitlines()))
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:])
+        rep = dict(steps=[])
+        if os.path.exists(rep_json):
+            with open(rep_json) as f:
+                rep = json.load(f)
+        check(proc.returncode == 0 and rep["steps"] and all(
+            s["bitwise"] and s["decisions_match"] for s in rep["steps"]),
+              f"launch.replay --strict on the card: exit "
+              f"{proc.returncode}, {len(rep['steps'])} steps, every step "
+              f"bitwise and every decision matching ({replay_s:.1f} s)")
+        out["fault"] = dict(generation=gen, vertex=int(vmax), scale=scale,
+                            rank=rmax, mass_err=errors[0].value,
+                            bundle_bytes=size, dump_s=dumps[0],
+                            replay_s=replay_s, replay=rep,
+                            rows=frun["rows"])
+        shutil.rmtree(bundle)
+        # (c) a clean monitored run on the xla engine, replayed in-process
+        xmon = CorrectnessMonitor(MonitorConfig(shadow_every=0,
+                                                anchor_every=2))
+        xrun = obs_run(torch, dev, graph, feed, "xla", monitor=xmon)
+        t0 = time.perf_counter()
+        xrep = obs.replay(xmon.recorder, device=dev)
+        check(xrep.ok and len(xrep.steps) == len(feed),
+              f"xla engine: the monitored run replays in-process, "
+              f"{xrep.num_bitwise}/{len(xrep.steps)} bit-for-bit "
+              f"({time.perf_counter() - t0:.1f} s)")
+        out["xla"] = dict(rows=xrun["rows"], replay_ok=xrep.ok)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the card's digest of phase 4's final ranks against the CPU's
+    final = serve["final_ranks"]
+    card, cpu = obs.rank_digest(final), obs.rank_digest(final.cpu())
+    check(card == cpu, f"rank_digest on the card == on the CPU for phase "
+          f"4's final ranks ({card & 0xFFFFFFFFFFFFFFFF:016x})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def device_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+
 def peak_memory(torch, name: str) -> None:
     """Print the phase's peak of allocated device memory, then reset it."""
     print(f"  phase {name} peak memory allocated "
@@ -2347,8 +2679,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()              # phase 6's features are gone
     paper = paper_checks(args, torch, dev, edges, n, graph)
     peak_memory(torch, "7")
+    torch.cuda.empty_cache()
+    observ = obs_checks(args, torch, dev, edges, n, graph, serve)
+    peak_memory(torch, "8")
 
-    phase("8. summary")
+    phase("9. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -2435,9 +2770,11 @@ def main(argv=None) -> int:
                          build={k: dict(seconds=v["seconds"], log=v["log"])
                                 for k, v in builds.items()},
                          spmv=spmv_kernel, spmv_cases=cases,
-                         contrib=contrib, counts=counts, serve=serve,
-                         ppr=ppr, gnn=gnn, paper=paper, kernels=kernels,
-                         wall_s=wall))
+                         contrib=contrib, counts=counts,
+                         serve={k: v for k, v in serve.items()
+                                if k != "final_ranks"},
+                         ppr=ppr, gnn=gnn, paper=paper, obs=observ,
+                         kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

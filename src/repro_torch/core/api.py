@@ -86,7 +86,9 @@ def update_pagerank(graph_prev: EdgeListGraph,
     (f32 frontier-gated SpMV iterations + f64 polish,
     ``core.kernel_engine``); ``packed`` supplies the blocked structure for
     streaming callers that maintain it incrementally, else it is packed
-    here once.  Runs on the graph's device.
+    here once.  Runs on the graph's device.  ``telemetry=True`` (in
+    ``kw``) returns per-iteration ``obs.frontier`` rows in
+    ``result.telemetry`` on either engine.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; options {ENGINES}")

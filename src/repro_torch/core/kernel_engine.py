@@ -21,11 +21,21 @@ Sync policy: one boolean read (``delta > tol``) per iteration, as in the
 f64 loop; the fused step adds one read of the dropped-insertion count.
 Results carry the count in ``host_syncs``; each read is also recorded
 with ``device.note_host_syncs``, beside those of the packed update.
+
+``telemetry=True`` records one ``obs.frontier`` row an iteration (f32;
+``active`` = active windows) and stacks it with that iteration's read:
+no added sync, except when the f32 phase stops at ``max_iter``, whose
+last sweep has no read after it untelemetered and then gets one for its
+row.  ``_merged_telemetry`` puts the kernel rows first, then the
+polish rows.  With the global tracer on, ``fused_update_loop`` and
+``polish.f64`` (``kernel_loop.f32`` on the unfused ladder) are spans,
+each closed by ``Tracer.sync``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import pagerank as pr
@@ -33,6 +43,9 @@ from repro_torch.core.pagerank import ALPHA, initial_affected
 from repro_torch.device import note_host_syncs
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.ops import PackedGraph, gated_contrib
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.frontier import NUM_FIELDS, FrontierTelemetry, \
+    read_row, telemetry_row
 
 F32 = torch.float32
 
@@ -45,6 +58,8 @@ class KernelPRResult(NamedTuple):
     edges_processed: torch.Tensor     # i64[] Σ live edges of active entries
     vertices_processed: torch.Tensor  # i64[] Σ VB per active window
     host_syncs: int = 0
+    # f64[iters, 5] obs.frontier rows (NumPy) when asked, else None
+    telemetry: Optional[np.ndarray] = None
 
 
 class _Loop:
@@ -52,7 +67,8 @@ class _Loop:
     entry points so that both run the identical iteration."""
 
     def __init__(self, graph, packed, *, alpha, tol, frontier_tol,
-                 prune_tol, max_iter, closed_form, prune, expand):
+                 prune_tol, max_iter, closed_form, prune, expand,
+                 telemetry=False):
         V = graph.num_vertices
         nw, vb = packed.num_windows, packed.vb
         self.graph, self.packed = graph, packed
@@ -69,6 +85,10 @@ class _Loop:
         self.tol, self.max_iter = tol, max_iter
         self.frontier_tol, self.prune_tol = frontier_tol, prune_tol
         self.closed_form, self.prune, self.expand = closed_form, prune, expand
+        # telemetry: rows read so far, and the last sweep's row on the
+        # device until its read
+        self.rows = [] if telemetry else None
+        self._row = None
 
     def _pad(self, x):
         return torch.cat([x, x.new_zeros(self.v_pad - x.shape[0])])
@@ -108,9 +128,25 @@ class _Loop:
         edges = edges + torch.where(active_window[packed.window.long()],
                                     self.entry_edges,
                                     torch.zeros_like(self.entry_edges)).sum()
-        verts = verts + active_window.sum(dtype=torch.int64) * self.vb
+        n_win = active_window.sum(dtype=torch.int64)
+        verts = verts + n_win * self.vb
+        if self.rows is not None:
+            self._row = telemetry_row(
+                affected.sum(), delta, (new_affected & ~affected).sum(),
+                (affected & ~new_affected).sum(), n_win, F32)
         return [r_new, new_affected, ever | new_affected, delta, it + 1,
                 edges, verts]
+
+    def _more(self, state) -> bool:
+        """One host read: ``delta > tol``, with the last sweep's row when
+        telemetry is on."""
+        more = state[3] > self.tol
+        if self._row is None:
+            return bool(more)
+        vals, more = read_row(self._row, more)
+        self.rows.append(vals)
+        self._row = None
+        return more
 
     def run(self, state, syncs: int = 0,
             check_first: bool = False) -> KernelPRResult:
@@ -122,13 +158,21 @@ class _Loop:
             if check_first:
                 syncs += 1
                 note_host_syncs()
-                if not bool(state[3] > self.tol):
+                if not self._more(state):
                     break
             check_first = True
             state = self.body(state)
+        tel = None
+        if self.rows is not None:
+            if self._row is not None:      # stopped at max_iter: read it
+                syncs += 1
+                note_host_syncs()
+                self.rows.append(self._row.tolist())
+                self._row = None
+            tel = np.asarray(self.rows, np.float64).reshape(-1, NUM_FIELDS)
         ranks_pad, _, ever, delta, it, edges, verts = state
         return KernelPRResult(ranks_pad[:self.V], it, delta, ever, edges,
-                              verts, syncs)
+                              verts, syncs, tel)
 
 
 def kernel_pagerank_loop(graph: EdgeListGraph, packed: PackedGraph,
@@ -137,12 +181,12 @@ def kernel_pagerank_loop(graph: EdgeListGraph, packed: PackedGraph,
                          alpha: float = ALPHA, tol: float = 1e-7,
                          frontier_tol: float = 1e-5, prune_tol: float = 1e-5,
                          max_iter: int = 500, closed_form: bool = False,
-                         prune: bool = False, expand: bool = True
-                         ) -> KernelPRResult:
+                         prune: bool = False, expand: bool = True,
+                         telemetry: bool = False) -> KernelPRResult:
     loop = _Loop(graph, packed, alpha=alpha, tol=tol,
                  frontier_tol=frontier_tol, prune_tol=prune_tol,
                  max_iter=max_iter, closed_form=closed_form, prune=prune,
-                 expand=expand)
+                 expand=expand, telemetry=telemetry)
     return loop.run(loop.state0(init_ranks, init_affected))
 
 
@@ -152,7 +196,8 @@ def _fused_update_loop(graph_new: EdgeListGraph, packed: PackedGraph,
                        alpha: float = ALPHA, tol: float = 1e-7,
                        frontier_tol: float = 1e-5, prune_tol: float = 1e-5,
                        max_iter: int = 500, closed_form: bool = False,
-                       prune: bool = False, expand: bool = True):
+                       prune: bool = False, expand: bool = True,
+                       telemetry: bool = False):
     """Packed micro-batch maintenance, then the f32 loop with its first
     sweep peeled (``delta`` starts at inf, so the peel cannot change the
     iteration sequence).  Returns ``(new_packed, KernelPRResult)``.
@@ -172,33 +217,48 @@ def _fused_update_loop(graph_new: EdgeListGraph, packed: PackedGraph,
     loop = _Loop(graph_new, new_packed, alpha=alpha, tol=tol,
                  frontier_tol=frontier_tol, prune_tol=prune_tol,
                  max_iter=max_iter, closed_form=closed_form, prune=prune,
-                 expand=expand)
+                 expand=expand, telemetry=telemetry)
     state = loop.state0(init_ranks, init_affected)
     if max_iter > 0:
         state = loop.body(state)
     return new_packed, loop.run(state, syncs=1, check_first=True)
 
 
+def _merged_telemetry(k: KernelPRResult,
+                      p: Optional[pr.PageRankResult]) -> np.ndarray:
+    """f64 [iters, k] rows of the hybrid ladder, kernel phase first then
+    polish (both already on the host)."""
+    return FrontierTelemetry.concat(
+        FrontierTelemetry(k.telemetry),
+        None if p is None else FrontierTelemetry(p.telemetry)).data
+
+
 def _ladder(graph, k: KernelPRResult, *, alpha, tol, frontier_tol,
             prune_tol, max_iter, closed_form, prune, expand,
-            polish) -> pr.PageRankResult:
+            polish, telemetry=False) -> pr.PageRankResult:
     """f64 result of the ladder from its f32 phase ``k``."""
     if not polish:
         return pr.PageRankResult(
             k.ranks.to(torch.float64), k.iterations,
             k.delta.to(torch.float64), k.affected_ever, k.edges_processed,
-            k.vertices_processed, k.host_syncs)
-    p = pr._pagerank_loop(graph, k.ranks.to(torch.float64), k.affected_ever,
-                          alpha=alpha, tol=tol, frontier_tol=frontier_tol,
-                          prune_tol=prune_tol, max_iter=max_iter,
-                          closed_form=closed_form, prune=prune,
-                          expand=expand)
+            k.vertices_processed, k.host_syncs,
+            _merged_telemetry(k, None) if telemetry else None)
+    tr = obs_trace.get_tracer()
+    with tr.span("polish.f64", program="f64_polish"):
+        p = pr._pagerank_loop(graph, k.ranks.to(torch.float64),
+                              k.affected_ever, alpha=alpha, tol=tol,
+                              frontier_tol=frontier_tol,
+                              prune_tol=prune_tol, max_iter=max_iter,
+                              closed_form=closed_form, prune=prune,
+                              expand=expand, telemetry=telemetry)
+        tr.sync(p.ranks)
     return pr.PageRankResult(
         p.ranks, k.iterations + p.iterations, p.delta,
         k.affected_ever | p.affected_ever,
         k.edges_processed + p.edges_processed,
         k.vertices_processed + p.vertices_processed,
-        k.host_syncs + p.host_syncs)
+        k.host_syncs + p.host_syncs,
+        _merged_telemetry(k, p) if telemetry else None)
 
 
 def fused_hybrid_pagerank(graph_new: EdgeListGraph, packed: PackedGraph,
@@ -212,23 +272,32 @@ def fused_hybrid_pagerank(graph_new: EdgeListGraph, packed: PackedGraph,
                           kernel_prune_tol: float = 1e-5,
                           max_iter: int = pr.MAX_ITER,
                           closed_form: bool = False, prune: bool = False,
-                          expand: bool = True, polish: bool = True):
+                          expand: bool = True, polish: bool = True,
+                          telemetry: bool = False):
     """Serving step: ``(new_packed, PageRankResult)`` — packed maintenance
     plus the whole f32 phase, then the f64 polish when ``polish=True``.
 
     Spill/overlay exhaustion raises the same checked ``PackedSpillError`` as
     ``apply_batch_packed``; the caller repacks at the pinned shapes and
     re-invokes with the SAME update.
+
+    ``telemetry=True`` records per-iteration ``obs.frontier`` rows in both
+    phases (``result.telemetry``: f64 [iters, k], kernel rows then polish
+    rows); the tracer, when enabled, gets one span per phase.
     """
-    new_packed, k = _fused_update_loop(
-        graph_new, packed, update, init_ranks, init_affected, alpha=alpha,
-        tol=tol_f32, frontier_tol=kernel_frontier_tol,
-        prune_tol=kernel_prune_tol, max_iter=max_iter,
-        closed_form=closed_form, prune=prune, expand=expand)
+    tr = obs_trace.get_tracer()
+    with tr.span("fused_update_loop", program="update+f32_loop"):
+        new_packed, k = _fused_update_loop(
+            graph_new, packed, update, init_ranks, init_affected,
+            alpha=alpha, tol=tol_f32, frontier_tol=kernel_frontier_tol,
+            prune_tol=kernel_prune_tol, max_iter=max_iter,
+            closed_form=closed_form, prune=prune, expand=expand,
+            telemetry=telemetry)
+        tr.sync(k.ranks)
     return new_packed, _ladder(
         graph_new, k, alpha=alpha, tol=tol, frontier_tol=frontier_tol,
         prune_tol=prune_tol, max_iter=max_iter, closed_form=closed_form,
-        prune=prune, expand=expand, polish=polish)
+        prune=prune, expand=expand, polish=polish, telemetry=telemetry)
 
 
 def hybrid_pagerank(graph: EdgeListGraph, packed: PackedGraph,
@@ -241,20 +310,25 @@ def hybrid_pagerank(graph: EdgeListGraph, packed: PackedGraph,
                     kernel_prune_tol: float = 1e-5,
                     max_iter: int = pr.MAX_ITER, closed_form: bool = False,
                     prune: bool = False, expand: bool = True,
-                    polish: bool = True) -> pr.PageRankResult:
+                    polish: bool = True,
+                    telemetry: bool = False) -> pr.PageRankResult:
     """Precision ladder: f32 kernel iterations to ``tol_f32``, then an
     optional f64 polish seeded from the kernel phase's affected_ever set
     down to ``tol`` — same fixed point and result type as the f64 loop."""
-    k = kernel_pagerank_loop(graph, packed, init_ranks, init_affected,
-                             alpha=alpha, tol=tol_f32,
-                             frontier_tol=kernel_frontier_tol,
-                             prune_tol=kernel_prune_tol, max_iter=max_iter,
-                             closed_form=closed_form, prune=prune,
-                             expand=expand)
+    tr = obs_trace.get_tracer()
+    with tr.span("kernel_loop.f32", program="f32_loop"):
+        k = kernel_pagerank_loop(graph, packed, init_ranks, init_affected,
+                                 alpha=alpha, tol=tol_f32,
+                                 frontier_tol=kernel_frontier_tol,
+                                 prune_tol=kernel_prune_tol,
+                                 max_iter=max_iter, closed_form=closed_form,
+                                 prune=prune, expand=expand,
+                                 telemetry=telemetry)
+        tr.sync(k.ranks)
     return _ladder(graph, k, alpha=alpha, tol=tol, frontier_tol=frontier_tol,
                    prune_tol=prune_tol, max_iter=max_iter,
                    closed_form=closed_form, prune=prune, expand=expand,
-                   polish=polish)
+                   polish=polish, telemetry=telemetry)
 
 
 def df_pagerank_kernel(graph_prev: EdgeListGraph, graph_new: EdgeListGraph,

@@ -16,7 +16,9 @@ Sync policy: the loop ends on data, so each iteration reads one boolean
 (``delta > tol``) back to the host.  That keeps ``iterations`` equal to
 the reference's; ``PageRankResult.host_syncs`` counts the reads, and
 each read (and each pulse of ``reachability_mask``) is also recorded with
-``device.note_host_syncs``.
+``device.note_host_syncs``.  ``telemetry=True`` stacks the iteration's
+``obs.frontier`` row with that boolean, so the row comes back in the same
+read (``PageRankResult.telemetry``: f64 ``[iters, 5]`` NumPy).
 
 Summation order: each graph's edge slots are sorted by dst once
 (``EdgeListGraph.pull_order``, cached with the graph, so a served batch
@@ -34,14 +36,16 @@ order's segment lengths, and the frontier pushes OR over its segments
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import note_host_syncs
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
     pull_contrib
+from repro_torch.obs.frontier import read_row, telemetry_row
 
 ALPHA = 0.85
 TOL = 1e-10
@@ -60,6 +64,8 @@ class PageRankResult(NamedTuple):
     edges_processed: torch.Tensor     # i64[]  Σ active in-edges
     vertices_processed: torch.Tensor  # i64[]  Σ active vertices
     host_syncs: int = 0               # device-to-host reads in the solve
+    # f64[iters, 5] obs.frontier rows (NumPy) when asked, else None
+    telemetry: Optional[np.ndarray] = None
 
 
 def _contrib(order: PullOrder, ranks: torch.Tensor,
@@ -93,7 +99,8 @@ def _pagerank_loop(graph: EdgeListGraph,
                    closed_form: bool = False,
                    prune: bool = False,
                    expand: bool = False,
-                   track_affected: bool = True) -> PageRankResult:
+                   track_affected: bool = True,
+                   telemetry: bool = False) -> PageRankResult:
     """The one loop behind all five approaches.
 
     static/naive: affected = all True, expand = prune = False.
@@ -120,6 +127,7 @@ def _pagerank_loop(graph: EdgeListGraph,
     verts = zero_i
     it = 0
     syncs = 0
+    rows = []
     while it < max_iter:
         contrib = _contrib(order, ranks, inv_deg)
         r_new_all = _rank_update(ranks, contrib, inv_deg, c0, alpha,
@@ -142,16 +150,30 @@ def _pagerank_loop(graph: EdgeListGraph,
             new_affected = new_affected | graph.push_or(big) | big
 
         edges = edges + torch.where(affected, in_deg, zero_i).sum()
-        verts = verts + affected.sum(dtype=torch.int64)
+        n_aff = affected.sum(dtype=torch.int64)
+        verts = verts + n_aff
+        row = None
+        if telemetry:
+            row = telemetry_row(n_aff, delta,
+                                (new_affected & ~affected).sum(),
+                                (affected & ~new_affected).sum(), n_aff,
+                                F64)
         if track_affected:
             ever = ever | new_affected
         ranks, affected = r_new, new_affected
         it += 1
         syncs += 1
         note_host_syncs()
-        if not bool(delta > tol):
+        if row is None:
+            more = bool(delta > tol)
+        else:                  # the row rides the same one read
+            vals, more = read_row(row, delta > tol)
+            rows.append(vals)
+        if not more:
             break
-    return PageRankResult(ranks, it, delta, ever, edges, verts, syncs)
+    return PageRankResult(ranks, it, delta, ever, edges, verts, syncs,
+                          np.asarray(rows, np.float64).reshape(-1, 5)
+                          if telemetry else None)
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,7 @@ structure and K, and hands the same one back on every later call.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Any, Callable, Dict, NamedTuple, Tuple, TypeVar, \
     Union
@@ -94,14 +95,19 @@ def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
 # them, {key: value}): the plans, and what else is built once per tensor
 # (the row sum's hot set) or per tuple of tensors (a graph's pull order);
 # an entry goes when any of its tensors is freed, so a freed tensor's
-# address cannot reach a stale value
+# address cannot reach a stale value.  Two threads use the table (the
+# serve step and the shadow verifier's, obs/shadow.py), so every look-up,
+# insertion and removal holds _LOCK; it is re-entrant because a build may
+# free a tensor, whose weak reference then removes its entry
 _PLANS: Dict[Any, Tuple[Tuple[weakref.ref, ...], Dict[Any, Any]]] = {}
+_LOCK = threading.RLock()
 
 
 def _forget(slot, ref: weakref.ref) -> None:
-    hit = _PLANS.get(slot)
-    if hit is not None and any(r is ref for r in hit[0]):
-        del _PLANS[slot]
+    with _LOCK:
+        hit = _PLANS.get(slot)
+        if hit is not None and any(r is ref for r in hit[0]):
+            del _PLANS[slot]
 
 
 def cached(tensors: Union[torch.Tensor, Tuple[torch.Tensor, ...]], key,
@@ -114,15 +120,17 @@ def cached(tensors: Union[torch.Tensor, Tuple[torch.Tensor, ...]], key,
         tensors = (tensors,)
     ids = tuple(id(t) for t in tensors)
     slot = ids[0] if len(ids) == 1 else ids
-    hit = _PLANS.get(slot)
-    if hit is None or any(r() is not t for r, t in zip(hit[0], tensors)):
-        refs = tuple(weakref.ref(t, lambda r, slot=slot: _forget(slot, r))
-                     for t in tensors)
-        hit = _PLANS[slot] = (refs, {})
-    values = hit[1]
-    if key not in values:
-        values[key] = build()
-    return values[key]
+    with _LOCK:
+        hit = _PLANS.get(slot)
+        if hit is None or any(r() is not t
+                              for r, t in zip(hit[0], tensors)):
+            refs = tuple(weakref.ref(t, lambda r, slot=slot: _forget(slot, r))
+                         for t in tensors)
+            hit = _PLANS[slot] = (refs, {})
+        values = hit[1]
+        if key not in values:
+            values[key] = build()
+        return values[key]
 
 
 def cached_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:

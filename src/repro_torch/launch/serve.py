@@ -19,9 +19,19 @@ written every ``--ckpt-every`` generations; on restart the driver replays
 events [0, last_seq] into the graph and resumes the feed from there: the
 same replay-from-stream contract as ``launch/pagerank.py``.
 
-Runs on the CUDA card unless ``--device cpu`` is given.  The reference
-driver's mesh, monitor, trace and metrics-export flags are not ported
-yet.
+``--trace PATH`` writes a Chrome-trace JSON of the run (span tracing and
+per-iteration frontier telemetry; the rows land in
+``PATH.frontier.jsonl``).  ``--metrics-port`` runs a Prometheus scrape
+server, ``--metrics-path`` writes the final exposition text.
+``--monitor`` turns on the correctness monitor (invariant sentinel,
+shadow solve every ``--shadow-every`` batches, flight recorder, SLO
+burn-rate alerts); ``--incident-dir D`` dumps a bundle there on the first
+error-severity incident, which ``python -m repro_torch.launch.replay D/...``
+re-executes bit for bit; ``--inject-fault GEN[:KIND[:VERTEX[:SCALE]]]``
+arms a debug fault (both imply ``--monitor``).
+
+Runs on the CUDA card unless ``--device cpu`` is given.  ``--mesh`` takes
+only ``none``: the multi-device engines are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.api import ENGINES, METHODS
 from repro_torch.data.snap import PAPER_TABLE1, load_temporal
 from repro_torch.device import resolve_device
@@ -74,8 +85,40 @@ def main(argv=None):
                     help="checkpoint every K generations (with --ckpt-dir)")
     ap.add_argument("--min-queries", type=int, default=0,
                     help="exit non-zero unless this many queries were served")
+    ap.add_argument("--mesh", choices=["none", "test", "production"],
+                    default="none",
+                    help="only 'none': the multi-device engines are not "
+                         "ported yet")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome-trace JSON of the serve run here "
+                         "(enables span tracing + per-iteration frontier "
+                         "telemetry; rows land in <PATH>.frontier.jsonl)")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="run a Prometheus scrape server on this port "
+                         "(0 = ephemeral, printed; -1 = off)")
+    ap.add_argument("--metrics-path", default="",
+                    help="write the final Prometheus exposition text here")
+    ap.add_argument("--monitor", action="store_true",
+                    help="enable correctness monitoring: invariant "
+                         "sentinels, sampled shadow verification, flight "
+                         "recorder, SLO burn-rate alerts (DESIGN.md §12)")
+    ap.add_argument("--shadow-every", type=int, default=64,
+                    help="shadow-verify every Kth micro-batch against "
+                         "the f64 reference solve (0 = off)")
+    ap.add_argument("--incident-dir", default="",
+                    help="dump a replayable flight-recorder bundle here "
+                         "on the first error-severity incident "
+                         "(implies --monitor)")
+    ap.add_argument("--inject-fault", default="",
+                    help="DEBUG: corrupt the engine at a generation, as "
+                         "GEN[:KIND[:VERTEX[:SCALE]]] with KIND rank|"
+                         "event (e.g. 5:rank:0:4.0); implies --monitor")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the multi-device engines are not ported "
+            "yet; run with --mesh none")
 
     device = resolve_device(args.device)
     ds = load_temporal(args.dataset)
@@ -115,10 +158,42 @@ def main(argv=None):
     ppr_cfg = (IndexConfig(num_walks=args.ppr_walks, max_len=args.ppr_len,
                            seed=args.seed)
                if args.ppr_walks > 0 else None)
+    monitor = incident_sink = None
+    if args.monitor or args.incident_dir or args.inject_fault:
+        if args.incident_dir and args.trace:
+            incident_sink = obs.JsonlSink(args.trace + ".incidents.jsonl")
+        monitor = obs.CorrectnessMonitor(
+            obs.MonitorConfig(shadow_every=args.shadow_every,
+                              incident_dir=args.incident_dir or None),
+            sink=incident_sink)
+        print(f"correctness monitor on: shadow 1/{args.shadow_every}"
+              + (f" incidents -> {args.incident_dir}"
+                 if args.incident_dir else ""))
     engine = ServeEngine(graph, ingest, store, metrics=metrics,
                          method=args.method, engine=args.engine,
                          static_fallback_frac=args.static_fallback_frac,
-                         ppr_index=ppr_cfg)
+                         ppr_index=ppr_cfg, monitor=monitor)
+    if args.inject_fault:
+        parts = args.inject_fault.split(":")
+        engine.inject_fault(
+            int(parts[0]),
+            kind=parts[1] if len(parts) > 1 else "rank",
+            vertex=int(parts[2]) if len(parts) > 2 else 0,
+            scale=float(parts[3]) if len(parts) > 3 else 2.0)
+        print(f"fault armed: {args.inject_fault}")
+    sink = None
+    if args.trace:
+        obs.start_tracing(args.trace)
+        sink = obs.JsonlSink(args.trace + ".frontier.jsonl")
+        engine.telemetry_sink = sink
+        print(f"tracing to {args.trace} "
+              f"(frontier rows: {args.trace}.frontier.jsonl)")
+    exporter = None
+    if args.metrics_port >= 0 or args.metrics_path:
+        exporter = obs.MetricsExporter(metrics)
+        if args.metrics_port >= 0:
+            port = exporter.serve(port=args.metrics_port)
+            print(f"metrics: http://127.0.0.1:{port}/metrics")
     if restored is not None:
         engine.bootstrap(ranks=restored[0], last_seq=start_event - 1)
     else:
@@ -152,7 +227,20 @@ def main(argv=None):
                   f"{ppr_note}", flush=True)
     engine.drain()
     wall = time.perf_counter() - t0
-    engine.close()
+    engine.close()   # joins the shadow thread, flushes its mailbox
+    if monitor is not None:
+        print("monitor " + json.dumps(monitor.summary()))
+        if incident_sink is not None:
+            incident_sink.close()
+    if args.trace:
+        written = obs.stop_tracing()
+        sink.close()
+        print(f"trace written to {written}")
+    if exporter is not None:
+        if args.metrics_path:
+            exporter.write(args.metrics_path)
+            print(f"metrics written to {args.metrics_path}")
+        exporter.close()
 
     m = metrics.as_dict()
     m["wall_s"] = wall

@@ -37,6 +37,7 @@ from repro_torch.graph.structure import CSRView, EdgeListGraph
 from repro_torch.kernels.walk_repair.threefry import (  # noqa: F401
     walk_uniforms)
 from repro_torch.kernels.walk_repair.walk_repair import resample_rows
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ppr.walks import WalkIndex
 
 # walks whose staleness is decided together (bounds the int32/bool
@@ -99,14 +100,20 @@ def repair_walk_index(index: WalkIndex, graph_new: EdgeListGraph,
     ``touched``: bool[V] from ``touched_vertices_mask`` of the applied
     batch.  Returns (repaired index, number of walks resampled); the count
     is exactly the number of stale walks.  The input index is left intact.
-    Exactly one host read (the stale count).
+    Exactly one host read (the stale count); with the global tracer on,
+    a ``ppr.repair`` span, closed by ``Tracer.sync`` after a resample.
     """
+    tr = obs_trace.get_tracer()
+    s0 = tr.now()
     csr_new = graph_new.to_device_csr()
     stale, t0 = stale_walks(index.steps, touched)
     ids, t0_sel = stale_ids(stale, t0)
     num_stale = int(ids.shape[0])
     if num_stale == 0:
+        tr.record("ppr.repair", s0, tr.now() - s0, stale=0)
         return dataclasses.replace(index, csr=csr_new), 0
     steps = _resample(csr_new, index.key, index.steps, ids, t0_sel,
                       index.alpha)
+    tr.sync(steps)
+    tr.record("ppr.repair", s0, tr.now() - s0, stale=num_stale)
     return dataclasses.replace(index, steps=steps, csr=csr_new), num_stale

@@ -121,6 +121,22 @@ def _build_steps_range(csr: CSRView, key, v_start: int, num_local: int,
     return out.view(num_local, R, L)
 
 
+def _build_steps(csr: CSRView, key, num_vertices: int, num_walks: int,
+                 max_len: int, alpha: float,
+                 chunk_vertices: Optional[int] = None) -> torch.Tensor:
+    """int32[V, R, L]: every vertex's walks under ``key``, one vertex
+    range of ``chunk_vertices`` at a time (default: as many as
+    ``BUILD_CHUNK_WALKS`` walks)."""
+    V, R, L = num_vertices, num_walks, max_len
+    if chunk_vertices is None:
+        chunk_vertices = max(1, BUILD_CHUNK_WALKS // R)
+    steps = torch.empty((V, R, L), dtype=torch.int32, device=csr.deg.device)
+    for v0 in range(0, V, chunk_vertices):
+        n = min(chunk_vertices, V - v0)
+        steps[v0:v0 + n] = _build_steps_range(csr, key, v0, n, R, L, alpha)
+    return steps
+
+
 def build_walk_index(graph: EdgeListGraph,
                      config: IndexConfig = IndexConfig(),
                      chunk_vertices: Optional[int] = None) -> WalkIndex:
@@ -129,13 +145,8 @@ def build_walk_index(graph: EdgeListGraph,
     ``BUILD_CHUNK_WALKS`` walks)."""
     key = threefry.prng_key(config.seed)
     csr = graph.to_device_csr()
-    V, R, L = graph.num_vertices, config.num_walks, config.max_len
-    if chunk_vertices is None:
-        chunk_vertices = max(1, BUILD_CHUNK_WALKS // R)
-    steps = torch.empty((V, R, L), dtype=torch.int32, device=graph.device)
-    for v0 in range(0, V, chunk_vertices):
-        n = min(chunk_vertices, V - v0)
-        steps[v0:v0 + n] = _build_steps_range(csr, key, v0, n, R, L,
-                                              config.alpha)
+    R, L = config.num_walks, config.max_len
+    steps = _build_steps(csr, key, graph.num_vertices, R, L, config.alpha,
+                         chunk_vertices)
     return WalkIndex(steps=steps, csr=csr, key=key, num_walks=R,
                      max_len=L, alpha=config.alpha)

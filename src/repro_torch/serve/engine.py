@@ -34,9 +34,29 @@ re-walked, by the ``walk_repair`` kernel on the card) and published in
 each snapshot, so index-backed ``personalized_top_k`` answers match the
 served graph.  ``metrics.walks_resampled`` counts the re-walked walks.
 
+``monitor=`` (an ``obs.monitor.CorrectnessMonitor``) opts the engine
+into correctness observability: per-batch invariant sentinels, sampled
+shadow verification, flight recording with bit-for-bit replay, and SLO
+burn-rate alerts (DESIGN.md §12).  ``inject_fault`` arms a one-shot
+debug corruption so that pipeline can be exercised end-to-end.
+
+``telemetry=`` records per-iteration frontier rows (``obs.frontier``):
+None follows the global tracer (rows are recorded exactly when a trace
+is being taken), True/False pins it.  The rows of the last batch are
+``last_telemetry``; ``telemetry_sink`` (an ``obs.export.JsonlSink``,
+assignable) receives one record a batch.  With the global tracer on, a
+step records the spans ``serve.step``, ``ingest.coalesce``,
+``route_update``, ``fused_update_loop`` and ``polish.f64`` (or
+``solve``), ``snapshot.publish``, ``monitor.observe`` and
+``ppr.repair``, and the instant ``frontier.telemetry``.
+
+``on_publish`` (assignable attribute, like ``telemetry_sink``) is
+called after every post-batch snapshot publish with ``(snapshot,
+batch)``.  ``close()`` stops the step thread and closes the monitor,
+which joins the shadow-verifier thread.
+
 The reference's geometry tuner, mesh (and with it the sharded walk
-index), correctness monitor, iteration budget and telemetry are not
-ported yet; asking for them raises.
+index) and iteration budget are not ported yet; asking for them raises.
 
 Each batch records its host syncs (``metrics.batch_host_syncs``): every
 call of the step that synchronizes the host with the card, as each call
@@ -49,7 +69,12 @@ check, the fused step's overflow check, one read per solver iteration
 (f32 phase and f64 polish), and one read of the batch's counters, which
 also waits for the device (repair kernels included) so that the latency
 is honest.  A walk index adds one (the stale count); a repack adds its
-reads and uploads.
+reads and uploads.  Telemetry adds none (its rows ride the solver's
+reads).  The monitor adds one (the sentinel's read), one a leaf on a
+batch that takes an anchor, and, with a synchronous shadow, the shadow
+solve's reads on a sampled batch; each is counted in the batch, whose
+count is taken after the monitor.  The global tracer, when on, adds one
+a closed device span (``Tracer.sync``).
 """
 from __future__ import annotations
 
@@ -70,6 +95,8 @@ from repro_torch.graph.dynamic import apply_batch, touched_vertices_mask
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.update import PackedSpillError, \
     apply_batch_packed, pack_graph
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.frontier import FrontierTelemetry
 from repro_torch.ppr import IndexConfig, WalkIndex, build_walk_index, \
     repair_walk_index
 from repro_torch.serve.ingest import IngestQueue
@@ -100,8 +127,8 @@ class ServeEngine:
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; options {ENGINES}")
         unported = [name for name, v in (
-            ("mesh", mesh), ("telemetry", telemetry), ("monitor", monitor),
-            ("iteration_budget", iteration_budget)) if v is not None]
+            ("mesh", mesh), ("iteration_budget", iteration_budget))
+            if v is not None]
         opts = dict(kernel_opts or {})
         if opts.pop("tune", False):
             unported.append("kernel_opts['tune']=True")
@@ -137,6 +164,24 @@ class ServeEngine:
         self._ranks: Optional[torch.Tensor] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        self.mesh = None                  # single device (the recorder asks)
+        # frontier telemetry: None = follow the global tracer, True/False
+        # pins it
+        self.telemetry = telemetry
+        self.last_telemetry: Optional[FrontierTelemetry] = None
+        # optional obs.export.JsonlSink receiving one frontier record per
+        # batch (assigned by the launch driver behind --trace)
+        self.telemetry_sink = None
+        # correctness monitor (obs.monitor.CorrectnessMonitor): hooked
+        # after bootstrap and after every publish; None = zero overhead
+        self.monitor = monitor
+        # post-publish hook (snapshot, batch)
+        self.on_publish = None
+        self._closed = False
+        # one-shot debug fault armed by inject_fault(); applied (and
+        # cleared) by the step that publishes the chosen generation
+        self._fault: Optional[dict] = None
+        self.faults_injected = 0
 
     @property
     def packed(self):
@@ -182,19 +227,66 @@ class ServeEngine:
             self._ppr = build_walk_index(self._graph, self._ppr_cfg)
         self._ranks = ranks
         seq = self.ingest.start_seq - 1 if last_seq is None else last_seq
-        return self.store.publish(self._graph, ranks, seq,
-                                  ppr_index=self._ppr)
+        gen = self.store.publish(self._graph, ranks, seq,
+                                 ppr_index=self._ppr)
+        if self.monitor is not None:
+            # bind the recorder's config + capture the bootstrap anchor
+            self.monitor.on_bootstrap(self)
+        return gen
+
+    # ---- debug fault injection ------------------------------------------
+    def inject_fault(self, generation: int, kind: str = "rank",
+                     vertex: int = 0, scale: float = 2.0) -> None:
+        """DEBUG ONLY: arm a one-shot corruption for ``generation``.
+
+        ``kind="rank"`` multiplies ``ranks[vertex]`` by ``scale`` in a
+        copy of the solve's *output*, after convergence but before
+        publish — the exact shape of the DF blind spot (a vertex no later
+        frontier revisits keeps the corrupt value forever), which is what
+        the mass sentinel and shadow verifier exist to catch.  No tensor
+        of the graph is written in place (its cached order would go
+        stale).  ``kind="event"`` redirects every insertion in that
+        generation's coalesced batch to land on ``vertex`` *before* the
+        update is applied (or recorded), so the served graph silently
+        diverges from the submitted feed.  Used by tests and the smoke's
+        incident-replay phase; never call it in production serving.
+        """
+        if kind not in ("rank", "event"):
+            raise ValueError(f"unknown fault kind {kind!r}")
+        self._fault = dict(generation=int(generation), kind=str(kind),
+                           vertex=int(vertex), scale=float(scale))
 
     # ---- one micro-batch -------------------------------------------------
     def step(self, force: bool = False) -> bool:
         """Apply one coalesced micro-batch if due; True if work was done."""
         if self._ranks is None:
             raise RuntimeError("bootstrap() before step()")
+        tr = obs_trace.get_tracer()
+        s0 = tr.now()
         syncs0 = host_sync_count()
         batch = self.ingest.poll(force=force)
         if batch is None:
             return False
+        # poll may yield nothing, so the span is recorded after the fact
+        # (Chrome-trace nesting is by timestamps, not buffer order)
+        tr.record("ingest.coalesce", s0, tr.now() - s0,
+                  events=batch.num_events, coalesced=batch.num_coalesced)
+        tel = tr.enabled if self.telemetry is None else bool(self.telemetry)
+        fault = None
+        if self._fault is not None \
+                and self.store.generation + 1 == self._fault["generation"]:
+            fault, self._fault = self._fault, None
+            self.faults_injected += 1
+        if fault is not None and fault["kind"] == "event":
+            # corrupt the batch BEFORE it is applied or recorded: the
+            # flight recorder sees (and replays) the corrupted stream,
+            # exactly as a feed bug would present
+            upd = batch.update
+            batch = batch._replace(update=upd._replace(
+                ins_dst=upd.ins_dst.masked_fill(upd.ins_mask,
+                                                fault["vertex"])))
         t0 = self._clock()
+        r0 = tr.now()
         graph_new = apply_batch(self._graph, batch.update)
         method = self.method
         init_state = build_initial_state(self._graph, graph_new,
@@ -218,8 +310,12 @@ class ServeEngine:
                 # spill/overlay exhaustion: repack at the pinned shapes
                 self._packed = self._repack(graph_new)
                 self.metrics.record_packed_rebuild()
+        # edge-list update + packed maintenance (the fused path defers
+        # maintenance into the solve, traced there)
+        tr.record("route_update", r0, tr.now() - r0, fused=fuse)
         if fuse:
             kw = dict(KERNEL_FLAGS[method], **self._kernel_kw, **self.pr_kw)
+            kw.setdefault("telemetry", tel)
             try:
                 self._packed, res = fused_hybrid_pagerank(
                     graph_new, self._packed, batch.update, *init_state, **kw)
@@ -231,8 +327,17 @@ class ServeEngine:
                 self._packed, res = fused_hybrid_pagerank(
                     graph_new, self._packed, batch.update, *init_state, **kw)
         else:
-            res = self._solve(method, graph_new, batch.update, self._ranks,
-                              graph_prev=self._graph, init_state=init_state)
+            with tr.span("solve", method=method, engine=self.engine):
+                res = self._solve(method, graph_new, batch.update,
+                                  self._ranks, graph_prev=self._graph,
+                                  init_state=init_state, telemetry=tel)
+                tr.sync(res.ranks)
+        if fault is not None and fault["kind"] == "rank":
+            # a copy of the solved ranks: no tensor is written in place
+            ranks = res.ranks.clone()
+            v = fault["vertex"]
+            ranks[v:v + 1].mul_(fault["scale"])
+            res = res._replace(ranks=ranks)
         resampled = 0
         if self._ppr is not None:
             # the touched signal that seeds the DF frontier also marks the
@@ -246,21 +351,53 @@ class ServeEngine:
         affected, edges, verts = torch.stack([
             res.affected_ever.sum(dtype=torch.int64), res.edges_processed,
             res.vertices_processed]).tolist()
-        syncs = host_sync_count() - syncs0
         latency = self._clock() - t0
         self._graph, self._ranks = graph_new, res.ranks
-        self.store.publish(graph_new, res.ranks, batch.last_seq,
-                           ppr_index=self._ppr)
+        with tr.span("snapshot.publish"):
+            self.store.publish(graph_new, res.ranks, batch.last_seq,
+                               ppr_index=self._ppr)
+        if self.on_publish is not None:
+            self.on_publish(self.store.snapshot(), batch)
+        self._observe_batch(tr, batch, res, tel)
+        if self.monitor is not None:
+            m0 = tr.now()
+            self.monitor.on_batch(
+                engine=self, batch=batch, graph=graph_new, result=res,
+                method=method, fallback=fallback, latency_s=latency,
+                affected=affected, fault=fault)
+            tr.record("monitor.observe", m0, tr.now() - m0)
+            if self.faults_injected:
+                self.metrics.set_gauge("faults_injected",
+                                       float(self.faults_injected))
+        # taken after the monitor, whose reads are part of the batch
+        syncs = host_sync_count() - syncs0
         self.metrics.record_batch(
             latency, batch.num_events, batch.num_coalesced,
             affected=affected, iterations=res.iterations, fallback=fallback,
             walks_resampled=resampled,
             edges_processed=edges, vertices_processed=verts,
             host_syncs=syncs)
+        tr.record("serve.step", s0, tr.now() - s0, method=method,
+                  events=batch.num_events, fallback=fallback,
+                  host_syncs=syncs)
+        return True
+
+    def _observe_batch(self, tr, batch, res, tel: bool):
+        """Per-batch telemetry capture + engine-attribute gauges."""
+        self.last_telemetry = None
+        if tel and res.telemetry is not None:
+            ft = FrontierTelemetry(res.telemetry)
+            self.last_telemetry = ft
+            summary = ft.summary()
+            self.metrics.record_frontier(summary)
+            tr.instant("frontier.telemetry", **summary)
+            if self.telemetry_sink is not None:
+                self.telemetry_sink.write(
+                    dict(seq=int(batch.last_seq), summary=summary,
+                         rows=ft.rows()), kind="frontier")
         self.metrics.set_gauge(
             "staleness_in_events",
             max(0, self.ingest.latest_seq - int(batch.last_seq)))
-        return True
 
     def _repack(self, graph: EdgeListGraph):
         """Repack at the pinned shapes, degrading the spill guarantee if
@@ -274,16 +411,18 @@ class ServeEngine:
 
     def _solve(self, method: Method, graph_new: EdgeListGraph, update,
                prev_ranks, graph_prev: Optional[EdgeListGraph] = None,
-               init_state: Optional[tuple] = None):
+               init_state: Optional[tuple] = None, telemetry: bool = False):
         graph_prev = graph_prev if graph_prev is not None else graph_new
         init_ranks, init_affected = (
             init_state if init_state is not None else build_initial_state(
                 graph_prev, graph_new, update, prev_ranks, method))
         if self.engine == "kernel" and method in DYNAMIC_METHODS:
             kw = dict(KERNEL_FLAGS[method], **self._kernel_kw, **self.pr_kw)
+            kw.setdefault("telemetry", telemetry)
             return hybrid_pagerank(graph_new, self._packed, init_ranks,
                                    init_affected, **kw)
         kw = dict(LOOP_FLAGS[method], **self.pr_kw)
+        kw.setdefault("telemetry", telemetry)
         return pr._pagerank_loop(graph_new, init_ranks, init_affected, **kw)
 
     def drain(self, force: bool = True) -> int:
@@ -319,5 +458,13 @@ class ServeEngine:
             self.drain(force=True)
 
     def close(self):
-        """Stop the step thread without draining.  Idempotent."""
+        """Full shutdown: stop the step thread (without draining) and close
+        the correctness monitor, which joins the shadow-verifier thread
+        and flushes its latest-wins mailbox so a pending divergence is
+        reported, never dropped.  Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
         self.stop(drain=False)
+        if self.monitor is not None:
+            self.monitor.close()

@@ -1314,3 +1314,120 @@ def test_served_kernel_batch_builds_one_order(cuda):
         assert ran["slot_count"] == 1 and ran["segment_bounds"] == 1, ran
         assert ran["segment_or"] >= 2, ran     # initial_affected's two
     assert eng.metrics.static_fallbacks == 0
+
+
+# ---------------------------------------------------------------------------
+# observability: the digest, the monitor's syncs, the shadow's stream
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["ranks", "negzero_nan_subnormal", "wrap"])
+def test_rank_digest_on_card_equals_cpu(cuda, case):
+    """torch's int64 multiply and sum wrap the same way on the card as on
+    the CPU (where the digest is held to the reference's)."""
+    from repro_torch.obs import rank_digest
+    rng = np.random.default_rng(3)
+    r = rng.random(1 << 20)
+    if case == "negzero_nan_subnormal":
+        bits = r.view(np.int64)
+        r[5] = -0.0
+        r[6] = np.nextafter(0.0, 1.0)
+        bits[7] = np.int64(0x7FF8000000000001)
+    elif case == "wrap":
+        r[:] = 1e308
+    cpu = torch.from_numpy(r.copy())
+    assert rank_digest(cpu.to(cuda)) == rank_digest(cpu)
+
+
+def _monitored(cuda, edges, n, **kw):
+    from repro_torch.obs import CorrectnessMonitor, MonitorConfig
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda)
+    mon = CorrectnessMonitor(MonitorConfig(**kw)) if kw else None
+    eng = ServeEngine(graph, ingest, RankStore(), engine="kernel",
+                      telemetry=bool(kw), monitor=mon)
+    eng.bootstrap()
+    return eng, ingest
+
+
+def test_monitored_step_host_syncs_match_sync_debug_mode(cuda):
+    """With the monitor (shadow synchronous, an anchor every 2 batches)
+    and telemetry on, ``batch_host_syncs`` still equals the debug mode's
+    count; the snapshots equal the unmonitored run's bit for bit."""
+    import warnings
+    from repro_torch.obs import rank_digest
+    edges, n = rmat_edges(16, 8, seed=5)
+    digests = {}
+    for monitored in (False, True):
+        kw = dict(shadow_every=2, anchor_every=2,
+                  shadow_background=False) if monitored else {}
+        eng, ingest = _monitored(cuda, edges, n, **kw)
+        out = []
+        for b in range(4):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    assert _serve_feed(eng, ingest, edges, n, b)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [w for w in caught if "called a synchronizing CUDA "
+                     "operation" in str(w.message)]
+            assert eng.metrics.batch_host_syncs[-1] == len(syncs), \
+                _sync_sites(syncs)
+            out.append(rank_digest(eng.store.snapshot().ranks))
+        digests[monitored] = out
+        if monitored:
+            assert eng.monitor.incidents == []
+            assert eng.monitor.shadow.samples == 2
+            assert eng.last_telemetry.iterations == \
+                eng.metrics.batch_iterations[-1]
+        eng.close()
+    assert digests[True] == digests[False]
+
+
+def test_background_shadow_on_its_own_stream_keeps_snapshots(cuda):
+    """A shadow solve on its own stream, every batch, leaves the hot
+    path's snapshots bitwise those of an unmonitored run, and its reports
+    within the reference's budgets."""
+    from repro_torch.obs import rank_digest
+    edges, n = rmat_edges(16, 8, seed=5)
+    digests = {}
+    for monitored in (False, True):
+        kw = dict(shadow_every=1) if monitored else {}
+        eng, ingest = _monitored(cuda, edges, n, **kw)
+        digests[monitored] = []
+        for b in range(4):
+            assert _serve_feed(eng, ingest, edges, n, b)
+            digests[monitored].append(
+                rank_digest(eng.store.snapshot().ranks))
+        eng.close()
+        if monitored:
+            sv = eng.monitor.shadow
+            assert sv._stream is not None
+            assert sv.samples >= 1 and sv.samples + sv.skipped == 4
+            assert all(r.l1 <= 1e-4 and r.linf <= 1e-5 for r in sv.reports)
+            assert eng.monitor.incidents == []
+    assert digests[True] == digests[False]
+
+
+def test_monitored_bundle_replays_bitwise_on_card(cuda, tmp_path):
+    from repro_torch.obs import CorrectnessMonitor, MonitorConfig, replay
+    edges, n = rmat_edges(14, 8, seed=5)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda)
+    mon = CorrectnessMonitor(MonitorConfig(
+        shadow_every=0, anchor_every=2, incident_dir=str(tmp_path)))
+    eng = ServeEngine(graph, ingest, RankStore(), engine="kernel",
+                      monitor=mon)
+    eng.bootstrap()
+    top = int(torch.argmax(eng.store.snapshot().ranks))
+    eng.inject_fault(2, kind="rank", vertex=top, scale=1e4)
+    for b in range(4):
+        assert _serve_feed(eng, ingest, edges, n, b)
+    eng.close()
+    errors = [i for i in mon.incidents if i.severity == "error"]
+    assert errors and errors[0].kind == "rank_mass"
+    assert errors[0].generation == 2
+    report = replay(mon.last_bundle, device=cuda)
+    assert report.ok, report.describe()
