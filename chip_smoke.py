@@ -6,13 +6,15 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py [--batches 5] [--out FILE] [--profile]
     python3 chip_smoke.py --spmv-kernels-only [--out FILE]
     python3 chip_smoke.py --gnn-kernels-only [--out FILE]
+    python3 chip_smoke.py --replicas-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
 frontier_spmv and phase 3b's pull_contrib, slot_count, segment_bounds
 and segment_or kernel cases;
 the third only the set-up and phase 6's kernel cases: pull_rows's on the
-set-up graph, gated_spmm's on the first batch's packed graph.  Neither
-prints a summary: they are the quick loops for work on one kernel.
+set-up graph, gated_spmm's on the first batch's packed graph; the fourth
+only the set-up and phase 9.  None prints a summary: they are the quick
+loops for work on one kernel or phase.
 
 It exits non-zero on the first failed check; no failure is passed over.
 
@@ -171,10 +173,39 @@ It exits non-zero on the first failed check; no failure is passed over.
              the xla engine, replayed in-process bit for bit; and the
              card's ``rank_digest`` of phase 4's final ranks equal to the
              CPU's.
-9. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
-             launches on its path, max error and times; then, last,
-             ``{"ok": true, "device": {...}}``.  Each phase prints its
-             peak of allocated device memory.
+9. Replicas — (a) ``ChaosHarness(engine="kernel")`` at full width (the
+             set-up's R-MAT draw): a writer and 2 read replicas over a
+             lossy transport (2 % drops, duplicates, reorders), 8,192
+             events in 1024-event batches, a heartbeat every 256, an
+             anchor every 2 generations, and the schedule
+             ``partition:r1@1024+1024;kill:r0@3072+1024;kill_writer@5120``.
+             Checks: writer-to-replica L∞ exactly 0.0 at every parity
+             check, one failover (epoch 1), a resync, drops, every
+             writer batch's ``batch_host_syncs`` equal to the debug
+             mode's count, the rank kernels launched.  Prints the rank
+             delta a publish, the writer hook's ms beside the step's
+             wall, anchor bytes and ms, replica apply, resync and
+             failover ms.  (c) Phase 4's graph and feed on the kernel
+             engine with ``iteration_budget=2``, then the cap lifted
+             until the carried frontier drains: the cap holds (f32 phase
+             and polish each), a carry-over, syncs reported = measured on
+             every batch, L1 vs a static f64 solve <= 1e-4.  (b) A
+             PPR writer (phase 5's index) and a replica that bootstraps
+             cold from the anchor; deltas through a lossy transport; a
+             partition past a one-entry log forces an anchor resync that
+             heals by repair, not by a rebuild; walk steps bitwise equal
+             after the bootstrap, the heal and at the end; walk_repair
+             launched.  Prints the heal's ms beside the cold build's.
+             (d) Block-Gauss-Seidel on (c)'s bootstrap pack (BE 512, VB
+             256): at tol 1e-7 no more sweeps than Jacobi iterations
+             and bitwise run to run; at tol 1e-8 the same and L1 vs a
+             static f64 solve <= 1e-4 (PERF.md §6, PR 23: at tol 1e-7
+             the stopping rule alone leaves ~1e-4).  Prints sweeps, ms a
+             sweep and both L1s.
+10. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+             launches on its paths (phase 9's added), max error and
+             times; then, last, ``{"ok": true, "device": {...}}``.  Each
+             phase prints its peak of allocated device memory.
 
 frontier_spmv sums in a fixed order (bitwise equal run to run), but not
 the plain version's: rtol 1e-4 / atol 1e-6 on f32 sums.  walk_repair has
@@ -2583,6 +2614,448 @@ def obs_checks(args, torch, dev, edges, n, graph, serve):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: replicas, the iteration budget, block-Gauss-Seidel
+# ---------------------------------------------------------------------------
+
+# (a) the chaos run: the feed, the faults and the schedule (PERF.md §4)
+CHAOS_EVENTS, CHAOS_HB, CHAOS_ANCHOR, CHAOS_SLO = 8192, 256, 2, 2048
+CHAOS_P = 0.02
+CHAOS_SCHEDULE = "partition:r1@1024+1024;kill:r0@3072+1024;kill_writer@5120"
+# (c) the iteration budget's cap, and the batches that drain it uncapped
+BUDGET_CAP, BUDGET_DRAIN = 2, 3
+# (d) block-Gauss-Seidel: the reference test's tolerance, and the one at
+# which its L1 gate is held (PERF.md §6, PR 23: at 2**21 the stopping
+# rule at 1e-7 leaves an L1 of ~1e-4, for Jacobi ~2.5e-4)
+GS_TOL, GS_TOL_L1 = 1e-7, 1e-8
+
+
+def median_max(xs) -> str:
+    import numpy as np
+    if not len(xs):
+        return "none"
+    return f"median {float(np.median(xs)):.2f} max {float(np.max(xs)):.2f}"
+
+
+def path_counters():
+    """Every kernel launch counter of the rank and PPR paths."""
+    from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
+        LAUNCH_COUNTS as SPMV
+    from repro_torch.kernels.pull_contrib.pull_contrib import \
+        LAUNCH_COUNTS as PULL
+    from repro_torch.kernels.slot_count.slot_count import \
+        LAUNCH_COUNTS as COUNT
+    from repro_torch.kernels.walk_repair.walk_repair import \
+        LAUNCH_COUNTS as WALK
+    return (SPMV, PULL, COUNT, WALK)
+
+
+def read_counters(counters) -> dict:
+    out = {}
+    for c in counters:
+        out.update(c)
+    return {k: out.get(k, 0) for k in (
+        "frontier_spmv", "pull_contrib", "slot_count", "segment_bounds",
+        "segment_or", "walk_repair")}
+
+
+@contextlib.contextmanager
+def counted_steps(torch, rows):
+    """Every ``ServeEngine.step`` inside the block runs under the sync
+    debug mode; each served batch appends (reported, measured, sites,
+    the step's host wall ms: it ends in a read that waits for the card,
+    then publishes and runs the ``on_publish`` hook).  A harness engine's
+    own latency is on its logical clock."""
+    from repro_torch.serve.engine import ServeEngine
+    real = ServeEngine.step
+
+    def step(self, force=False):
+        t0 = time.perf_counter()
+        with recording_syncs(torch) as syncs:
+            did = real(self, force)
+        if did:
+            rows.append((self.metrics.batch_host_syncs[-1], len(syncs),
+                         sync_sites(syncs),
+                         (time.perf_counter() - t0) * 1e3))
+        return did
+    ServeEngine.step = step
+    try:
+        yield rows
+    finally:
+        ServeEngine.step = real
+
+
+@contextlib.contextmanager
+def timed_calls(torch, targets):
+    """Host seconds spent in each of ``targets`` ((owner, attribute)
+    pairs, each call ended by a device sync) while the block runs:
+    yields {attribute: [seconds, ...]}."""
+    spent = {name: [] for _, name in targets}
+    real = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+    for owner, name, fn in real:
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in real:
+            setattr(owner, name, fn)
+
+
+def check_syncs(rows, what: str) -> None:
+    bad = [(i, r, m, s) for i, (r, m, s, _) in enumerate(rows) if r != m]
+    for i, r, m, s in bad:
+        print(f"  {what} batch {i}: reported {r}, measured {m}: {s}")
+    check(not bad and len(rows) > 0,
+          f"{what}: batch_host_syncs == the debug mode's count on all "
+          f"{len(rows)} writer batches")
+
+
+def chaos_case(torch, dev, edges, n):
+    """(a) The chaos harness at full width on the kernel engine."""
+    from repro_torch.serve import ChaosHarness
+    from repro_torch.serve import ReadReplica, ServeEngine, chaos
+    from repro_torch.serve import engine as serve_engine
+    counters = path_counters()
+    where = [(chaos, "from_coo"), (ServeEngine, "_solve"),
+             (serve_engine, "pack_graph"), (ReadReplica, "bootstrap")]
+    t0 = time.perf_counter()
+    with timed_calls(torch, where) as spent:
+        h = ChaosHarness(
+            num_replicas=2, events=CHAOS_EVENTS, schedule=CHAOS_SCHEDULE,
+            seed=SEED, scale=SCALE, edge_factor=EDGE_FACTOR,
+            flush_size=FLUSH, step_every=FLUSH, hb_every=CHAOS_HB,
+            anchor_every=CHAOS_ANCHOR, staleness_slo_events=CHAOS_SLO,
+            drop_p=CHAOS_P, dup_p=CHAOS_P, reorder_p=CHAOS_P, device=dev,
+            engine="kernel", edges=edges)
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"  harness set-up {setup_s:.2f} s: graph build "
+          f"{sum(spent['from_coo']):.2f} s, static f64 solve "
+          f"{sum(spent['_solve']):.2f} s, host pack "
+          f"{sum(spent['pack_graph']):.2f} s, 2 replica bootstraps "
+          f"{sum(spent['bootstrap']):.2f} s")
+    for c in counters:
+        c.clear()                             # counts of the run only
+    t0 = time.perf_counter()
+    with counted_steps(torch, []) as rows, \
+            timed_calls(torch, [(serve_engine, "pack_graph")]) as packs:
+        rep = h.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counters(counters)
+    for line in rep.lines():
+        print(f"  {line}")
+    check_syncs(rows, "[chaos]")
+    check(rep.parity_max_linf == 0.0 and rep.parity_checks >= 3,
+          f"[chaos] writer-to-replica L_inf {rep.parity_max_linf!r} == 0.0 "
+          f"at all {rep.parity_checks} parity checks")
+    check(rep.failovers == 1 and h.writer.epoch == 1,
+          f"[chaos] one failover, the writer at epoch {h.writer.epoch}")
+    check(rep.resyncs >= 1 and rep.transport["dropped"] > 0
+          and rep.events_fed == CHAOS_EVENTS,
+          f"[chaos] resyncs {rep.resyncs} >= 1, dropped "
+          f"{rep.transport['dropped']} > 0, events {rep.events_fed}")
+    kernels = ("frontier_spmv", "pull_contrib", "slot_count",
+               "segment_bounds", "segment_or")
+    check(all(launches[k] > 0 for k in kernels),
+          f"[chaos] the writer's steps launched "
+          + ", ".join(f"{k} {launches[k]}" for k in kernels))
+    hook = [x for w in h.writers for x in w.hook_ms]
+    sizes = [x for w in h.writers for x in w.delta_sizes]
+    step_ms = [r[3] for r in rows]
+    anchor_ms = [x for w in h.writers for x in w.anchor_ms]
+    anchor_b = [x for w in h.writers for x in w.anchor_bytes]
+    apply_ms = [x for r in h.all_replicas for x in r.apply_ms]
+    resync_ms = [x for r in h.all_replicas for x in r.resync_ms]
+    fail_ms = h.controller.failover_ms
+    card = device_smi()
+    print(f"  card: {card}; the run {run_s:.1f} s, {len(step_ms)} writer "
+          f"batches")
+    print(f"  rank delta a publish: {median_max(sizes)} vertices "
+          f"(of {n:,})")
+    print(f"  writer hook ms a publish (diff + copies, anchors included): "
+          f"{median_max(hook)}; the batch's step wall ms (update, "
+          f"publish, hook): {median_max(step_ms)}")
+    gb = median_max([b / 1e9 for b in anchor_b])
+    print(f"  anchors: {len(anchor_b)}, {gb} GB, ms {median_max(anchor_ms)}")
+    print(f"  replica apply ms a delta: {median_max(apply_ms)} "
+          f"({len(apply_ms)} applies)")
+    print(f"  resync ms: {median_max(resync_ms)} ({len(resync_ms)}); "
+          f"failover ms: {median_max(fail_ms)} ({len(fail_ms)}), of which "
+          f"the new writer's host pack "
+          f"{sum(packs['pack_graph']) * 1e3:.2f} ms")
+    out = dict(report=dict(lines=rep.lines(),
+                           parity_max_linf=rep.parity_max_linf,
+                           failovers=rep.failovers, resyncs=rep.resyncs,
+                           transport=rep.transport),
+               setup_s=setup_s, setup_split={k: sum(v) for k, v in
+                                              spent.items()},
+               failover_pack_s=sum(packs["pack_graph"]),
+               run_s=run_s, launches=launches,
+               syncs=[r[:2] for r in rows], delta_sizes=sizes,
+               hook_ms=hook, step_ms=step_ms, anchor_ms=anchor_ms,
+               anchor_bytes=anchor_b, apply_ms=apply_ms,
+               resync_ms=resync_ms, failover_ms=list(fail_ms))
+    del h
+    return out
+
+
+def budget_case(args, torch, dev, edges, n, graph):
+    """(c) Phase 4's graph and feed with ``iteration_budget=2``, then the
+    cap lifted until the carried frontier drains; returns the bootstrap
+    pack for (b) and (d)."""
+    from repro_torch.core.pagerank import MAX_ITER, static_pagerank
+    from repro_torch.ft.straggler import IterationBudget
+    from repro_torch.graph.generators import random_batch_update
+    from repro_torch.serve import IngestQueue, RankStore, ServeEngine, \
+        ServeMetrics
+    budget = IterationBudget(BUDGET_CAP)
+    ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9, device=dev)
+    metrics = ServeMetrics()
+    # as the reference's budget test: no static fallback, so the carried
+    # frontier seeds dynamic solves (at 2**21 a carried batch's seeds
+    # cover ~half the graph, past the default 0.25)
+    eng = ServeEngine(graph, ingest, RankStore(), metrics=metrics,
+                      method="frontier_prune", engine="kernel",
+                      iteration_budget=budget, static_fallback_frac=2.0)
+    t0 = time.perf_counter()
+    eng.bootstrap()
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    pack = (eng.packed, dict(eng._pack_kw))
+    feed = make_feed(args, edges, n)
+    for k in range(BUDGET_DRAIN):
+        dele, ins = random_batch_update(edges, n, FLUSH,
+                                        seed=SEED + 100 + k)
+        feed.append([("delete", int(u), int(v)) for u, v in dele]
+                    + [("insert", int(u), int(v)) for u, v in ins])
+    rows = []
+    capped = args.batches
+    with counted_steps(torch, []) as syncs:
+        for b, events in enumerate(feed):
+            if b == capped:
+                budget.max_iter = MAX_ITER        # lift the cap
+            if b >= capped and budget.carried_frontier is None:
+                break
+            for kind, u, v in events:
+                ingest.submit(kind, u, v)
+            carried = budget.carried_frontier is not None
+            fallbacks = metrics.static_fallbacks
+            check(eng.step(force=True), f"[budget] batch {b} served")
+            rows.append(dict(
+                batch=b, cap=budget.max_iter,
+                fallback=metrics.static_fallbacks > fallbacks,
+                iterations=metrics.batch_iterations[-1],
+                latency_ms=metrics.update_latency_s[-1] * 1e3,
+                seeded_with_carry=carried,
+                carries=budget.carried_frontier is not None,
+                host_syncs=syncs[-1][0], measured_syncs=syncs[-1][1]))
+            r = rows[-1]
+            print(f"  [budget] batch {b}: cap {r['cap']} iterations "
+                  f"{r['iterations']} (f32 + polish) latency_ms "
+                  f"{r['latency_ms']:.2f} static fallback {r['fallback']} "
+                  f"carried-in {carried} carries-out {r['carries']} "
+                  f"host_syncs {r['host_syncs']} (measured "
+                  f"{r['measured_syncs']})", flush=True)
+    check_syncs(syncs, "[budget]")
+    # the cap binds dynamic solves only (a static fallback runs uncapped)
+    capped_rows = [r for r in rows
+                   if r["cap"] == BUDGET_CAP and not r["fallback"]]
+    check(len(capped_rows) == capped
+          and all(r["iterations"] <= 2 * BUDGET_CAP for r in capped_rows),
+          f"[budget] the cap held: each capped dynamic batch <= "
+          f"{BUDGET_CAP} f32 + {BUDGET_CAP} polish iterations "
+          f"({[r['iterations'] for r in capped_rows]})")
+    check(metrics.budget_carryover >= 1 and budget.carried_frontier is None,
+          f"[budget] budget_carryover {metrics.budget_carryover} >= 1, and "
+          f"the uncapped batches drained the carried frontier")
+    snap = eng.store.snapshot()
+    static = static_pagerank(snap.graph)
+    l1 = float((snap.ranks - static.ranks).abs().sum())
+    check(l1 <= 1e-4, f"[budget] after the drain, L1 vs a static f64 solve "
+          f"{l1:.3e} <= 1e-4")
+    eng.close()
+    return dict(boot_s=boot_s, rows=rows, l1=l1,
+                carryover=metrics.budget_carryover), pack
+
+
+def ppr_replica_case(args, torch, dev, edges, n, graph, pack):
+    """(b) A PPR writer and one replica bootstrapping cold from the
+    anchor; deltas through a lossy transport; a gap past the log heals by
+    repair (``_edge_diff_touched``), not by a rebuild."""
+    from repro_torch.ft.elastic import ReplicaRoster
+    from repro_torch.ppr import IndexConfig
+    from repro_torch.serve import FaultyTransport, IngestQueue, \
+        LogicalClock, RankStore, ReadReplica, ReplicationWriter, \
+        ServeEngine
+    cfg = IndexConfig(num_walks=PPR_WALKS, max_len=PPR_LEN, seed=SEED)
+    counters = path_counters()
+    clock = LogicalClock()
+    transport = FaultyTransport(seed=SEED + 1, drop_p=0.3)
+    roster = ReplicaRoster(heartbeat_timeout=1e9)
+    ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9, device=dev,
+                         clock=clock)
+    eng = ServeEngine(graph, ingest, RankStore(), method="frontier_prune",
+                      engine="kernel", ppr_index=cfg, clock=clock)
+    eng._packed, eng._pack_kw = pack[0], dict(pack[1])
+    t0 = time.perf_counter()
+    eng.bootstrap()
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    w = ReplicationWriter(eng, transport, anchor_every=1, log_capacity=1,
+                          clock=clock)
+    w.attach()
+    transport.set_writer(w)
+    r = ReadReplica("r0", transport, n, roster=roster, ppr_cfg=cfg,
+                    clock=clock, device=dev, max_retries=2,
+                    backoff_base=0.01)
+    for c in counters:
+        c.clear()                             # counts of the stream only
+    check(r.bootstrap() and r.index_builds == 1,
+          "[ppr] the replica bootstrapped cold from the anchor (one build)")
+    cold_ms = r.resync_ms[-1]
+
+    def settle():
+        for _ in range(40):
+            clock.advance(0.1)
+            w.heartbeat(roster)
+            r.pump()
+
+    def same(what):
+        ws = eng.store.snapshot()
+        check(r.generation == ws.generation
+              and torch.equal(r.ppr.steps, ws.ppr_index.steps)
+              and torch.equal(r.ranks, ws.ranks),
+              f"[ppr] {what}: the replica's walk steps and ranks equal the "
+              f"writer's bit for bit at generation {ws.generation}")
+
+    same("after the cold bootstrap")
+    feed = make_feed(args, edges, n)[:4]
+    for b, events in enumerate(feed):
+        if b == 1:
+            transport.partition("r0")         # two deltas past the log
+        for kind, u, v in events:
+            ingest.submit(kind, u, v)
+        check(eng.step(force=True), f"[ppr] batch {b} served")
+        clock.advance(0.1)
+        w.heartbeat(roster)
+        r.pump()
+        if b == 2:
+            transport.heal("r0")
+            resyncs, heals = r.resyncs, r.heals_by_repair
+            settle()
+            check(r.resyncs == resyncs + 1
+                  and r.heals_by_repair == heals + 1
+                  and r.index_builds == 1,
+                  f"[ppr] the gap past the log resynced from the anchor "
+                  f"and healed by repair, no rebuild (resyncs "
+                  f"{r.resyncs}, heals {r.heals_by_repair}, builds "
+                  f"{r.index_builds})")
+            heal_ms = r.resync_ms[-1]
+            same("after the heal")
+    settle()
+    same("at the end")
+    launches = read_counters(counters)
+    check(launches["walk_repair"] > 0,
+          f"[ppr] walk_repair launched {launches['walk_repair']} times "
+          f"(writer repairs, replica repairs and the heal)")
+    print(f"  [ppr] card: {device_smi()}; writer bootstrap (static solve + "
+          f"index build) {boot_s:.2f} s; the replica's cold bootstrap "
+          f"(anchor + build) {cold_ms:.1f} ms, the heal (anchor + diff + "
+          f"repair) {heal_ms:.1f} ms; applies {median_max(r.apply_ms)} ms; "
+          f"dropped {transport.dropped}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    out = dict(boot_s=boot_s, cold_ms=cold_ms, heal_ms=heal_ms,
+               apply_ms=list(r.apply_ms), launches=launches,
+               dropped=transport.dropped,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    eng.close()
+    del eng, w, r
+    return out
+
+
+def gs_case(torch, dev, graph, pack):
+    """(d) Block-Gauss-Seidel on phase 4's graph at the serving pack
+    (BE 512, VB 256), against the Jacobi f32 loop and a static f64 solve."""
+    from repro_torch.core.gauss_seidel import gauss_seidel_pagerank
+    from repro_torch.core.kernel_engine import kernel_pagerank_loop
+    from repro_torch.core.pagerank import static_pagerank
+    packed = pack[0]
+    check(packed.be == 512 and packed.vb == 256,
+          f"[gs] the pack is BE {packed.be}, VB {packed.vb}")
+    n = graph.num_vertices
+    static = static_pagerank(graph).ranks
+    init = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {}
+    for tol in (GS_TOL, GS_TOL_L1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs = gauss_seidel_pagerank(graph, packed, init, tol=tol)
+        torch.cuda.synchronize()
+        gs_s = time.perf_counter() - t0
+        jac = kernel_pagerank_loop(graph, packed, init, ones, tol=tol,
+                                   closed_form=True, expand=False)
+        l1 = float((gs.ranks.double() - static).abs().sum())
+        l1_jac = float((jac.ranks.double() - static).abs().sum())
+        row = dict(tol=tol, sweeps=gs.sweeps, ms_a_sweep=gs_s * 1e3
+                   / gs.sweeps, jacobi_iterations=jac.iterations,
+                   l1=l1, l1_jacobi=l1_jac, delta=float(gs.delta))
+        print(f"  [gs] tol {tol:g}: {gs.sweeps} sweeps, "
+              f"{row['ms_a_sweep']:.1f} ms a sweep; Jacobi "
+              f"{jac.iterations} iterations; L1 vs static f64 {l1:.3e} "
+              f"(Jacobi {l1_jac:.3e})", flush=True)
+        check(gs.sweeps <= jac.iterations,
+              f"[gs] tol {tol:g}: sweeps {gs.sweeps} <= Jacobi iterations "
+              f"{jac.iterations}")
+        if tol == GS_TOL:
+            again = gauss_seidel_pagerank(graph, packed, init, tol=tol)
+            check(again.sweeps == gs.sweeps
+                  and torch.equal(again.ranks, gs.ranks)
+                  and torch.equal(again.delta, gs.delta),
+                  f"[gs] tol {tol:g}: two runs bitwise equal")
+        else:
+            check(l1 <= 1e-4, f"[gs] tol {tol:g}: L1 vs a static f64 solve "
+                  f"{l1:.3e} <= 1e-4")
+        out[f"{tol:g}"] = row
+    print(f"  [gs] card: {device_smi()}")
+    return out
+
+
+def replica_checks(args, torch, dev, edges, n, graph):
+    phase("9. replicas (chaos, PPR replication, iteration budget, "
+          "Gauss-Seidel)")
+    t_phase = time.perf_counter()
+    out = dict(chaos=chaos_case(torch, dev, edges, n))
+    print(f"  (a) chaos {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["budget"], pack = budget_case(args, torch, dev, edges, n, graph)
+    print(f"  (c) budget {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out["ppr"] = ppr_replica_case(args, torch, dev, edges, n, graph, pack)
+    torch.cuda.empty_cache()
+    print(f"  (b) ppr {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out["gs"] = gs_case(torch, dev, graph, pack)
+    print(f"  (d) gs {time.perf_counter() - t:.1f} s", flush=True)
+    out["launches"] = {k: out["chaos"]["launches"][k]
+                       + out["ppr"]["launches"][k]
+                       for k in out["chaos"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def device_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2620,6 +3093,10 @@ def main(argv=None) -> int:
                     help="run only the set-up and phase 6's pull_rows and "
                          "gated_spmm kernel cases; prints their JSON last "
                          "and no summary")
+    ap.add_argument("--replicas-only", action="store_true",
+                    help="run only the set-up and phase 9 (replicas, the "
+                         "iteration budget, Gauss-Seidel); prints its "
+                         "launches last and no summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
                     help="run only the set-up, phase 3's frontier_spmv and "
                          "phase 3b's pull_contrib and edge-slot count "
@@ -2653,6 +3130,14 @@ def main(argv=None) -> int:
         print(json.dumps({"gnn_cases": only["cases"],
                           "row_cases": only["row_sum"]["cases"]}))
         return 0
+    if args.replicas_only:
+        only = replica_checks(args, torch, dev, edges, n, graph)
+        peak_memory(torch, "9")
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             replicas=only))
+        print(json.dumps({"replica_launches": only["launches"]}))
+        return 0
     cases, max_err, spmv_kernel = kernel_checks(torch, dev, graph)
     peak_memory(torch, "3")
     contrib = contrib_checks(torch, dev, graph)
@@ -2682,15 +3167,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     observ = obs_checks(args, torch, dev, edges, n, graph, serve)
     peak_memory(torch, "8")
+    torch.cuda.empty_cache()
+    replicas = replica_checks(args, torch, dev, edges, n, graph)
+    peak_memory(torch, "9")
+    extra = replicas["launches"]           # phase 9's launches
 
-    phase("9. summary")
+    phase("10. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
         name="frontier_spmv", route="cuda",
         source="src/repro_torch/kernels/pagerank_spmv/csrc/frontier_spmv.cu",
         replaces="src/repro/kernels/pagerank_spmv/pagerank_spmv.py:239",
-        launches=serve["kernel"]["launches"].get("frontier_spmv", 0),
+        launches=serve["kernel"]["launches"].get("frontier_spmv", 0)
+        + extra["frontier_spmv"],
         max_abs_err=max_err, ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
         bound_by=main_case["bound_by"],
@@ -2698,7 +3188,7 @@ def main(argv=None) -> int:
         name="walk_repair", route="cuda",
         source="src/repro_torch/kernels/walk_repair/csrc/walk_repair.cu",
         replaces="src/repro/kernels/walk_repair/walk_repair.py:72",
-        launches=ppr["launches"]["walk_repair"],
+        launches=ppr["launches"]["walk_repair"] + extra["walk_repair"],
         max_abs_err=ppr["kernel"]["max_abs_err"], ms=ppr["kernel"]["ms"],
         plain_ms=ppr["kernel"]["plain_ms"],
         bound_ms=ppr["kernel"]["bound_ms"],
@@ -2718,7 +3208,8 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/pull_contrib/csrc/pull_contrib.cu",
         replaces="none: the port's own kernel, the fixed-order f64 pull "
                  "sum of src/repro_torch/core/pagerank.py _contrib",
-        launches=serve["kernel"]["launches"]["pull_contrib"],
+        launches=serve["kernel"]["launches"]["pull_contrib"]
+        + extra["pull_contrib"],
         max_abs_err=contrib["max_abs_err"], ms=contrib_case["ms"],
         plain_ms=contrib_case["plain_ms"], bound_ms=contrib_case["bound_ms"],
         bound_by=contrib_case["bound_by"],
@@ -2733,7 +3224,8 @@ def main(argv=None) -> int:
         replaces="none: the port's own kernel, the int32 index_add_ "
                  "that counted the degrees and push_or of "
                  "src/repro_torch/graph/structure.py",
-        launches=sum(r["launches"]["slot_count"] for r in paper["runs"]),
+        launches=sum(r["launches"]["slot_count"] for r in paper["runs"])
+        + extra["slot_count"],
         max_abs_err=0.0, ms=count_case["ms"],
         plain_ms=count_case["plain_ms"], bound_ms=count_case["bound_ms"],
         bound_by=count_case["bound_by"],
@@ -2750,7 +3242,8 @@ def main(argv=None) -> int:
             name=kname, route="cuda",
             source="src/repro_torch/kernels/slot_count/csrc/slot_count.cu",
             replaces=replaces,
-            launches=serve["kernel"]["launches"].get(kname, 0),
+            launches=serve["kernel"]["launches"].get(kname, 0)
+            + extra[kname],
             max_abs_err=0.0, ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"]))
@@ -2774,6 +3267,7 @@ def main(argv=None) -> int:
                          serve={k: v for k, v in serve.items()
                                 if k != "final_ranks"},
                          ppr=ppr, gnn=gnn, paper=paper, obs=observ,
+                         replicas=replicas,
                          kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

@@ -55,8 +55,16 @@ called after every post-batch snapshot publish with ``(snapshot,
 batch)``.  ``close()`` stops the step thread and closes the monitor,
 which joins the shadow-verifier thread.
 
-The reference's geometry tuner, mesh (and with it the sharded walk
-index) and iteration budget are not ported yet; asking for them raises.
+``iteration_budget=`` (an int or an ``ft.straggler.IterationBudget``)
+caps each dynamic solve at ``max_iter`` iterations (the kernel engine caps
+its f32 phase and its f64 polish each) and carries the ever-affected set
+of a batch that stopped unconverged into the next batch's seed set, on
+the device.  A static solve (bootstrap, fallback) runs uncapped.  The
+convergence test reads the solve's delta only when the solve used every
+iteration of its cap: one host sync on such a batch, none otherwise.
+
+The reference's geometry tuner and mesh (and with it the sharded walk
+index) are not ported yet; asking for them raises.
 
 Each batch records its host syncs (``metrics.batch_host_syncs``): every
 call of the step that synchronizes the host with the card, as each call
@@ -69,12 +77,15 @@ check, the fused step's overflow check, one read per solver iteration
 (f32 phase and f64 polish), and one read of the batch's counters, which
 also waits for the device (repair kernels included) so that the latency
 is honest.  A walk index adds one (the stale count); a repack adds its
-reads and uploads.  Telemetry adds none (its rows ride the solver's
-reads).  The monitor adds one (the sentinel's read), one a leaf on a
-batch that takes an anchor, and, with a synchronous shadow, the shadow
-solve's reads on a sampled batch; each is counted in the batch, whose
-count is taken after the monitor.  The global tracer, when on, adds one
-a closed device span (``Tracer.sync``).
+reads and uploads; an iteration budget adds one (the delta) on a batch
+whose capped solve used every iteration of its cap.  Telemetry adds none
+(its rows ride the solver's reads).  The ``on_publish`` hook runs inside
+the step, so its reads (a replication writer's diff and copies,
+``serve/replicate.py``) count in the batch.  The monitor adds one (the
+sentinel's read), one a leaf on a batch that takes an anchor, and, with
+a synchronous shadow, the shadow solve's reads on a sampled batch; each
+is counted in the batch, whose count is taken after the monitor.  The
+global tracer, when on, adds one a closed device span (``Tracer.sync``).
 """
 from __future__ import annotations
 
@@ -91,6 +102,7 @@ from repro_torch.core.api import ENGINES, KERNEL_FLAGS, LOOP_FLAGS, Method, \
 from repro_torch.core.kernel_engine import fused_hybrid_pagerank, \
     hybrid_pagerank
 from repro_torch.device import host_sync_count, note_host_syncs
+from repro_torch.ft.straggler import IterationBudget
 from repro_torch.graph.dynamic import apply_batch, touched_vertices_mask
 from repro_torch.graph.structure import EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.update import PackedSpillError, \
@@ -126,9 +138,7 @@ class ServeEngine:
                  iteration_budget=None, **pr_kw):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; options {ENGINES}")
-        unported = [name for name, v in (
-            ("mesh", mesh), ("iteration_budget", iteration_budget))
-            if v is not None]
+        unported = ["mesh"] if mesh is not None else []
         opts = dict(kernel_opts or {})
         if opts.pop("tune", False):
             unported.append("kernel_opts['tune']=True")
@@ -175,6 +185,11 @@ class ServeEngine:
         # correctness monitor (obs.monitor.CorrectnessMonitor): hooked
         # after bootstrap and after every publish; None = zero overhead
         self.monitor = monitor
+        # per-batch iteration cap with frontier carryover
+        # (ft.straggler.IterationBudget); an int means max_iter_per_batch
+        if isinstance(iteration_budget, int):
+            iteration_budget = IterationBudget(iteration_budget)
+        self._budget = iteration_budget
         # post-publish hook (snapshot, batch)
         self.on_publish = None
         self._closed = False
@@ -291,6 +306,14 @@ class ServeEngine:
         method = self.method
         init_state = build_initial_state(self._graph, graph_new,
                                          batch.update, self._ranks, method)
+        if (self._budget is not None and method in DYNAMIC_METHODS
+                and self._budget.carried_frontier is not None):
+            # a capped previous batch left an unconverged frontier: fold
+            # it into this batch's seed set (DF re-marks until Δ ≤ τ); it
+            # stays on the device, so no host read
+            init_state = (init_state[0],
+                          self._budget.seeds_for_batch(init_state[1]))
+            self.metrics.record_budget_carryover()
         fallback = False
         if method in ("traversal", "frontier", "frontier_prune"):
             note_host_syncs()
@@ -300,6 +323,12 @@ class ServeEngine:
                 init_state = build_initial_state(
                     self._graph, graph_new, batch.update, self._ranks,
                     "static")
+        # the budget caps dynamic solves only: a capped static solve
+        # restarts cold every batch and would never converge, while a
+        # capped DF/DF-P batch resumes from its carried frontier
+        cap = (self._budget.max_iter
+               if self._budget is not None and method in DYNAMIC_METHODS
+               else None)
         # the fused path folds packed maintenance into the solve
         fuse = (self._packed is not None and not fallback
                 and method in DYNAMIC_METHODS)
@@ -316,6 +345,8 @@ class ServeEngine:
         if fuse:
             kw = dict(KERNEL_FLAGS[method], **self._kernel_kw, **self.pr_kw)
             kw.setdefault("telemetry", tel)
+            if cap is not None:
+                kw["max_iter"] = cap
             try:
                 self._packed, res = fused_hybrid_pagerank(
                     graph_new, self._packed, batch.update, *init_state, **kw)
@@ -330,8 +361,11 @@ class ServeEngine:
             with tr.span("solve", method=method, engine=self.engine):
                 res = self._solve(method, graph_new, batch.update,
                                   self._ranks, graph_prev=self._graph,
-                                  init_state=init_state, telemetry=tel)
+                                  init_state=init_state, telemetry=tel,
+                                  max_iter=cap)
                 tr.sync(res.ranks)
+        if self._budget is not None:
+            self._after_budget(cap, res)
         if fault is not None and fault["kind"] == "rank":
             # a copy of the solved ranks: no tensor is written in place
             ranks = res.ranks.clone()
@@ -382,6 +416,21 @@ class ServeEngine:
                   host_syncs=syncs)
         return True
 
+    def _after_budget(self, cap: Optional[int], res) -> None:
+        """Carry the frontier of a capped solve that stopped unconverged
+        (the reference's test: it used every iteration of its cap and its
+        delta is still above τ).  The delta is read only in that case."""
+        if cap is None:
+            # a static solve ran uncapped to full convergence
+            self._budget.after_batch(True, None)
+            return
+        converged = res.iterations < cap
+        if not converged:
+            note_host_syncs()
+            tol = float(self.pr_kw.get("tol", pr.TOL))
+            converged = float(res.delta) <= tol
+        self._budget.after_batch(converged, res.affected_ever)
+
     def _observe_batch(self, tr, batch, res, tel: bool):
         """Per-batch telemetry capture + engine-attribute gauges."""
         self.last_telemetry = None
@@ -411,17 +460,21 @@ class ServeEngine:
 
     def _solve(self, method: Method, graph_new: EdgeListGraph, update,
                prev_ranks, graph_prev: Optional[EdgeListGraph] = None,
-               init_state: Optional[tuple] = None, telemetry: bool = False):
+               init_state: Optional[tuple] = None, telemetry: bool = False,
+               max_iter: Optional[int] = None):
         graph_prev = graph_prev if graph_prev is not None else graph_new
         init_ranks, init_affected = (
             init_state if init_state is not None else build_initial_state(
                 graph_prev, graph_new, update, prev_ranks, method))
+        # the budget's cap
+        capkw = {} if max_iter is None else dict(max_iter=max_iter)
         if self.engine == "kernel" and method in DYNAMIC_METHODS:
-            kw = dict(KERNEL_FLAGS[method], **self._kernel_kw, **self.pr_kw)
+            kw = dict(KERNEL_FLAGS[method], **self._kernel_kw, **self.pr_kw,
+                      **capkw)
             kw.setdefault("telemetry", telemetry)
             return hybrid_pagerank(graph_new, self._packed, init_ranks,
                                    init_affected, **kw)
-        kw = dict(LOOP_FLAGS[method], **self.pr_kw)
+        kw = dict(LOOP_FLAGS[method], **self.pr_kw, **capkw)
         kw.setdefault("telemetry", telemetry)
         return pr._pagerank_loop(graph_new, init_ranks, init_affected, **kw)
 

@@ -1431,3 +1431,125 @@ def test_monitored_bundle_replays_bitwise_on_card(cuda, tmp_path):
     assert errors[0].generation == 2
     report = replay(mon.last_bundle, device=cuda)
     assert report.ok, report.describe()
+
+
+# ---------------------------------------------------------------------------
+# the replica tier, the iteration budget and block-Gauss-Seidel
+# ---------------------------------------------------------------------------
+
+def _debug_syncs(fn):
+    """(fn(), the synchronizing calls set_sync_debug_mode reports)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [w for w in caught if "called a synchronizing CUDA "
+                 "operation" in str(w.message)]
+
+
+@pytest.mark.parametrize("engine", ["kernel", "xla"])
+def test_replica_bitwise_on_card_and_hook_syncs_counted(cuda, engine):
+    """A writer on the card and a replica on the card through a faulty
+    transport: the replica's ranks equal the writer's bit for bit; the
+    writer's hook runs inside the step and its reads are counted there."""
+    from repro_torch.ft.elastic import ReplicaRoster
+    from repro_torch.serve import FaultyTransport, LogicalClock, \
+        ReadReplica, ReplicationWriter
+    edges, n = rmat_edges(16, 8, seed=5)
+    clock = LogicalClock()
+    transport = FaultyTransport(seed=1, drop_p=0.2)
+    roster = ReplicaRoster(heartbeat_timeout=1e9)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda,
+                         clock=clock)
+    eng = ServeEngine(graph, ingest, RankStore(), engine=engine,
+                      clock=clock)
+    eng.bootstrap()
+    w = ReplicationWriter(eng, transport, anchor_every=2, clock=clock)
+    w.attach()
+    transport.set_writer(w)
+    r = ReadReplica("r0", transport, n, roster=roster, clock=clock,
+                    device=cuda, backoff_base=0.01)
+    assert r.bootstrap()
+    for b in range(4):
+        clock.advance(0.1)
+        ok, syncs = _debug_syncs(lambda: _serve_feed(eng, ingest, edges, n,
+                                                     b))
+        assert ok
+        if b > 0:
+            assert eng.metrics.batch_host_syncs[-1] == len(syncs), \
+                _sync_sites(syncs)
+        w.heartbeat(roster)
+        r.pump()
+    for _ in range(40):
+        clock.advance(0.1)
+        w.heartbeat(roster)
+        r.pump()
+    assert r.generation == eng.store.generation == 4
+    assert r.ranks.device.type == "cuda"
+    assert torch.equal(r.ranks, eng.store.snapshot().ranks)
+    assert torch.equal(r.graph.src, eng.store.snapshot().graph.src)
+
+
+def test_edge_diff_touched_on_card_equals_cpu(cuda):
+    from repro_torch.serve.replicate import _edge_diff_touched
+    edges, n = rmat_edges(14, 8, seed=3)
+    out = {}
+    for dev in ("cpu", cuda):
+        g0 = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+        dele, ins = random_batch_update(edges, n, 2048, seed=4)
+        g1 = apply_batch(g0, make_batch_update(dele, ins, 2048, 2048,
+                                               device=dev))
+        out[str(dev)] = _edge_diff_touched(g0, g1, n).cpu()
+    assert out["cpu"].any()
+    assert torch.equal(out["cpu"], out["cuda"])
+
+
+@pytest.mark.parametrize("engine", ["kernel", "xla"])
+def test_budget_host_syncs_match_sync_debug_mode(cuda, engine):
+    """With ``iteration_budget=2`` (capped solves that read their delta,
+    and a carried frontier), ``batch_host_syncs`` equals the debug mode's
+    count on every batch."""
+    edges, n = rmat_edges(16, 8, seed=5)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda)
+    # no static fallback (as the reference's budget test): a carried
+    # frontier seeds a capped dynamic solve
+    eng = ServeEngine(graph, ingest, RankStore(), engine=engine,
+                      iteration_budget=2, static_fallback_frac=2.0)
+    eng.bootstrap()
+    assert _serve_feed(eng, ingest, edges, n, 0)     # the first batch warms
+    for b in (1, 2, 3):
+        ok, syncs = _debug_syncs(lambda: _serve_feed(eng, ingest, edges, n,
+                                                     b))
+        assert ok
+        assert eng.metrics.batch_host_syncs[-1] == len(syncs), \
+            _sync_sites(syncs)
+    assert eng.metrics.budget_carryover >= 1
+    assert eng.metrics.static_fallbacks == 0
+    assert max(eng.metrics.batch_iterations) <= \
+        (4 if engine == "kernel" else 2)
+
+
+def test_gauss_seidel_bitwise_run_to_run_on_card(cuda):
+    from repro_torch.core.gauss_seidel import gauss_seidel_pagerank
+    edges, n = rmat_edges(14, 8, seed=23)
+    out = []
+    for dev in (cuda, cuda, "cpu"):
+        g = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+        p = spmv.pack_blocks(edges[:, 0], edges[:, 1],
+                             np.ones(len(edges), bool), n, be=512, vb=256,
+                             device=dev)
+        out.append(gauss_seidel_pagerank(
+            g, p, torch.full((n,), 1.0 / n, device=dev), tol=1e-7))
+    assert out[0].sweeps == out[1].sweeps
+    assert torch.equal(out[0].ranks, out[1].ranks)
+    assert torch.equal(out[0].delta, out[1].delta)
+    # the card's segment sums add in another order than the CPU's
+    assert abs(out[0].sweeps - out[2].sweeps) <= 1
+    assert float((out[0].ranks.cpu() - out[2].ranks).abs().max()) <= 1e-6

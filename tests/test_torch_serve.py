@@ -179,13 +179,15 @@ def test_queries_answer_from_the_snapshot():
 @pytest.mark.parametrize("bad", [
     dict(mesh=object()), dict(mesh=object(), ppr_index=IndexConfig()),
     dict(kernel_opts=dict(tune_measure=True)),
-    dict(iteration_budget=4), dict(kernel_opts=dict(frontier_frac=0.1)),
+    dict(kernel_opts=dict(tune_cache_path="x")),
+    dict(kernel_opts=dict(frontier_frac=0.1)),
     dict(kernel_opts=dict(tune=True)), dict(kernel_opts=dict(use_kernel=1)),
     dict(kernel_opts=dict(delta_budget=8))])
 def test_serve_engine_rejects_unported_options(bad):
     """``monitor=`` and ``telemetry=`` are ported (``tests/
-    test_torch_obs*.py``); the mesh, the iteration budget and the
-    geometry tuner's keys still raise."""
+    test_torch_obs*.py``), and so is ``iteration_budget=``
+    (``tests/test_torch_elastic.py``); the mesh and the geometry tuner's
+    keys still raise."""
     edges, n = jgen.erdos_renyi_edges(N, 100, seed=2)
     g = port_graph(jstr.from_coo(edges[:, 0], edges[:, 1], n))
     with pytest.raises(NotImplementedError, match="not ported yet"):
