@@ -7,14 +7,23 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --spmv-kernels-only [--out FILE]
     python3 chip_smoke.py --gnn-kernels-only [--out FILE]
     python3 chip_smoke.py --replicas-only [--out FILE]
+    python3 chip_smoke.py --mesh-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
 frontier_spmv and phase 3b's pull_contrib, slot_count, segment_bounds
 and segment_or kernel cases;
 the third only the set-up and phase 6's kernel cases: pull_rows's on the
 set-up graph, gated_spmm's on the first batch's packed graph; the fourth
-only the set-up and phase 9.  None prints a summary: they are the quick
-loops for work on one kernel or phase.
+only the set-up and phase 9, the fifth only the set-up and phase 10.
+None prints a summary: they are the quick loops for work on one kernel
+or phase.
+
+The kernel engine tunes its pack geometry at bootstrap
+(``kernels/pagerank_spmv/tune.py``); the run keeps the tuner's cache in
+a temporary directory of its own.  Phase 3 checks and times the kernel
+at the tuner's pick, the geometry the main path serves at; phase 4 also
+serves at the fixed geometry of earlier runs (BE 512, VB 256), and
+phase 9 (c)/(d) pin it; every other engine serves at the tuner's pick.
 
 It exits non-zero on the first failed check; no failure is passed over.
 
@@ -22,7 +31,8 @@ It exits non-zero on the first failed check; no failure is passed over.
              checkout's sources.
 2. Device  — prints the card's name and ``nvidia-smi`` name/power limit.
 3. Kernels — holds frontier_spmv against its plain PyTorch version on
-             the card, at the serve engine's own packed shapes: active-
+             the card, at the serve engine's own packed shapes (the
+             tuner's geometry, as the engine's bootstrap picks it): active-
              window fractions 0, ~5 % and 100 %, f32 and bf16 ranks; only
              the last window (``tail``: it owns the capacity tail) and only
              the widest other window (``hub``), f32; and the empty graph.
@@ -73,7 +83,9 @@ It exits non-zero on the first failed check; no failure is passed over.
              launched (pull_contrib on the xla run too).  Then the feed
              runs once more on the kernel engine: the two kernel runs'
              final snapshots must be bitwise equal, with equal per-batch
-             iteration and affected counts.  Every batch's
+             iteration and affected counts.  Then once at the fixed
+             geometry (BE 512, VB 256): L∞ <= 1e-6 of the tuned run, and
+             each run's latency a batch printed side by side.  Every batch's
              ``batch_host_syncs`` must equal the synchronizing calls
              ``torch.cuda.set_sync_debug_mode("warn")`` reports for it,
              and every batch must build one order (one segment_bounds)
@@ -202,10 +214,45 @@ It exits non-zero on the first failed check; no failure is passed over.
              static f64 solve <= 1e-4 (PERF.md §6, PR 23: at tol 1e-7
              the stopping rule alone leaves ~1e-4).  Prints sweeps, ms a
              sweep and both L1s.
-10. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
-             launches on its paths (phase 9's added), max error and
-             times; then, last, ``{"ok": true, "device": {...}}``.  Each
-             phase prints its peak of allocated device memory.
+10. Shards — (a) the tuner at full width: the model's ranking of the
+             grid at frontier fractions 0.05 and 1.0; its top 3 at 0.05,
+             the fixed (512, 256) and its last pick, each packed (host
+             time printed) and timed with CUDA events at ~5 % and 100 %
+             active (the first f·|V| vertices, as the tuner's measured
+             search), predicted beside measured; the pick no slower than
+             the fixed geometry by more than 5 % at ~5 %; a cache miss,
+             then a hit keyed by the card's name.  Each geometry's output
+             is held to the plain version (rtol 1e-4 / atol 1e-6).
+             (b) The first MESH_BATCHES of phase 4's feed through
+             ``ServeEngine(engine="kernel", mesh=)`` on a (1, 4) mesh that
+             repeats the card (four shards; the halo exchange, again for
+             bitwise, then psum) and ``engine="xla"`` on the 2 x 2 test
+             mesh (twice): L∞ <= 1e-6 against the f64 engine every
+             batch, L1 <= 1e-4 against a static f64 solve, snapshots
+             bitwise run to run, every batch's ``batch_host_syncs`` equal
+             to the debug mode's count, ``frontier_spmv`` launched once a
+             shard an f32 iteration; a routed budget of FLUSH / 16 rows a
+             shard forces a per-shard repack.  Each shard's frontier_spmv
+             of the bootstrap pack is held to its plain version on the
+             card, on an rsc spanning every vertex (all set, and only the
+             shard's range and halo set) at ~5 % and 100 % of its
+             windows.  Prints latency a batch
+             (median, max), comm bytes, halo occupancy and repacks by
+             shard.  The kernel runs after the first start from its
+             bootstrap pack (as phase 9 reuses one).  The four shards
+             share one card: the phase measures the sharded code path and
+             its wire accounting, not scaling across cards.
+             (c) ``update_pagerank(mesh=)`` once on the 2 x 2 mesh (L∞
+             <= 1e-6 against the f64 engine),
+             ``rescale_pagerank_state`` from the 4-shard run onto the 2 x
+             2 mesh (ranks bitwise, the new mesh's partition), and
+             ``launch.serve --mesh test --engine kernel`` in a subprocess
+             (exit 0).
+11. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+             launches on its paths (phases 9's and 10's added), max error
+             (frontier_spmv's over phases 3 and 10) and times; then,
+             last, ``{"ok": true, "device": {...}}``.
+             Each phase prints its peak of allocated device memory.
 
 frontier_spmv sums in a fixed order (bitwise equal run to run), but not
 the plain version's: rtol 1e-4 / atol 1e-6 on f32 sums.  walk_repair has
@@ -460,7 +507,9 @@ def kernel_checks(torch, dev, graph):
     from repro_torch.kernels.pagerank_spmv import pagerank_spmv as spmv
     from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
     from repro_torch.serve import IngestQueue, RankStore, ServeEngine
-    # the serve engine's own bootstrap pack, at the engine's geometry
+    # the serve engine's bootstrap pack at the geometry the main path
+    # serves at: the tuner's pick (phase 4's engines hit its cache; phase
+    # 10 times the pick beside the fixed BE 512 / VB 256 of PRs 11-23)
     eng = ServeEngine(graph, IngestQueue(flush_size=FLUSH, device=dev),
                       RankStore(), engine="kernel")
     t0 = time.perf_counter()
@@ -473,6 +522,9 @@ def kernel_checks(torch, dev, graph):
     nw, vb = packed.num_windows, packed.vb
     owned = packed.entry_start[1:] - packed.entry_start[:-1]
     hub = int(torch.argmax(owned[:-1]))       # the widest but the last
+    geometry = eng.kernel_geometry.describe()
+    print(f"  geometry {geometry} (tune {eng.tune_info.source}, "
+          f"{eng.tune_info.tune_time_s:.2f} s)")
     print(f"  packed: NE={ne:,} BE={be} NW={nw:,} VB={vb} "
           f"lanes={ne * be:,} (pack {time.perf_counter() - t0:.1f} s); "
           f"last window owns {int(owned[-1]):,} entries, window {hub} "
@@ -522,6 +574,7 @@ def kernel_checks(torch, dev, graph):
         library_ms, library_note, library_host_ms = library_case(
             torch, packed, awin, rsc, ref, tag)
         case = dict(case=name, frac=frac, dtype=str(dtype)[6:],
+                    geometry=geometry,
                     active_windows=int(awin.sum()), max_abs_err=err, ms=ms,
                     host_ms=kernel_host_ms, device_ms=kernel_device_ms,
                     plain_ms=plain_ms,
@@ -1018,10 +1071,13 @@ def malloc_sites(torch, seen: int):
     return len(trace), out
 
 
-def serve_run(args, torch, dev, graph, feed, engine_name, sites=False):
+def serve_run(args, torch, dev, graph, feed, engine_name, sites=False,
+              kernel_opts=None, label=None):
     """Drive ServeEngine over ``feed`` (a list of event batches).
     ``sites``: record the allocator's history and print where each
-    batch's cudaMalloc calls come from (slows the run; not timed)."""
+    batch's cudaMalloc calls come from (slows the run; not timed).
+    ``kernel_opts`` go to the engine; ``label`` names the run in the
+    printed lines (default: the engine's name)."""
     import numpy as np
     from repro_torch.kernels.pagerank_spmv.pagerank_spmv import LAUNCH_COUNTS
     from repro_torch.graph.structure import CACHE_BUILDS
@@ -1036,8 +1092,10 @@ def serve_run(args, torch, dev, graph, feed, engine_name, sites=False):
                          device=dev)
     store, metrics = RankStore(), ServeMetrics()
     eng = ServeEngine(graph, ingest, store, metrics=metrics,
-                      method="frontier_prune", engine=engine_name)
+                      method="frontier_prune", engine=engine_name,
+                      kernel_opts=kernel_opts)
     client = QueryClient(store, ingest, metrics)
+    engine_name = label or engine_name
     rng = np.random.default_rng(SEED)
     for c in (LAUNCH_COUNTS, PULL_COUNTS, COUNT_COUNTS):
         c.clear()                             # counts of this run only
@@ -1050,8 +1108,11 @@ def serve_run(args, torch, dev, graph, feed, engine_name, sites=False):
     eng.bootstrap()
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    geometry = (None if eng.kernel_geometry is None
+                else eng.kernel_geometry.describe())
     print(f"  [{engine_name}] bootstrap (static f64 solve"
-          f"{' + pack' if engine_name == 'kernel' else ''}) {boot_s:.2f} s")
+          f"{'' if geometry is None else ' + pack at ' + geometry}) "
+          f"{boot_s:.2f} s")
     if sites:
         seen, made = malloc_sites(torch, seen)
         print(f"  [{engine_name}, allocator history] bootstrap: "
@@ -1125,7 +1186,7 @@ def serve_run(args, torch, dev, graph, feed, engine_name, sites=False):
                     **COUNT_COUNTS)
     snap = store.snapshot()
     return dict(boot_s=boot_s, rows=rows, launches=launches,
-                metrics=metrics.as_dict(),
+                metrics=metrics.as_dict(), geometry=geometry,
                 packed_rebuilds=metrics.packed_rebuilds), snap
 
 
@@ -1229,6 +1290,30 @@ def serve_checks(args, torch, dev, edges, n, graph):
     check(repeat["snapshot_bitwise"],
           f"kernel engine run twice on one feed: final snapshots bitwise "
           f"equal (L_inf {repeat['linf']:.3e})")
+    # the same feed at the fixed geometry of PRs 11-23 (BE 512, VB 256):
+    # the tuned geometry's latencies beside it, in this run
+    fixed, snap_f = serve_run(args, torch, dev, graph, feed, "kernel",
+                              kernel_opts=dict(be=512, vb=256),
+                              label="kernel (512, 256)")
+    linf_f = float((snap_f.ranks - rk).abs().max())
+    check(linf_f <= 1e-6, f"kernel engine at (512, 256) vs the tuned "
+          f"geometry: final snapshot L_inf {linf_f:.3e} <= 1e-6")
+    del snap_f
+    geometry_ab = {}
+    for tag, r in (("tuned", kernel), ("tuned again", again),
+                   ("fixed (512, 256)", fixed)):
+        lat = [row["latency_ms"] for row in r["rows"]]
+        geometry_ab[tag] = dict(
+            geometry=r["geometry"], latency_ms=lat,
+            median_ms=sorted(lat)[len(lat) // 2], max_ms=max(lat),
+            max_batch=lat.index(max(lat)),
+            cuda_mallocs=[row["cuda_mallocs"] for row in r["rows"]])
+        g = geometry_ab[tag]
+        print(f"  [geometry] {tag} {g['geometry']}: latency a batch "
+              f"median {g['median_ms']:.2f} ms, max {g['max_ms']:.2f} ms "
+              f"(batch {g['max_batch']}); every batch "
+              f"{[round(x, 2) for x in lat]} ms; cudaMalloc a batch "
+              f"{g['cuda_mallocs']}", flush=True)
     # where the kernel engine's cudaMalloc calls come from: the feed once
     # more from a released cache, as the first run began, with the
     # allocator's history recorded (not timed)
@@ -1239,6 +1324,8 @@ def serve_checks(args, torch, dev, edges, n, graph):
           "allocator's history recorded: final snapshot bitwise equal")
     del snap_t
     return dict(kernel=kernel, xla=xla, kernel_again=again,
+                kernel_fixed=fixed, geometry_ab=geometry_ab,
+                linf_fixed_vs_tuned=linf_f,
                 kernel_traced=traced, kernel_repeat=repeat,
                 final_ranks=rk,
                 linf_kernel_vs_xla=linf,
@@ -2826,7 +2913,8 @@ def budget_case(args, torch, dev, edges, n, graph):
     # cover ~half the graph, past the default 0.25)
     eng = ServeEngine(graph, ingest, RankStore(), metrics=metrics,
                       method="frontier_prune", engine="kernel",
-                      iteration_budget=budget, static_fallback_frac=2.0)
+                      iteration_budget=budget, static_fallback_frac=2.0,
+                      kernel_opts=dict(be=512, vb=256))
     t0 = time.perf_counter()
     eng.bootstrap()
     torch.cuda.synchronize()
@@ -3064,6 +3152,412 @@ def device_smi() -> str:
 
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the geometry tuner and the sharded rank engines
+# ---------------------------------------------------------------------------
+
+# the sharded engines' feed: the first MESH_BATCHES of phase 4's (the
+# depth cut so that the whole smoke keeps inside its time)
+MESH_BATCHES = 3
+# kernel shards of phase 10 (b): a (1, 4) mesh repeating the card; the
+# xla engine runs on the reference's 2 x 2 test mesh
+MESH_SHARDS = 4
+# (b)'s forced repack: routed rows a shard a batch, FLUSH // MESH_BUDGET
+# (64 at FLUSH 1024; such a batch puts ~200 on each of 4 shards)
+MESH_BUDGET = 16
+# (a): the model's pick at ~5 % active may measure at most this much
+# slower than the fixed serving geometry
+TUNE_SLACK = 1.05
+
+
+def tune_cases(torch, dev, graph):
+    """(a) The tuner at full width: the model's ranking of the grid at
+    frontier fractions 0.05 and 1.0, then the model's top 3 at 0.05, the
+    fixed serving geometry (BE 512, VB 256, spill 256) and the model's last
+    pick, each packed (host time printed) and timed at ~5 % and 100 %
+    active (the tuner's clustered frontier: the first f·|V| vertices) in
+    two rounds, predicted beside measured."""
+    import functools
+    import numpy as np
+    from repro_torch.kernels.pagerank_spmv import tune
+    from repro_torch.kernels.pagerank_spmv.ops import gated_contrib
+    from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
+    from repro_torch.kernels.pagerank_spmv.update import pack_graph
+    from repro_torch.serve.engine import KERNEL_PACK_DEFAULTS
+    n = graph.num_vertices
+    dst = graph.dst[graph.valid].cpu().numpy()
+    inserts = max(1024, 64 * FLUSH)          # the serve engine's
+    out = dict(ranking={})
+    for f in (0.05, 1.0):
+        ranked = tune.candidate_costs(dst, n, f, inserts)
+        out["ranking"][f] = [(g.be, g.vb, g.spill_lanes_per_window,
+                              p * 1e3) for g, p in ranked]
+        print(f"  [tune] model at f={f:g}: " + ", ".join(
+            f"({b},{v},{s}) {p:.4f}" for b, v, s, p in out["ranking"][f])
+            + " ms", flush=True)
+    ranked = tune.candidate_costs(dst, n, 0.05, inserts)
+    fixed = tune.KernelGeometry(**KERNEL_PACK_DEFAULTS)
+    picks = [("model #1", ranked[0][0]), ("model #2", ranked[1][0]),
+             ("model #3", ranked[2][0]), ("fixed", fixed),
+             ("model last", ranked[-1][0])]
+    ranks = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+    inv = (1.0 / graph.out_degree(include_self_loop=True)
+           .to(torch.float64)).to(torch.float32)
+    rsc = (ranks * inv).to(torch.float32)
+    rows, max_err = [], 0.0
+    for label, geom in picks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = pack_graph(graph, **geom.pack_kw())
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        counts = tune.window_counts(dst, n, geom.vb)
+        n_w = tune.window_entries(dst, n, geom.be, geom.vb,
+                                  geom.spill_lanes_per_window)
+        for f in (0.05, 1.0):
+            aff = torch.zeros(n, dtype=torch.bool, device=dev)
+            aff[: int(f * n)] = True
+            awin = packed.active_windows(aff)
+            call = functools.partial(gated_contrib, packed, ranks, inv,
+                                     active_window=awin, use_kernel=True)
+            # the kernel at this geometry against its plain version
+            got = call()
+            ref = frontier_spmv_ref_padded(
+                packed.src, packed.dst_rel, packed.valid, packed.window,
+                rsc, awin, packed.vb)[:n]
+            err = float((got - ref).abs().max())
+            max_err = max(max_err, err)
+            check(bool(torch.allclose(got, ref, rtol=KERNEL_RTOL,
+                                      atol=KERNEL_ATOL)),
+                  f"[tune] {label} {geom.describe()} f={f:g}: kernel == "
+                  f"plain (max abs err {err:.3e})")
+            del got, ref
+            model = tune.gated_spmv_cost(counts, n_w, n, geom.be, geom.vb, f)
+            rows.append(dict(label=label, be=geom.be, vb=geom.vb,
+                             spill=geom.spill_lanes_per_window, frac=f,
+                             pack_s=pack_s, entries=packed.num_entries,
+                             predicted_ms=model["total_s"] * 1e3,
+                             max_abs_err=err,
+                             ms=[time_ms(torch, call)],
+                             host_ms=host_ms(torch, call), call=call))
+    # the second round, in the opposite order: a geometry's time is the
+    # smaller of its two rounds
+    for row in reversed(rows):
+        row["ms"].append(time_ms(torch, row["call"]))
+    for row in rows:
+        del row["call"]                   # the packs go with the calls
+        row["ms"] = min(row["ms"])
+        print(f"  [tune] {row['label']:10s} be={row['be']:4d} "
+              f"vb={row['vb']:3d} spill={row['spill']:3d} "
+              f"f={row['frac']:<4g} predicted {row['predicted_ms']:.4f} ms"
+              f", measured {row['ms']:.4f} ms (host {row['host_ms']:.4f})"
+              f"; pack {row['pack_s']:.2f} s, {row['entries']:,} entries",
+              flush=True)
+    out.update(rows=rows, max_abs_err=max_err)
+    at5 = {r["label"]: r["ms"] for r in rows if r["frac"] == 0.05}
+    out["pick"] = (ranked[0][0].be, ranked[0][0].vb)
+    check(at5["model #1"] <= TUNE_SLACK * at5["fixed"],
+          f"[tune] the model's pick {out['pick']} at ~5 % active "
+          f"{at5['model #1']:.4f} ms <= {TUNE_SLACK:g} x the fixed "
+          f"(512, 256)'s {at5['fixed']:.4f} ms")
+    # the cache: a miss, then a hit on a second call with the same key
+    path = os.path.join(os.path.dirname(
+        os.environ["REPRO_TORCH_TUNE_CACHE"]), "phase10.json")
+    if os.path.exists(path):
+        os.remove(path)
+    g1, i1 = tune.tune_geometry(graph, expected_inserts=inserts,
+                                cache_path=path)
+    g2, i2 = tune.tune_geometry(graph, expected_inserts=inserts,
+                                cache_path=path)
+    check(not i1.cache_hit and i2.cache_hit and g1 == g2
+          and i1.key.startswith(torch.cuda.get_device_name(0)
+                                .replace(" ", "_") + "/"),
+          f"[tune] key {i1.key}: a miss ({i1.tune_time_s * 1e3:.1f} ms), "
+          f"then a hit ({i2.tune_time_s * 1e3:.2f} ms), the same "
+          f"geometry {g2.describe()}")
+    out.update(key=i1.key, miss_ms=i1.tune_time_s * 1e3,
+               hit_ms=i2.tune_time_s * 1e3)
+    return out
+
+
+def shard_kernel_cases(torch, dev, sharded):
+    """Each shard's frontier_spmv against its plain version on the card,
+    on the inputs the sharded loops give it: an rsc spanning every vertex
+    (``src`` is global) and the shard's own active windows.  Two rsc: all
+    of it set (the psum exchange), and only the shard's own range and its
+    halo set (the halo exchange's buffer), at ~5 % and 100 % of the
+    windows active."""
+    from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
+    from repro_torch.kernels.pagerank_spmv.shard import frontier_spmv_shard
+    spec, packs = sharded.spec, sharded.sharded.shards
+    wps, vps, v_pad = (spec.windows_per_shard, spec.vertices_per_shard,
+                       spec.padded_vertices)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    full = torch.rand(v_pad, generator=gen, device=dev)
+    cases, max_err = [], 0.0
+    for s, p in enumerate(packs):
+        halo = torch.zeros(v_pad, device=dev)
+        halo[s * vps:(s + 1) * vps] = full[s * vps:(s + 1) * vps]
+        ids = sharded.halo.ids[s].long().to(dev)
+        ids = ids[ids < v_pad]
+        halo[ids] = full[ids]
+        for frac in (0.05, 1.0):
+            awin = torch.rand(wps, generator=gen, device=dev) < frac
+            for regime, rsc in (("full", full), ("halo", halo)):
+                out = frontier_spmv_shard(p, rsc, awin)
+                ref = frontier_spmv_ref_padded(p.src, p.dst_rel, p.valid,
+                                               p.window, rsc, awin, p.vb)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                max_err = max(max_err, err)
+                tag = f"[shard {s}] {regime} rsc, {frac:.0%} of windows"
+                check(bool(torch.allclose(out, ref, rtol=KERNEL_RTOL,
+                                          atol=KERNEL_ATOL)),
+                      f"{tag}: kernel == plain (max abs err {err:.3e})")
+                check(bool((out[~awin.repeat_interleave(p.vb)] == 0).all())
+                      and torch.equal(frontier_spmv_shard(p, rsc, awin), out),
+                      f"{tag}: inactive windows exactly 0, bitwise equal "
+                      "run to run")
+                call = lambda: frontier_spmv_shard(p, rsc, awin)
+                cases.append(dict(shard=s, rsc=regime, frac=frac,
+                                  active_windows=int(awin.sum()),
+                                  max_abs_err=err, ms=time_ms(torch, call),
+                                  plain_ms=time_ms(torch, lambda:
+                                      frontier_spmv_ref_padded(
+                                          p.src, p.dst_rel, p.valid,
+                                          p.window, rsc, awin, p.vb))))
+                c = cases[-1]
+                print(f"  {tag}: kernel_ms={c['ms']:.4f} plain_ms="
+                      f"{c['plain_ms']:.4f} active_windows="
+                      f"{c['active_windows']:,} of {wps:,}", flush=True)
+    return dict(cases=cases, max_abs_err=max_err)
+
+
+def mesh_run(torch, dev, graph, feed, ranks0, mesh, engine, tag,
+             check_syncs=True, template=None, **kernel_opts):
+    """Serve ``feed`` on ``mesh``; each batch's latency, syncs (held to
+    the debug mode's count), frontier_spmv launches (held to one a shard
+    an f32 iteration) and snapshot.  ``template``: a sharded kernel
+    engine as an earlier run's bootstrap left it; this run starts from a
+    copy of its pack and halo (with ``kernel_opts``' exchange and delta
+    budget) instead of packing again, as phase 9 reuses a bootstrap
+    pack."""
+    import copy
+    from repro_torch.kernels.pagerank_spmv.pagerank_spmv import LAUNCH_COUNTS
+    from repro_torch.serve import IngestQueue, RankStore, ServeEngine, \
+        ServeMetrics
+    ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9, device=dev)
+    metrics = ServeMetrics()
+    eng = ServeEngine(graph, ingest, RankStore(), metrics=metrics,
+                      method="frontier_prune", engine=engine, mesh=mesh,
+                      kernel_opts=kernel_opts)
+    if template is not None:
+        sk = copy.copy(template)
+        sk.exchange = kernel_opts.get("exchange", "halo")
+        sk.halo = template.halo if sk.exchange == "halo" else None
+        sk.delta_budget = kernel_opts.get("delta_budget")
+        sk.last_comm_info, sk.last_comm_bytes = {}, 0
+        eng._sharded = sk
+    t0 = time.perf_counter()
+    eng.bootstrap(ranks=ranks0)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    # the pack and halo as the bootstrap left them (steps replace, never
+    # mutate, them)
+    boot = copy.copy(eng._sharded) if eng._sharded is not None else None
+    info = eng.tune_info
+    print(f"  [{tag}] bootstrap {boot_s:.2f} s"
+          + (f"; geometry {eng.kernel_geometry.describe()} (tune "
+             f"{info.source}, cache_hit={info.cache_hit})"
+             if info is not None else ""), flush=True)
+    rows, snaps = [], []
+    for b, events in enumerate(feed):
+        for kind, u, v in events:
+            ingest.submit(kind, u, v)
+        before = LAUNCH_COUNTS["frontier_spmv"]
+        if check_syncs:
+            with recording_syncs(torch) as syncs:
+                check(eng.step(force=True), f"[{tag}] batch {b} served")
+        else:
+            check(eng.step(force=True), f"[{tag}] batch {b} served")
+            syncs = None
+        launches = LAUNCH_COUNTS["frontier_spmv"] - before
+        sharded = eng._sharded
+        comm = dict(sharded.last_comm_info) if sharded is not None else {}
+        m = metrics
+        row = dict(batch=b, latency_ms=m.update_latency_s[-1] * 1e3,
+                   iterations=m.batch_iterations[-1],
+                   affected=m.batch_affected[-1], launches=launches,
+                   host_syncs=m.batch_host_syncs[-1],
+                   measured_syncs=None if syncs is None else len(syncs),
+                   fallback=m.static_fallbacks,
+                   repacks=dict(m.packed_rebuilds_by_shard), **comm,
+                   halo_occupancy=m.as_dict().get("halo_occupancy"))
+        rows.append(row)
+        snaps.append(eng.store.snapshot().ranks.clone())
+        print(f"  [{tag}] batch {b}: latency_ms={row['latency_ms']:.2f} "
+              f"iterations={row['iterations']} affected="
+              f"{row['affected']:,} frontier_spmv={launches} f32_iterations="
+              f"{comm.get('f32_iterations')} comm_bytes="
+              f"{comm.get('comm_bytes', 0):,} halo_occupancy="
+              f"{row['halo_occupancy']} host_syncs={row['host_syncs']} "
+              f"(measured {row['measured_syncs']}) repacks by shard "
+              f"{row['repacks']}", flush=True)
+        if syncs is not None:
+            if row["host_syncs"] != row["measured_syncs"]:
+                print(f"  [{tag}] batch {b}: synchronizing calls by site "
+                      f"{sync_sites(syncs)}")
+            check(row["host_syncs"] == row["measured_syncs"],
+                  f"[{tag}] batch {b}: host_syncs {row['host_syncs']} == "
+                  f"{row['measured_syncs']} synchronizing calls")
+        if sharded is not None and engine == "kernel" and not row["repacks"]:
+            check(launches == sharded.num_shards * comm["f32_iterations"]
+                  and launches > 0,
+                  f"[{tag}] batch {b}: frontier_spmv launched {launches} "
+                  f"times = {sharded.num_shards} shards x "
+                  f"{comm['f32_iterations']} f32 iterations")
+    lat = sorted(r["latency_ms"] for r in rows)
+    return dict(boot_s=boot_s, rows=rows, latency_median_ms=lat[len(lat) // 2],
+                latency_max_ms=lat[-1], comm_bytes=metrics.comm_bytes,
+                repacks=dict(metrics.packed_rebuilds_by_shard),
+                launches=sum(r["launches"] for r in rows),
+                geometry=(None if eng.kernel_geometry is None
+                          else eng.kernel_geometry.describe()),
+                tune_cache_hit=(None if info is None else info.cache_hit),
+                boot=boot), snaps, eng
+
+
+def mesh_checks(args, torch, dev, edges, n, graph):
+    """Phase 10: (a) the tuner; (b) four kernel shards on the card (halo,
+    then psum), the xla mesh engine; (c) update_pagerank(mesh=), elastic
+    rescale 4 -> 2 shards, the serve driver's --mesh test."""
+    phase("10. shards and geometry (tuner, sharded rank engines)")
+    import tempfile
+    import numpy as np
+    from repro_torch.core.api import update_pagerank
+    from repro_torch.core.pagerank import static_pagerank
+    from repro_torch.ft import checkpoint as ck
+    from repro_torch.ft.elastic import rescale_pagerank_state
+    from repro_torch.graph.dynamic import apply_batch
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.launch.mesh import make_test_mesh
+    t_phase = time.perf_counter()
+    out = dict(tune=tune_cases(torch, dev, graph))
+    feed = make_feed(args, edges, n)[:MESH_BATCHES]
+    ranks0 = static_pagerank(graph).ranks
+    shards = make_test_mesh(MESH_SHARDS, device=dev, model=MESH_SHARDS)
+    square = make_test_mesh(4, device=dev)
+    print(f"  (b) kernel mesh {shards.shape}, xla mesh {square.shape}, all "
+          f"on {sorted({str(d) for d in shards.devices.flat})}; "
+          f"{len(feed)} batches of phase 4's feed", flush=True)
+    f64, snaps_f64, _ = mesh_run(torch, dev, graph, feed, ranks0, None,
+                                 "xla", "f64 engine", check_syncs=False)
+    runs, snaps = {}, {}
+    template = None
+    for tag, mesh, engine, kw in (
+            ("halo", shards, "kernel", dict(exchange="halo")),
+            ("halo again", shards, "kernel", dict(exchange="halo")),
+            ("psum", shards, "kernel", dict(exchange="psum")),
+            ("xla mesh", square, "xla", {}),
+            ("xla mesh again", square, "xla", {})):
+        runs[tag], snaps[tag], eng = mesh_run(
+            torch, dev, graph, feed, ranks0, mesh, engine, tag,
+            template=template if engine == "kernel" else None, **kw)
+        if tag == "halo":
+            final_graph = eng.store.snapshot().graph
+            saved = eng.store.snapshot().ranks
+            # the later kernel runs start from this bootstrap's pack
+            template = runs[tag]["boot"]
+            out["shard_kernels"] = shard_kernel_cases(torch, dev, template)
+        del eng
+    static = static_pagerank(final_graph).ranks
+    for tag in ("halo", "psum", "xla mesh"):
+        r = runs[tag]
+        check(all(row["fallback"] == 0 for row in r["rows"]),
+              f"[{tag}] no static fallback")
+        linf = max(float((a - b).abs().max())
+                   for a, b in zip(snaps[tag], snaps_f64))
+        l1 = float((snaps[tag][-1] - static).abs().sum())
+        r.update(linf_vs_f64=linf, l1_vs_static=l1)
+        check(linf <= 1e-6, f"[{tag}] L_inf vs the f64 engine {linf:.3e} "
+              "<= 1e-6 every batch")
+        check(l1 <= 1e-4, f"[{tag}] final L1 vs a static f64 solve "
+              f"{l1:.3e} <= 1e-4")
+        print(f"  [{tag}] latency a batch median {r['latency_median_ms']:.2f}"
+              f" ms, max {r['latency_max_ms']:.2f} ms; comm bytes "
+              f"{r['comm_bytes']:,}; frontier_spmv {r['launches']}",
+              flush=True)
+    for a, b in (("halo", "halo again"), ("xla mesh", "xla mesh again")):
+        check(all(torch.equal(x, y) for x, y in zip(snaps[a], snaps[b])),
+              f"[{a}] served twice: every snapshot bitwise equal")
+    # a forced per-shard repack: a routed budget the first batch overflows
+    runs["repack"], _, eng = mesh_run(
+        torch, dev, graph, feed[:1], ranks0, shards, "kernel", "repack",
+        template=template, exchange="halo",
+        delta_budget=FLUSH // MESH_BUDGET)
+    check(eng.metrics.packed_rebuilds == 1
+          and len(eng.metrics.packed_rebuilds_by_shard) > 0,
+          f"[repack] a budget of {FLUSH // MESH_BUDGET} rows a shard "
+          f"overflowed: "
+          f"repacks by shard {dict(eng.metrics.packed_rebuilds_by_shard)}")
+    del eng
+    # (c) the one-shot entry point, elastic rescale, the driver
+    from repro_torch.graph.dynamic import make_batch_update
+    dels = [(u, v) for k, u, v in feed[0] if k == "delete"]
+    ins = [(u, v) for k, u, v in feed[0] if k == "insert"]
+    upd = make_batch_update(np.asarray(dels, np.int64).reshape(-1, 2),
+                            np.asarray(ins, np.int64).reshape(-1, 2),
+                            FLUSH, FLUSH, device=dev)
+    graph1 = apply_batch(graph, upd)
+    t0 = time.perf_counter()
+    one = update_pagerank(graph, graph1, upd, ranks0, "frontier_prune",
+                          mesh=square)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    plain = update_pagerank(graph, graph1, upd, ranks0, "frontier_prune")
+    linf = float((one.ranks - plain.ranks).abs().max())
+    check(linf <= 1e-6, f"[update_pagerank(mesh=) on the 2 x 2 mesh, one "
+          f"shot {one_s:.2f} s] L_inf vs the f64 engine {linf:.3e} <= 1e-6")
+    with tempfile.TemporaryDirectory() as d:
+        ck.save(d, MESH_BATCHES, dict(
+            batch_idx=torch.tensor(MESH_BATCHES, dtype=torch.int64),
+            ranks=saved))
+        t0 = time.perf_counter()
+        idx, ranks, part = rescale_pagerank_state(d, final_graph, square,
+                                                  dtype=torch.float64)
+        rescale_s = time.perf_counter() - t0
+    want = partition_graph(final_graph, 2, 2)
+    check(idx == MESH_BATCHES and torch.equal(ranks, saved)
+          and np.array_equal(part.src, want.src)
+          and np.array_equal(part.valid, want.valid),
+          f"[rescale] 4 shards onto 2 x 2 in {rescale_s:.2f} s: ranks "
+          f"bitwise, the partition the new mesh's {part.src.shape}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mesh", "test",
+         "--engine", "kernel", "--events", "2000", "--min-queries", "1"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    tail = [l for l in proc.stdout.splitlines()
+            if l.startswith(("mesh", "kernel geometry", "serve complete"))]
+    print("  [driver] " + " | ".join(tail))
+    check(proc.returncode == 0 and "serve complete" in proc.stdout,
+          f"[driver] launch.serve --mesh test --engine kernel exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s"
+          + ("" if proc.returncode == 0 else f": {proc.stderr[-2000:]}"))
+    for r in runs.values():
+        r.pop("boot")
+    out.update(runs=runs, one_shot_s=one_s, one_shot_linf=linf,
+               rescale_s=rescale_s,
+               launches=sum(r["launches"] for r in runs.values()),
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  phase {out['phase_s']:.1f} s; frontier_spmv launched "
+          f"{out['launches']} times in (b)", flush=True)
+    return out
+
+
 def peak_memory(torch, name: str) -> None:
     """Print the phase's peak of allocated device memory, then reset it."""
     print(f"  phase {name} peak memory allocated "
@@ -3097,6 +3591,10 @@ def main(argv=None) -> int:
                     help="run only the set-up and phase 9 (replicas, the "
                          "iteration budget, Gauss-Seidel); prints its "
                          "launches last and no summary")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run only the set-up and phase 10 (the tuner, "
+                         "the sharded engines); prints its launches last "
+                         "and no summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
                     help="run only the set-up, phase 3's frontier_spmv and "
                          "phase 3b's pull_contrib and edge-slot count "
@@ -3117,7 +3615,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    # the kernel engine tunes its geometry at bootstrap: its cache lives
+    # in a temporary directory of this run (the launch drivers this run
+    # starts in subprocesses inherit it), never under the home directory
+    import shutil
+    import tempfile
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tune_dir,
+                                                        "kernel_tune.json")
+    try:
+        return run(args, torch, dev, t_start)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
 
+
+def run(args, torch, dev, t_start) -> int:
+    """Every phase (or the one that ``args`` asks for) on the card."""
     builds = build_kernels()
     name, smi = device_info(torch)
     phase("setup: graph")
@@ -3129,6 +3642,14 @@ def main(argv=None) -> int:
                              gnn=only))
         print(json.dumps({"gnn_cases": only["cases"],
                           "row_cases": only["row_sum"]["cases"]}))
+        return 0
+    if args.mesh_only:
+        only = mesh_checks(args, torch, dev, edges, n, graph)
+        peak_memory(torch, "10")
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             mesh=only))
+        print(json.dumps({"mesh_launches": only["launches"]}))
         return 0
     if args.replicas_only:
         only = replica_checks(args, torch, dev, edges, n, graph)
@@ -3170,9 +3691,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     replicas = replica_checks(args, torch, dev, edges, n, graph)
     peak_memory(torch, "9")
+    torch.cuda.empty_cache()
+    mesh = mesh_checks(args, torch, dev, edges, n, graph)
+    peak_memory(torch, "10")
     extra = replicas["launches"]           # phase 9's launches
 
-    phase("10. summary")
+    phase("11. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -3180,8 +3704,10 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/pagerank_spmv/csrc/frontier_spmv.cu",
         replaces="src/repro/kernels/pagerank_spmv/pagerank_spmv.py:239",
         launches=serve["kernel"]["launches"].get("frontier_spmv", 0)
-        + extra["frontier_spmv"],
-        max_abs_err=max_err, ms=main_case["ms"],
+        + extra["frontier_spmv"] + mesh["launches"],
+        max_abs_err=max(max_err, mesh["tune"]["max_abs_err"],
+                        mesh["shard_kernels"]["max_abs_err"]),
+        ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
         bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"]), dict(
@@ -3267,7 +3793,7 @@ def main(argv=None) -> int:
                          serve={k: v for k, v in serve.items()
                                 if k != "final_ranks"},
                          ppr=ppr, gnn=gnn, paper=paper, obs=observ,
-                         replicas=replicas,
+                         replicas=replicas, mesh=mesh,
                          kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

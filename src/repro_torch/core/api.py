@@ -1,5 +1,5 @@
 """Unified entry point: ``update_pagerank`` — one call, five approaches
-(twin of ``repro.core.api``, single device only).
+(twin of ``repro.core.api``), on one device or over a mesh.
 """
 from __future__ import annotations
 
@@ -71,6 +71,45 @@ def build_initial_state(graph_prev: EdgeListGraph,
     raise ValueError(f"unknown method {method!r}")
 
 
+# one distributed engine per (mesh, graph shape, method options);
+# FIFO-bounded like the reference's cache
+_DIST_ENGINES: dict = {}
+_DIST_ENGINES_MAX = 8
+
+
+def distributed_pagerank(graph_prev: EdgeListGraph,
+                         graph_new: EdgeListGraph,
+                         update: Optional[BatchUpdate],
+                         prev_ranks: Optional[torch.Tensor],
+                         method: Method,
+                         mesh,
+                         init_state: Optional[tuple] = None,
+                         **kw) -> pr.PageRankResult:
+    """``update_pagerank`` over a mesh on the xla engine
+    (``dist.pagerank_dist.DistributedEngine``): the method's initial
+    affected set (or ``init_state``, when the caller already built it),
+    then the DF (or DF-P, for ``frontier_prune``) mesh loop to the shared
+    fixed point.  Engines are cached per (mesh, shape, options)."""
+    from repro_torch.dist.pagerank_dist import DistributedEngine
+    V = graph_new.num_vertices
+    ranks, affected = (init_state if init_state is not None else
+                       build_initial_state(graph_prev, graph_new, update,
+                                           prev_ranks, method))
+    kw = {k: v for k, v in kw.items() if k != "telemetry"}
+    prune = method == "frontier_prune"
+    key = (mesh, V, graph_new.edge_capacity, prune,
+           tuple(sorted(kw.items())))
+    eng = _DIST_ENGINES.get(key)
+    if eng is None:
+        while len(_DIST_ENGINES) >= _DIST_ENGINES_MAX:
+            _DIST_ENGINES.pop(next(iter(_DIST_ENGINES)))
+        eng = _DIST_ENGINES.setdefault(key, DistributedEngine(
+            mesh, V, graph_new.edge_capacity, prune=prune, **kw))
+    r, it, delta, ever, edges, verts, syncs = eng.run(graph_new, ranks,
+                                                      affected)
+    return pr.PageRankResult(r, it, delta, ever, edges, verts, syncs)
+
+
 def update_pagerank(graph_prev: EdgeListGraph,
                     graph_new: EdgeListGraph,
                     update: Optional[BatchUpdate],
@@ -89,12 +128,32 @@ def update_pagerank(graph_prev: EdgeListGraph,
     here once.  Runs on the graph's device.  ``telemetry=True`` (in
     ``kw``) returns per-iteration ``obs.frontier`` rows in
     ``result.telemetry`` on either engine.
+
+    ``mesh`` (a ``launch.mesh.Mesh`` with a ``model`` axis) runs the
+    multi-device engines (``dist.pagerank_dist``): the xla engine's
+    dst-range x edge-stripe loop, or with ``engine="kernel"`` the sharded
+    kernel path, packed per call (streaming callers hold a
+    ``ShardedKernelEngine``, as the serve engine does).
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; options {ENGINES}")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the multi-device engines) is not ported yet")
+        from repro_torch.dist.pagerank_dist import _mesh_dims, \
+            sharded_kernel_pagerank
+        _mesh_dims(mesh)
+        if engine == "kernel":
+            if packed is not None:
+                raise ValueError(
+                    "packed= is the single-device structure; the sharded "
+                    "path takes sharded=/spec= (streaming callers hold a "
+                    "dist.ShardedKernelEngine, as the serve engine does)")
+            init_ranks, init_affected = build_initial_state(
+                graph_prev, graph_new, update, prev_ranks, method)
+            return sharded_kernel_pagerank(graph_new, init_ranks,
+                                           init_affected, mesh,
+                                           **KERNEL_FLAGS[method], **kw)
+        return distributed_pagerank(graph_prev, graph_new, update,
+                                    prev_ranks, method, mesh, **kw)
     init_ranks, init_affected = build_initial_state(
         graph_prev, graph_new, update, prev_ranks, method)
     if engine == "kernel":
@@ -112,8 +171,9 @@ def update_pagerank(graph_prev: EdgeListGraph,
 
 def step_stream(graph: EdgeListGraph, update: BatchUpdate,
                 prev_ranks: torch.Tensor, method: Method = "frontier_prune",
-                **kw):
+                mesh=None, **kw):
     """One temporal-stream step: apply Δ, update ranks.  Returns (Gᵗ, result)."""
     graph_new = apply_batch(graph, update)
-    res = update_pagerank(graph, graph_new, update, prev_ranks, method, **kw)
+    res = update_pagerank(graph, graph_new, update, prev_ranks, method,
+                          mesh=mesh, **kw)
     return graph_new, res

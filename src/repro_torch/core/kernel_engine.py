@@ -13,6 +13,11 @@ them so that parity can be measured:
     ``tol_f32``, then the f64 loop (``core.pagerank``) seeded with the
     kernel phase's ``affected_ever`` set, down to the paper's τ.
 
+``use_kernel`` ("auto", True or False) goes to ``gated_contrib``: "auto"
+launches the kernel on CUDA tensors and runs its plain version on the
+CPU; True insists on the kernel (raising on the CPU), False on the
+plain version (raising on CUDA tensors).
+
 Work accounting follows the kernel's granularity: per iteration,
 ``edges_processed`` adds the live-edge counts of active entries and
 ``vertices_processed`` adds VB per active window.
@@ -68,7 +73,7 @@ class _Loop:
 
     def __init__(self, graph, packed, *, alpha, tol, frontier_tol,
                  prune_tol, max_iter, closed_form, prune, expand,
-                 telemetry=False):
+                 telemetry=False, use_kernel="auto"):
         V = graph.num_vertices
         nw, vb = packed.num_windows, packed.vb
         self.graph, self.packed = graph, packed
@@ -85,6 +90,7 @@ class _Loop:
         self.tol, self.max_iter = tol, max_iter
         self.frontier_tol, self.prune_tol = frontier_tol, prune_tol
         self.closed_form, self.prune, self.expand = closed_form, prune, expand
+        self.use_kernel = use_kernel
         # telemetry: rows read so far, and the last sweep's row on the
         # device until its read
         self.rows = [] if telemetry else None
@@ -106,7 +112,8 @@ class _Loop:
         aff_pad = torch.cat([affected, affected.new_zeros(self.v_pad - V)])
         active_window = aff_pad.reshape(self.nw, self.vb).any(dim=1)
         contrib = gated_contrib(packed, ranks_pad, self.inv_deg_pad,
-                                active_window=active_window, pad_out=True)
+                                active_window=active_window, pad_out=True,
+                                use_kernel=self.use_kernel)
         c0, a32, inv = self.c0, self.a32, self.inv_deg_pad
         if self.closed_form:
             r_new_all = (c0 + a32 * contrib) / (1.0 - a32 * inv)
@@ -182,11 +189,12 @@ def kernel_pagerank_loop(graph: EdgeListGraph, packed: PackedGraph,
                          frontier_tol: float = 1e-5, prune_tol: float = 1e-5,
                          max_iter: int = 500, closed_form: bool = False,
                          prune: bool = False, expand: bool = True,
-                         telemetry: bool = False) -> KernelPRResult:
+                         telemetry: bool = False,
+                         use_kernel="auto") -> KernelPRResult:
     loop = _Loop(graph, packed, alpha=alpha, tol=tol,
                  frontier_tol=frontier_tol, prune_tol=prune_tol,
                  max_iter=max_iter, closed_form=closed_form, prune=prune,
-                 expand=expand, telemetry=telemetry)
+                 expand=expand, telemetry=telemetry, use_kernel=use_kernel)
     return loop.run(loop.state0(init_ranks, init_affected))
 
 
@@ -197,7 +205,7 @@ def _fused_update_loop(graph_new: EdgeListGraph, packed: PackedGraph,
                        frontier_tol: float = 1e-5, prune_tol: float = 1e-5,
                        max_iter: int = 500, closed_form: bool = False,
                        prune: bool = False, expand: bool = True,
-                       telemetry: bool = False):
+                       telemetry: bool = False, use_kernel="auto"):
     """Packed micro-batch maintenance, then the f32 loop with its first
     sweep peeled (``delta`` starts at inf, so the peel cannot change the
     iteration sequence).  Returns ``(new_packed, KernelPRResult)``.
@@ -217,7 +225,7 @@ def _fused_update_loop(graph_new: EdgeListGraph, packed: PackedGraph,
     loop = _Loop(graph_new, new_packed, alpha=alpha, tol=tol,
                  frontier_tol=frontier_tol, prune_tol=prune_tol,
                  max_iter=max_iter, closed_form=closed_form, prune=prune,
-                 expand=expand, telemetry=telemetry)
+                 expand=expand, telemetry=telemetry, use_kernel=use_kernel)
     state = loop.state0(init_ranks, init_affected)
     if max_iter > 0:
         state = loop.body(state)
@@ -273,7 +281,7 @@ def fused_hybrid_pagerank(graph_new: EdgeListGraph, packed: PackedGraph,
                           max_iter: int = pr.MAX_ITER,
                           closed_form: bool = False, prune: bool = False,
                           expand: bool = True, polish: bool = True,
-                          telemetry: bool = False):
+                          telemetry: bool = False, use_kernel="auto"):
     """Serving step: ``(new_packed, PageRankResult)`` — packed maintenance
     plus the whole f32 phase, then the f64 polish when ``polish=True``.
 
@@ -292,7 +300,7 @@ def fused_hybrid_pagerank(graph_new: EdgeListGraph, packed: PackedGraph,
             alpha=alpha, tol=tol_f32, frontier_tol=kernel_frontier_tol,
             prune_tol=kernel_prune_tol, max_iter=max_iter,
             closed_form=closed_form, prune=prune, expand=expand,
-            telemetry=telemetry)
+            telemetry=telemetry, use_kernel=use_kernel)
         tr.sync(k.ranks)
     return new_packed, _ladder(
         graph_new, k, alpha=alpha, tol=tol, frontier_tol=frontier_tol,
@@ -311,7 +319,8 @@ def hybrid_pagerank(graph: EdgeListGraph, packed: PackedGraph,
                     max_iter: int = pr.MAX_ITER, closed_form: bool = False,
                     prune: bool = False, expand: bool = True,
                     polish: bool = True,
-                    telemetry: bool = False) -> pr.PageRankResult:
+                    telemetry: bool = False,
+                    use_kernel="auto") -> pr.PageRankResult:
     """Precision ladder: f32 kernel iterations to ``tol_f32``, then an
     optional f64 polish seeded from the kernel phase's affected_ever set
     down to ``tol`` — same fixed point and result type as the f64 loop."""
@@ -323,7 +332,7 @@ def hybrid_pagerank(graph: EdgeListGraph, packed: PackedGraph,
                                  prune_tol=kernel_prune_tol,
                                  max_iter=max_iter, closed_form=closed_form,
                                  prune=prune, expand=expand,
-                                 telemetry=telemetry)
+                                 telemetry=telemetry, use_kernel=use_kernel)
         tr.sync(k.ranks)
     return _ladder(graph, k, alpha=alpha, tol=tol, frontier_tol=frontier_tol,
                    prune_tol=prune_tol, max_iter=max_iter,

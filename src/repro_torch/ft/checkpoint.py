@@ -134,12 +134,25 @@ def restore(directory: str, step: int, target: Any,
     with a ``crc32`` digest (all checkpoints written by either package) is
     verified before anything is uploaded; a mismatch, an unreadable
     ``.npy`` or an unreadable manifest raises ``CheckpointCorruptError``.
-    The tensors land on ``device`` (default: the CUDA card).
+    The tensors land on ``device`` (default: the CUDA card), or, with
+    ``shardings`` (a tree matching ``target`` of
+    ``launch.mesh.NamedSharding``, None for a leaf that goes to
+    ``device``), where each leaf's sharding places it: whole on the mesh's
+    first device, or a ``ShardedTensor`` split over a mesh axis
+    (reshard-on-restore; ``ft/elastic.py``).
     """
+    from repro_torch.launch.mesh import NamedSharding
+    shard_leaves = None
     if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): the multi-GPU port is not done yet; "
-            "pass device= to restore onto one device")
+        shard_leaves = [sh for _, sh in _flatten(shardings)]
+        bad = [sh for sh in shard_leaves
+               if sh is not None and not isinstance(sh, NamedSharding)]
+        if bad:
+            raise TypeError(f"shardings leaves must be "
+                            f"launch.mesh.NamedSharding or None, got "
+                            f"{type(bad[0]).__name__}")
+        if all(sh is not None for sh in shard_leaves) and device is None:
+            device = "cpu"                 # every leaf goes where it says
     device = resolve_device(device)
     path = os.path.join(directory, f"step_{step:010d}")
     try:
@@ -175,8 +188,15 @@ def restore(directory: str, step: int, target: Any,
                 f"leaf {rec['key']}: checkpoint shape {arr.shape} != "
                 f"target {want_shape}")
         arrays.append(arr)
+    if shard_leaves is not None and len(shard_leaves) != len(leaves):
+        raise ValueError(f"shardings has {len(shard_leaves)} leaves, "
+                         f"target has {len(leaves)}")
     out = []
-    for leaf, arr in zip(leaves, arrays):
+    for i, (leaf, arr) in enumerate(zip(leaves, arrays)):
+        sh = shard_leaves[i] if shard_leaves is not None else None
+        if sh is not None:
+            out.append(sh.place(torch.from_numpy(arr).to(leaf.dtype)))
+            continue
         note_host_syncs()                  # an upload from pageable memory
         out.append(torch.from_numpy(arr).to(device=device,
                                             dtype=leaf.dtype))

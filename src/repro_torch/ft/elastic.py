@@ -1,13 +1,14 @@
 """Elastic rescaling and replica membership (twin of ``repro.ft.elastic``).
 
 Checkpoints are device-agnostic host arrays (``ft/checkpoint.py``, the
-reference's format), so rescaling the serving state is restoring them and
-bootstrapping a ``ServeEngine`` on whatever device the new process has.
-``rescale_serving_state`` restores the layout ``serve.state.RankStore``
-writes (ranks, generation, last_seq) from a checkpoint of either package.
-The reference's mesh paths (``rescale_state`` onto new shardings,
-``rescale_pagerank_state`` onto a mesh) wait for the multi-GPU port and
-raise.
+reference's format) and the graph partition is a pure function of (V,
+E_cap, mesh shape) (``graph/partition.py``), so rescaling is restoring
+arrays onto the new layout and repartitioning.  ``rescale_state`` restores
+the newest checkpoint onto new shardings (``launch.mesh.NamedSharding``);
+``rescale_pagerank_state`` restores (ranks, batch_idx) and partitions the
+graph for a new mesh; ``rescale_serving_state`` restores the layout
+``serve.state.RankStore`` writes (ranks, generation, last_seq) from a
+checkpoint of either package.
 
 ``ReplicaRoster`` is the membership half of elasticity for the read-
 replica tier (``serve/replicate.py``): replicas join and leave at any
@@ -21,21 +22,50 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, note_host_syncs
 from repro_torch.ft import checkpoint as ckpt
 
 
 def rescale_state(directory: str, target_abstract: Any,
                   new_shardings: Any):
-    raise NotImplementedError(
-        "rescale_state(new_shardings=...): the multi-GPU port is not "
-        "ported yet; restore onto one device with ft.checkpoint.restore")
+    """(step, state) of the latest checkpoint restored onto
+    ``new_shardings`` (a tree matching ``target_abstract`` of
+    ``launch.mesh.NamedSharding``), or (None, None) when there is none."""
+    step = ckpt.latest_step(directory)
+    if step is None:
+        return None, None
+    state = ckpt.restore(directory, step, target_abstract,
+                         shardings=new_shardings)
+    return step, state
 
 
-def rescale_pagerank_state(directory: str, graph, mesh, dtype=None):
-    raise NotImplementedError(
-        "rescale_pagerank_state(mesh=...): the multi-GPU port is not "
-        "ported yet")
+def rescale_pagerank_state(directory: str, graph, mesh,
+                           dtype=torch.float32, device: DeviceLike = None):
+    """Restore (ranks, batch_idx) and partition ``graph`` for ``mesh``.
+
+    Returns (batch_idx, ranks, partitioned_graph), or (None, None,
+    partitioned_graph) when no checkpoint exists.  The ranks are a
+    ``dtype`` tensor on ``device`` (default: the mesh's first device);
+    the partition is host NumPy (``graph/partition.py``) for the mesh's
+    ``model`` x data shape.
+    """
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.launch.mesh import data_axes
+    step = ckpt.latest_step(directory)
+    m = mesh.shape["model"]
+    p = 1
+    for a in data_axes(mesh):
+        p *= mesh.shape[a]
+    part = partition_graph(graph, m, p)
+    if step is None:
+        return None, None, part
+    meta = dict(device="meta")
+    target = dict(ranks=torch.empty(graph.num_vertices, dtype=dtype, **meta),
+                  batch_idx=torch.empty((), dtype=torch.int64, **meta))
+    dev = mesh.devices.flat[0] if device is None else device
+    state = ckpt.restore(directory, step, target, dev)
+    note_host_syncs()                      # the batch index's read
+    return int(state["batch_idx"]), state["ranks"], part
 
 
 def rescale_serving_state(directory: str, num_vertices: int,

@@ -306,19 +306,35 @@ def _launch_kernel(packed: PackedGraph, rsc: torch.Tensor,
 
 def frontier_spmv_padded(packed: PackedGraph, rsc: torch.Tensor,
                          active_window: torch.Tensor, *,
-                         chunk_entries: int = CHUNK_ENTRIES) -> torch.Tensor:
+                         chunk_entries: int = CHUNK_ENTRIES,
+                         use_kernel="auto") -> torch.Tensor:
     """Gated blocked SpMV on pre-padded buffers.  Returns f32[NW*VB]
     contributions; inactive windows are exactly 0.
 
     rsc: f32/bf16[>= NW*VB] scaled ranks R/d (a shorter vector is
-    zero-padded); active_window: bool[NW].  A CPU ``rsc`` runs the plain
-    version; a CUDA ``rsc`` launches the kernel, whose blocks walk at most
+    zero-padded; a longer one, such as a shard's view of every vertex's
+    ranks, is read where ``src`` points); active_window: bool[NW].
+    ``use_kernel="auto"``: a CPU ``rsc`` runs the plain version, a CUDA
+    ``rsc`` launches the kernel, whose blocks walk at most
     ``chunk_entries`` entries each (the plain version does not split).
+    ``use_kernel=True`` launches the kernel and raises on a CPU tensor;
+    ``False`` (the reference's option) runs the plain version and raises
+    on a CUDA tensor: on the card every call launches the kernel.
     """
     v_pad = packed.num_windows * packed.vb
     if rsc.shape[0] < v_pad:
         rsc = torch.cat([rsc, rsc.new_zeros(v_pad - rsc.shape[0])])
-    if rsc.device.type == "cpu":
+    if use_kernel is True and rsc.device.type != "cuda":
+        raise ValueError(f"frontier_spmv: use_kernel=True needs CUDA "
+                         f"tensors, got {rsc.device}; pass "
+                         "use_kernel='auto' or False to run the plain "
+                         "version there")
+    if use_kernel is False and rsc.device.type == "cuda":
+        raise ValueError("frontier_spmv: use_kernel=False runs the plain "
+                         "version, which is for CPU tensors only; a CUDA "
+                         "tensor launches the kernel (use_kernel='auto' "
+                         "or True)")
+    if rsc.device.type == "cpu" and use_kernel is not True:
         return frontier_spmv_ref_padded(packed.src, packed.dst_rel,
                                         packed.valid, packed.window, rsc,
                                         active_window, packed.vb)

@@ -11,8 +11,10 @@ bit, since every sum of the f64 loop has a fixed order.
     PYTHONPATH=src python -m repro_torch.launch.pagerank \
         --dataset sx-mathoverflow --method frontier_prune --batches 20
 
-Runs on the CUDA card unless ``--device cpu`` is given.  ``--mesh`` takes
-only ``none``: the multi-device engines are not ported yet.
+Runs on the CUDA card unless ``--device cpu`` is given.  ``--mesh test``
+replays the stream on a 2 x 2 test mesh (one card, or the CPU, repeats
+its device) through the xla mesh engine; ``--mesh production`` needs the
+reference's 256 cards.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.graph.dynamic import BatchUpdate, apply_batch, \
     make_batch_update
 from repro_torch.graph.generators import TemporalStream
 from repro_torch.graph.structure import EdgeListGraph, from_coo
+from repro_torch.launch.mesh import resolve_mesh
 
 # a batch's update for its index
 BatchSource = Callable[[int], BatchUpdate]
@@ -65,14 +68,15 @@ def run_batches(graph: EdgeListGraph, ranks: torch.Tensor,
                 batch_update: BatchSource, start: int, stop: int,
                 method: str, *, mgr: Optional[CheckpointManager] = None,
                 reference: Optional[Callable] = None, engine: str = "xla",
-                packed=None, log: Callable = print):
+                packed=None, log: Callable = print, mesh=None):
     """The per-batch loop: batches [start, stop) applied one by one and
     the ranks updated with ``method``; each batch timed (apply + solve, to
     the end of the device's work), printed, and checkpointed through
     ``mgr``.  ``reference(i, graph)`` (batch i's f64 ranks, on the
     graph's device) adds the batch's L1 error.  ``engine="kernel"``
     maintains ``packed`` (the graph's ``PackedGraph``) with
-    ``apply_batch_packed``.
+    ``apply_batch_packed``.  ``mesh`` runs each update on the mesh
+    engines (``update_pagerank(mesh=)``).
 
     Returns (graph, ranks, rows), one dict a batch in ``rows``."""
     rows: List[dict] = []
@@ -87,7 +91,8 @@ def run_batches(graph: EdgeListGraph, ranks: torch.Tensor,
                 apply_batch_packed
             packed = apply_batch_packed(packed, upd)
             kw = dict(engine="kernel", packed=packed)
-        r = update_pagerank(graph, graph_new, upd, ranks, method, **kw)
+        r = update_pagerank(graph, graph_new, upd, ranks, method,
+                            mesh=mesh, **kw)
         _sync(graph.device)
         dt = time.perf_counter() - t0
         row = dict(batch=i, ms=dt * 1e3, iterations=int(r.iterations),
@@ -124,18 +129,18 @@ def main(argv=None):
     ap.add_argument("--check-error", action="store_true")
     ap.add_argument("--mesh", choices=["none", "test", "production"],
                     default="none",
-                    help="only 'none': the multi-device engines are not "
-                         "ported yet")
+                    help="replay the stream on a device mesh through the "
+                         "mesh engine: 'test' = a 2x2 mesh (one card "
+                         "repeats its device), 'production' = (16, 16)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on "
                          "the CPU)")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-device engines are not ported "
-            "yet; run with --mesh none")
 
     device = resolve_device(args.device)
+    mesh = resolve_mesh(args.mesh, device)
+    if mesh is not None:
+        print(f"mesh {mesh.shape} over {mesh.devices.size} positions")
     ds = load_temporal(args.dataset)
     print(f"dataset {ds.name}: |V|={ds.num_vertices:,} "
           f"|E_T|={len(ds.edges):,} synthetic={ds.synthetic}")
@@ -155,7 +160,8 @@ def main(argv=None):
     mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
     start, graph, ranks = restore_stream(mgr, graph, batch_update)
     if ranks is None:
-        ranks = update_pagerank(graph, graph, None, None, "static").ranks
+        ranks = update_pagerank(graph, graph, None, None, "static",
+                                mesh=mesh).ranks
     else:
         print(f"restored at batch {start}")
 
@@ -169,7 +175,7 @@ def main(argv=None):
     run_batches(graph, ranks, batch_update, start, stream.num_batches,
                 args.method, mgr=mgr,
                 reference=reference if args.check_error else None,
-                log=lambda msg: print(msg, flush=True))
+                log=lambda msg: print(msg, flush=True), mesh=mesh)
     print("stream complete")
     return 0
 

@@ -30,8 +30,12 @@ error-severity incident, which ``python -m repro_torch.launch.replay D/...``
 re-executes bit for bit; ``--inject-fault GEN[:KIND[:VERTEX[:SCALE]]]``
 arms a debug fault (both imply ``--monitor``).
 
-Runs on the CUDA card unless ``--device cpu`` is given.  ``--mesh`` takes
-only ``none``: the multi-device engines are not ported yet.
+Runs on the CUDA card unless ``--device cpu`` is given.  ``--mesh test``
+serves on a 2 x 2 test mesh (one card, or the CPU, repeats its device;
+the kernel engine shards its pack over the mesh's ``model`` axis),
+``--mesh production`` on the reference's (16, 16) mesh, which needs 256
+visible cards.  On the kernel engine the driver prints the pack geometry
+the tuner picked (or ``--be``/``--vb``, which turn tuning off).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.core.api import ENGINES, METHODS
 from repro_torch.data.snap import PAPER_TABLE1, load_temporal
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import apply_batch, make_batch_update
+from repro_torch.launch.mesh import resolve_mesh
 from repro_torch.ppr import IndexConfig
 from repro_torch.serve import IngestQueue, QueryClient, RankStore, \
     ServeEngine, ServeMetrics, preload_graph_and_feed
@@ -87,8 +92,14 @@ def main(argv=None):
                     help="exit non-zero unless this many queries were served")
     ap.add_argument("--mesh", choices=["none", "test", "production"],
                     default="none",
-                    help="only 'none': the multi-device engines are not "
-                         "ported yet")
+                    help="serve on a device mesh: 'test' = a 2x2 mesh "
+                         "(one card repeats its device), 'production' = "
+                         "(16, 16); with --engine kernel the pack is "
+                         "sharded over the mesh's model axis")
+    ap.add_argument("--be", type=int, default=0,
+                    help="kernel engine: fix the entry width (0 = tune)")
+    ap.add_argument("--vb", type=int, default=0,
+                    help="kernel engine: fix the window width (0 = tune)")
     ap.add_argument("--trace", default="",
                     help="write a Chrome-trace JSON of the serve run here "
                          "(enables span tracing + per-iteration frontier "
@@ -115,18 +126,19 @@ def main(argv=None):
                          "event (e.g. 5:rank:0:4.0); implies --monitor")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-device engines are not ported "
-            "yet; run with --mesh none")
 
     device = resolve_device(args.device)
+    mesh = resolve_mesh(args.mesh, device)
     ds = load_temporal(args.dataset)
     graph, events = preload_graph_and_feed(ds, args.events, device=device)
     print(f"dataset {ds.name}: |V|={ds.num_vertices:,} preload="
           f"{int(graph.num_valid_edges()):,} events={len(events):,} "
           f"method={args.method} engine={args.engine} device={device} "
           f"flush={args.flush_size}/{args.flush_interval_ms:g}ms")
+    if mesh is not None:
+        shards = (f" shards={mesh.shape['model']}"
+                  if args.engine == "kernel" else "")
+        print(f"mesh {mesh.shape}{shards}")
 
     metrics = ServeMetrics()
     store = RankStore(ckpt_dir=args.ckpt_dir or None,
@@ -169,8 +181,11 @@ def main(argv=None):
         print(f"correctness monitor on: shadow 1/{args.shadow_every}"
               + (f" incidents -> {args.incident_dir}"
                  if args.incident_dir else ""))
+    kernel_opts = {k: v for k, v in (("be", args.be), ("vb", args.vb))
+                   if v > 0}
     engine = ServeEngine(graph, ingest, store, metrics=metrics,
-                         method=args.method, engine=args.engine,
+                         method=args.method, engine=args.engine, mesh=mesh,
+                         kernel_opts=kernel_opts,
                          static_fallback_frac=args.static_fallback_frac,
                          ppr_index=ppr_cfg, monitor=monitor)
     if args.inject_fault:
@@ -198,6 +213,12 @@ def main(argv=None):
         engine.bootstrap(ranks=restored[0], last_seq=start_event - 1)
     else:
         engine.bootstrap()
+    if engine.kernel_geometry is not None:
+        info = engine.tune_info
+        how = (f" ({info.source}, cache_hit={info.cache_hit}, "
+               f"key={info.key} in {info.tune_time_s * 1e3:.1f}ms)"
+               if info is not None else " (fixed)")
+        print(f"kernel geometry: {engine.kernel_geometry.describe()}{how}")
     client = QueryClient(store, ingest, metrics)
     rng = np.random.default_rng(args.seed)
 

@@ -63,8 +63,28 @@ the device.  A static solve (bootstrap, fallback) runs uncapped.  The
 convergence test reads the solve's delta only when the solve used every
 iteration of its cap: one host sync on such a batch, none otherwise.
 
-The reference's geometry tuner and mesh (and with it the sharded walk
-index) are not ported yet; asking for them raises.
+Unless ``kernel_opts`` fixes ``be``/``vb``, the kernel engine tunes its
+pack geometry at bootstrap, as the reference does
+(``kernels/pagerank_spmv/tune.py``: the model's pick for the graph's
+shape at ``frontier_frac`` (0.05), cached on disk; ``tune_measure=True``
+times the model's top picks on the card; ``tune_cache_path`` names the
+cache file; ``tune=False`` keeps ``KERNEL_PACK_DEFAULTS``).
+``kernel_geometry`` and ``tune_info`` say what was picked and how.
+``use_kernel`` ("auto": the kernel on CUDA tensors, its plain version on
+the CPU; True: the kernel, raising on CPU tensors; False: the plain
+version, the reference's option, refused for a CUDA graph) reaches every
+``frontier_spmv`` call.
+
+``mesh=`` (a ``launch.mesh.Mesh``) runs the multi-device engines
+(``dist/pagerank_dist.py``): the kernel engine shards its pack by window
+ranges over the mesh's ``model`` axis (``ShardedKernelEngine``; each
+shard's geometry from the tuner, ``kernel_opts["delta_budget"]`` bounds a
+shard's routed rows, ``kernel_opts["exchange"]`` / ``["wire"]`` pick the
+f32 exchange), repacking on a ``ShardCapacityError``
+(``metrics.packed_rebuilds_by_shard``); the xla engine runs the f64
+dst-range x edge-stripe loop.  ``metrics.comm_bytes`` adds each solve's
+wire bytes; the ``halo_occupancy`` gauge is set a batch.  A sharded walk
+index is not ported yet: ``mesh=`` with ``ppr_index=`` raises.
 
 Each batch records its host syncs (``metrics.batch_host_syncs``): every
 call of the step that synchronizes the host with the card, as each call
@@ -86,6 +106,11 @@ sentinel's read), one a leaf on a batch that takes an anchor, and, with
 a synchronous shadow, the shadow solve's reads on a sampled batch; each
 is counted in the batch, whose count is taken after the monitor.  The
 global tracer, when on, adds one a closed device span (``Tracer.sync``).
+On a mesh the kernel engine makes each shard's packed-update selections,
+reads the route's budget check, the shards' dropped insertions, the
+halo's overflow and the halo-occupancy gauge, and one read per f32
+iteration; the xla mesh engine's host partition reads the graph three
+times and uploads three arrays.
 """
 from __future__ import annotations
 
@@ -98,13 +123,18 @@ import torch
 
 from repro_torch.core import pagerank as pr
 from repro_torch.core.api import ENGINES, KERNEL_FLAGS, LOOP_FLAGS, Method, \
-    build_initial_state
+    build_initial_state, distributed_pagerank
 from repro_torch.core.kernel_engine import fused_hybrid_pagerank, \
     hybrid_pagerank
 from repro_torch.device import host_sync_count, note_host_syncs
+from repro_torch.dist.pagerank_dist import ShardedKernelEngine, _mesh_dims
 from repro_torch.ft.straggler import IterationBudget
 from repro_torch.graph.dynamic import apply_batch, touched_vertices_mask
 from repro_torch.graph.structure import EdgeListGraph
+from repro_torch.kernels.pagerank_spmv.shard import ShardCapacityError, \
+    halo_occupancy
+from repro_torch.kernels.pagerank_spmv.tune import KernelGeometry, \
+    tune_geometry
 from repro_torch.kernels.pagerank_spmv.update import PackedSpillError, \
     apply_batch_packed, pack_graph
 from repro_torch.obs import trace as obs_trace
@@ -117,13 +147,10 @@ from repro_torch.serve.state import RankStore
 
 DYNAMIC_METHODS = ("naive", "traversal", "frontier", "frontier_prune")
 
-# serving pack defaults (the reference's, with tuning off)
+# serving pack defaults (the reference's), kept when tuning is off
 KERNEL_PACK_DEFAULTS = dict(be=512, vb=256, spill_lanes_per_window=256)
 _PACK_KEYS = ("be", "vb", "spill_lanes_per_window", "num_entries",
               "extra_entries", "overlay_capacity")
-# reference kernel_opts with no counterpart in this port yet
-_UNPORTED_OPTS = ("use_kernel", "tune_measure", "tune_cache_path",
-                  "frontier_frac", "delta_budget")
 
 
 class ServeEngine:
@@ -138,15 +165,13 @@ class ServeEngine:
                  iteration_budget=None, **pr_kw):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; options {ENGINES}")
-        unported = ["mesh"] if mesh is not None else []
-        opts = dict(kernel_opts or {})
-        if opts.pop("tune", False):
-            unported.append("kernel_opts['tune']=True")
-        unported += [f"kernel_opts[{k!r}]" for k in _UNPORTED_OPTS
-                     if k in opts]
-        if unported:
+        if mesh is not None and ppr_index is not None:
             raise NotImplementedError(
-                f"ServeEngine: {', '.join(unported)} not ported yet")
+                "ServeEngine(mesh=, ppr_index=): the sharded walk index is "
+                "not ported yet")
+        if mesh is not None:
+            _mesh_dims(mesh)                 # a Mesh with a 'model' axis
+        opts = dict(kernel_opts or {})
         # opt-in walk index: an IndexConfig to build at bootstrap, or a
         # prebuilt WalkIndex to adopt
         self._ppr_cfg: Optional[IndexConfig] = None
@@ -164,9 +189,31 @@ class ServeEngine:
         self.method = method
         self.engine = engine
         explicit = {k: opts.pop(k) for k in _PACK_KEYS if k in opts}
+        # tune unless the caller fixed the geometry (be/vb) themselves
+        self._tune = opts.pop("tune", not ({"be", "vb"} & set(explicit)))
+        self._tune_measure = opts.pop("tune_measure", False)
+        self._tune_cache_path = opts.pop("tune_cache_path", None)
+        self._frontier_frac = opts.pop("frontier_frac", 0.05)
+        self._explicit_pack = explicit
         self._pack_kw = {**KERNEL_PACK_DEFAULTS, **explicit}
-        self._kernel_kw = opts
+        self.kernel_geometry = None   # set at bootstrap (kernel engine)
+        self.tune_info = None
+        self._delta_budget = opts.pop("delta_budget", None)
+        self._shard_kw = {k: opts.pop(k) for k in ("exchange", "wire",
+                                                     "halo_capacity")
+                          if k in opts}
+        use_kernel = opts.pop("use_kernel", "auto")
+        if use_kernel not in ("auto", True, False):
+            raise ValueError(f"use_kernel must be 'auto', True or False, "
+                             f"got {use_kernel!r}")
+        if use_kernel is False and graph.device.type == "cuda":
+            # on the card every frontier_spmv call launches the kernel
+            raise ValueError("use_kernel=False runs the plain version, "
+                             "which is for CPU graphs only; on the card "
+                             "pass use_kernel='auto' or True")
+        self._kernel_kw = dict(opts, use_kernel=use_kernel)
         self._packed = None
+        self._sharded = None   # dist.ShardedKernelEngine (kernel + mesh)
         self.static_fallback_frac = static_fallback_frac
         self.pr_kw = pr_kw
         self._clock = clock
@@ -174,7 +221,7 @@ class ServeEngine:
         self._ranks: Optional[torch.Tensor] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
-        self.mesh = None                  # single device (the recorder asks)
+        self.mesh = mesh
         # frontier telemetry: None = follow the global tracer, True/False
         # pins it
         self.telemetry = telemetry
@@ -217,7 +264,38 @@ class ServeEngine:
         Builds the walk index if one was asked for."""
         if ranks is None:
             ranks = self._solve("static", self._graph, None, None).ranks
-        if self.engine == "kernel" and self._packed is None:
+        if self.engine == "kernel" and self.kernel_geometry is None:
+            if self._tune:
+                geom, self.tune_info = tune_geometry(
+                    self._graph, frontier_frac=self._frontier_frac,
+                    expected_inserts=max(1024, 64 * self.ingest.capacity),
+                    measure=self._tune_measure,
+                    use_kernel=self._kernel_kw["use_kernel"],
+                    cache_path=self._tune_cache_path)
+                # caller-fixed keys still win over the tuned geometry
+                self._pack_kw = {**self._pack_kw, **geom.pack_kw(),
+                                 **self._explicit_pack}
+            self.kernel_geometry = KernelGeometry(
+                be=self._pack_kw["be"], vb=self._pack_kw["vb"],
+                spill_lanes_per_window=self._pack_kw[
+                    "spill_lanes_per_window"])
+        if self.engine == "kernel" and self.mesh is not None \
+                and self._sharded is None:
+            pack_kw = dict(self._pack_kw)
+            if "num_entries" not in pack_kw:
+                spare = (self._graph.edge_capacity
+                         - int(self._graph.num_valid_edges()))
+                pack_kw.setdefault("extra_entries",
+                                   -(-spare // pack_kw["be"]))
+            pack_kw.setdefault(
+                "overlay_capacity", max(1024, 64 * self.ingest.capacity))
+            kw = dict(self._kernel_kw, **self._shard_kw)
+            self._sharded = ShardedKernelEngine(
+                self.mesh, self._graph, pack_kw=pack_kw,
+                delta_budget=self._delta_budget,
+                use_kernel=kw.pop("use_kernel"), **kw)
+        if self.engine == "kernel" and self.mesh is None \
+                and self._packed is None:
             if "num_entries" not in self._pack_kw:
                 # mirror the edge list's stream headroom as empty tail
                 # entries, so an overflow repack at the pinned capacity
@@ -332,7 +410,16 @@ class ServeEngine:
         # the fused path folds packed maintenance into the solve
         fuse = (self._packed is not None and not fallback
                 and method in DYNAMIC_METHODS)
-        if self._packed is not None and not fuse:
+        if self._sharded is not None:
+            try:
+                self._sharded.apply_update(batch.update)
+            except ShardCapacityError as e:
+                # budget/spill/overlay/halo exhaustion on some shards:
+                # repack every shard at the pinned shapes.  Only the typed
+                # capacity error means "recoverable by repack"
+                self._sharded.repack(graph_new)
+                self.metrics.record_packed_rebuild(shards=e.shards)
+        elif self._packed is not None and not fuse:
             try:
                 self._packed = apply_batch_packed(self._packed, batch.update)
             except PackedSpillError:
@@ -410,6 +497,8 @@ class ServeEngine:
             affected=affected, iterations=res.iterations, fallback=fallback,
             walks_resampled=resampled,
             edges_processed=edges, vertices_processed=verts,
+            comm_bytes=(self._sharded.last_comm_bytes
+                        if self._sharded is not None else 0),
             host_syncs=syncs)
         tr.record("serve.step", s0, tr.now() - s0, method=method,
                   events=batch.num_events, fallback=fallback,
@@ -444,9 +533,14 @@ class ServeEngine:
                 self.telemetry_sink.write(
                     dict(seq=int(batch.last_seq), summary=summary,
                          rows=ft.rows()), kind="frontier")
-        self.metrics.set_gauge(
-            "staleness_in_events",
-            max(0, self.ingest.latest_seq - int(batch.last_seq)))
+        m = self.metrics
+        if self.tune_info is not None:
+            m.set_gauge("tune_cache_hit_rate",
+                        1.0 if self.tune_info.cache_hit else 0.0)
+        if self._sharded is not None and self._sharded.halo is not None:
+            m.set_gauge("halo_occupancy", halo_occupancy(self._sharded.halo))
+        m.set_gauge("staleness_in_events",
+                    max(0, self.ingest.latest_seq - int(batch.last_seq)))
 
     def _repack(self, graph: EdgeListGraph):
         """Repack at the pinned shapes, degrading the spill guarantee if
@@ -468,6 +562,19 @@ class ServeEngine:
                 graph_prev, graph_new, update, prev_ranks, method))
         # the budget's cap
         capkw = {} if max_iter is None else dict(max_iter=max_iter)
+        if self.mesh is not None:
+            if self._sharded is not None and method in DYNAMIC_METHODS:
+                return self._sharded.solve(graph_new, init_ranks,
+                                           init_affected,
+                                           telemetry=telemetry,
+                                           **KERNEL_FLAGS[method],
+                                           **{**self.pr_kw, **capkw})
+            # the xla mesh loop reports endpoint scalars only
+            return distributed_pagerank(graph_prev, graph_new, update,
+                                        prev_ranks, method, self.mesh,
+                                        init_state=(init_ranks,
+                                                    init_affected),
+                                        **{**self.pr_kw, **capkw})
         if self.engine == "kernel" and method in DYNAMIC_METHODS:
             kw = dict(KERNEL_FLAGS[method], **self._kernel_kw, **self.pr_kw,
                       **capkw)

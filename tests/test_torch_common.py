@@ -6,6 +6,8 @@ the port through ``repro_torch.convert`` as NumPy arrays.  Everything runs
 on the CPU here: the port's entry points are called with ``device="cpu"``.
 """
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -22,6 +24,13 @@ CPU = "cpu"
 # ten times slower under load than alone.  These inputs are small; one
 # thread per worker is enough.
 torch.set_num_threads(1)
+
+# The kernel engine tunes its pack geometry at bootstrap and caches the
+# pick on disk; no test writes under the home directory: a test that tunes
+# on purpose points the cache at its tmp_path, and any other lands in this
+# worker's temporary directory.
+os.environ.setdefault("REPRO_TORCH_TUNE_CACHE", os.path.join(
+    tempfile.mkdtemp(prefix="repro_torch_tune_"), "kernel_tune.json"))
 
 
 def np_(x):

@@ -72,6 +72,13 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _tune_cache(tmp_path, monkeypatch):
+    """The kernel engine tunes at bootstrap; its cache goes to tmp_path."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE",
+                       str(tmp_path / "kernel_tune.json"))
+
+
 def _packed(dev, be=512, vb=256, seed=11):
     edges, n = rmat_edges(10, 8, seed=seed)
     return spmv.pack_blocks(edges[:, 0], edges[:, 1],
@@ -1553,3 +1560,158 @@ def test_gauss_seidel_bitwise_run_to_run_on_card(cuda):
     # the card's segment sums add in another order than the CPU's
     assert abs(out[0].sweeps - out[2].sweeps) <= 1
     assert float((out[0].ranks.cpu() - out[2].ranks).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the geometry tuner and the sharded engines on the card
+# ---------------------------------------------------------------------------
+
+def test_tuner_keys_its_cache_by_the_card_name(cuda, tmp_path):
+    from repro_torch.kernels.pagerank_spmv import tune
+    edges, n = rmat_edges(14, 8, seed=3)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    path = str(tmp_path / "t.json")
+    geom, info = tune.tune_geometry(graph, cache_path=path, measure=True,
+                                    measure_top=2)
+    name = torch.cuda.get_device_name(0).replace(" ", "_")
+    assert tune.device_kind(cuda) == name and info.key.startswith(name + "/")
+    assert info.source == "measured"
+    timed = [c for c in info.candidates if c[2] is not None]
+    assert len(timed) == 2 and all(t > 0 for _, _, t in timed)
+    again, hit = tune.tune_geometry(graph, cache_path=path)
+    assert hit.cache_hit and again == geom
+    # the kernel, not its plain version: use_kernel=True runs on the card
+    assert tune._measure(graph, geom, 0.05, True, repeats=1) > 0
+
+
+def _sharded_serve(dev, edges, n, mesh, batches=3, **kernel_opts):
+    from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
+        LAUNCH_COUNTS
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=dev)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=dev)
+    eng = ServeEngine(graph, ingest, RankStore(), engine="kernel",
+                      mesh=mesh, static_fallback_frac=1.0,
+                      kernel_opts=dict(be=512, vb=256, **kernel_opts))
+    eng.bootstrap()
+    snaps, launches, iters = [], [], []
+    for b in range(batches):
+        before = LAUNCH_COUNTS["frontier_spmv"]
+        assert _serve_feed(eng, ingest, edges, n, b)
+        launches.append(LAUNCH_COUNTS["frontier_spmv"] - before)
+        if eng._sharded is not None:
+            iters.append(eng._sharded.last_comm_info["f32_iterations"])
+        snaps.append(eng.store.snapshot().ranks.clone())
+    return eng, snaps, launches, iters
+
+
+@pytest.mark.parametrize("exchange", ["halo", "psum"])
+def test_four_shards_on_one_card_match_unsharded(cuda, exchange):
+    """Four shards of the kernel engine on cuda:0 (the mesh repeats the
+    card): L∞ <= 1e-6 of the unsharded kernel engine every batch, one
+    frontier_spmv launch a shard an f32 iteration, bitwise run to run."""
+    from repro_torch.launch.mesh import make_test_mesh
+    edges, n = rmat_edges(16, 8, seed=5)
+    mesh = make_test_mesh(4, device=cuda, model=4)
+    assert all(d.type == cuda.type for d in mesh.devices.flat)
+    _, plain, _, _ = _sharded_serve(cuda, edges, n, None)
+    eng, snaps, launches, iters = _sharded_serve(cuda, edges, n, mesh,
+                                                 exchange=exchange)
+    assert eng._sharded.num_shards == 4
+    assert all(p.device.type == cuda.type
+               for p in eng._sharded.sharded.shards)
+    for got, want in zip(snaps, plain):
+        assert float((got - want).abs().max()) <= 1e-6
+    assert launches == [4 * it for it in iters] and min(iters) > 0
+    _, again, _, _ = _sharded_serve(cuda, edges, n, mesh, exchange=exchange)
+    assert all(torch.equal(a, b) for a, b in zip(snaps, again))
+
+
+@pytest.mark.parametrize("engine,exchange", [("kernel", "halo"),
+                                             ("kernel", "psum"),
+                                             ("xla", "halo")])
+def test_mesh_step_host_syncs_match_sync_debug_mode(cuda, engine, exchange):
+    from repro_torch.launch.mesh import make_test_mesh
+    edges, n = rmat_edges(15, 8, seed=5)
+    mesh = make_test_mesh(4, device=cuda,
+                          model=4 if engine == "kernel" else 2)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    ingest = IngestQueue(flush_size=512, flush_interval=1e9, device=cuda)
+    eng = ServeEngine(graph, ingest, RankStore(), engine=engine, mesh=mesh,
+                      static_fallback_frac=1.0,
+                      kernel_opts=dict(exchange=exchange))
+    eng.bootstrap()
+    assert _serve_feed(eng, ingest, edges, n, 0)
+    for b in (1, 2):
+        ok, syncs = _debug_syncs(
+            lambda: _serve_feed(eng, ingest, edges, n, b))
+        assert ok
+        assert eng.metrics.batch_host_syncs[-1] == len(syncs), \
+            _sync_sites(syncs)
+
+
+def test_forced_repack_on_card_names_shards(cuda):
+    from repro_torch.launch.mesh import make_test_mesh
+    edges, n = rmat_edges(15, 8, seed=5)
+    mesh = make_test_mesh(4, device=cuda, model=4)
+    eng, snaps, _, _ = _sharded_serve(cuda, edges, n, mesh, batches=2,
+                                      delta_budget=8)
+    m = eng.metrics
+    assert m.packed_rebuilds == 2
+    assert set(m.packed_rebuilds_by_shard) <= {0, 1, 2, 3}
+    assert bool(torch.isfinite(snaps[-1]).all())
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_shard_spmv_kernel_equals_plain_on_full_width_rsc(cuda, shards):
+    """Each shard's frontier_spmv launch on the inputs the sharded loops
+    give it: an rsc spanning every vertex (src is global; all of it set,
+    as the psum exchange has it, or only the shard's range and its halo,
+    as the halo exchange's buffer) and the shard's own windows.  Held to
+    the plain version at rtol 1e-4 / atol 1e-6, one launch a call."""
+    from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
+        LAUNCH_COUNTS
+    from repro_torch.kernels.pagerank_spmv.shard import build_halo, \
+        frontier_spmv_shard, pack_shards
+    edges, n = rmat_edges(15, 8, seed=7)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    sharded, spec = pack_shards(graph, shards, be=256, vb=128,
+                                spill_lanes_per_window=16,
+                                devices=[cuda] * shards)
+    halo = build_halo(sharded, spec)
+    wps, vps = spec.windows_per_shard, spec.vertices_per_shard
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(shards)
+    full = torch.rand(spec.padded_vertices, generator=gen, device=cuda)
+    for s, p in enumerate(sharded.shards):
+        part = torch.zeros_like(full)
+        part[s * vps:(s + 1) * vps] = full[s * vps:(s + 1) * vps]
+        ids = halo.ids[s].long().to(cuda)
+        ids = ids[ids < spec.padded_vertices]
+        part[ids] = full[ids]
+        for frac in (0.05, 1.0):
+            awin = torch.rand(wps, generator=gen, device=cuda) < frac
+            for rsc in (full, part):
+                before = LAUNCH_COUNTS["frontier_spmv"]
+                out = frontier_spmv_shard(p, rsc, awin)
+                assert LAUNCH_COUNTS["frontier_spmv"] == before + 1
+                ref = frontier_spmv_ref_padded(p.src, p.dst_rel, p.valid,
+                                               p.window, rsc, awin, p.vb)
+                torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-6)
+                assert not out[~awin.repeat_interleave(p.vb)].any()
+
+
+def test_use_kernel_false_is_refused_on_card(cuda):
+    """On the card every frontier_spmv call launches the kernel: the
+    plain version (``use_kernel=False``) is refused for CUDA tensors and
+    for a kernel engine on a CUDA graph."""
+    edges, n = rmat_edges(10, 8, seed=1)
+    graph = from_coo(edges[:, 0], edges[:, 1], n, device=cuda)
+    packed = pack_graph(graph, be=256, vb=128, spill_lanes_per_window=16)
+    awin = torch.ones(packed.num_windows, dtype=torch.bool, device=cuda)
+    rsc = torch.ones(n, device=cuda)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        spmv.frontier_spmv_padded(packed, rsc, awin, use_kernel=False)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ServeEngine(graph, IngestQueue(flush_size=16, device=cuda),
+                    RankStore(), engine="kernel",
+                    kernel_opts=dict(use_kernel=False))

@@ -101,12 +101,23 @@ def test_rescale_serving_state_restores_either_package(writer, tmp_path):
 
 
 def test_rescale_serving_state_empty_and_mesh_paths(tmp_path):
+    """An empty directory restores nothing; the mesh paths are ported
+    (``tests/test_torch_dist.py`` rescales a served stream): with no
+    checkpoint they restore nothing, and a bad sharding is refused."""
+    from repro_torch.launch.mesh import make_test_mesh
     assert el.rescale_serving_state(str(tmp_path / "none"), N,
                                     device=CPU) == (None, None, None)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        el.rescale_state(str(tmp_path), {}, object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        el.rescale_pagerank_state(str(tmp_path), None, object())
+    assert el.rescale_state(str(tmp_path), {}, {}) == (None, None)
+    mesh = make_test_mesh(4, device=CPU)
+    g = port_graph(jstr.from_coo(np.arange(4), np.arange(1, 5), N))
+    idx, ranks, part = el.rescale_pagerank_state(str(tmp_path), g, mesh)
+    assert idx is None and ranks is None
+    assert part.src.shape[:2] == (2, 2) and part.num_vertices == N
+    from repro_torch.ft import checkpoint as ck
+    ck.save(str(tmp_path), 3, dict(x=torch.zeros(2)))
+    with pytest.raises(TypeError, match="NamedSharding"):
+        el.rescale_state(str(tmp_path), dict(x=torch.zeros(2)),
+                         dict(x=object()))
 
 
 # ---------------------------------------------------------------------------

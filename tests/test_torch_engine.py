@@ -215,7 +215,9 @@ def test_step_stream_and_mesh_rejection():
     assert_bitwise(g_new.valid, jg2.valid)
     ref = japi.update_pagerank(jg, jg2, ju, r0, "frontier_prune")
     assert _linf(res.ranks, ref.ranks) <= 1e-12
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is ported (tests/test_torch_dist.py); a mesh must be the
+    # port's Mesh with a 'model' axis
+    with pytest.raises(TypeError, match="mesh"):
         tapi.update_pagerank(tg, tg2, tu, torch.from_numpy(r0), mesh=object())
     with pytest.raises(ValueError, match="unknown engine"):
         tapi.update_pagerank(tg, tg2, tu, torch.from_numpy(r0),

@@ -157,10 +157,25 @@ def test_manager_restart(tmp_path):
 
 
 def test_restore_rejects_shardings(tmp_path):
-    ck.save(str(tmp_path), 0, dict(x=torch.zeros(2)))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ck.restore(str(tmp_path), 0, dict(x=torch.zeros(2)), CPU,
-                   shardings=object())
+    """restore(shardings=) places each leaf where its NamedSharding says
+    (whole, or split over a mesh axis); anything else is refused."""
+    from repro_torch.launch.mesh import NamedSharding, ShardedTensor, \
+        make_test_mesh
+    x = torch.arange(10, dtype=F64)
+    ck.save(str(tmp_path), 0, dict(x=x, y=torch.ones(3)))
+    target = dict(x=torch.zeros(10, dtype=F64), y=torch.zeros(3))
+    with pytest.raises(TypeError, match="NamedSharding"):
+        ck.restore(str(tmp_path), 0, target, CPU,
+                   shardings=dict(x=object(), y=None))
+    mesh = make_test_mesh(4, device=CPU, model=4)
+    out = ck.restore(str(tmp_path), 0, target, CPU, shardings=dict(
+        x=NamedSharding(mesh, ("model",)), y=NamedSharding(mesh)))
+    assert isinstance(out["x"], ShardedTensor)
+    assert [p.shape[0] for p in out["x"].pieces] == [3, 3, 2, 2]
+    assert torch.equal(out["x"].full(), x)
+    assert torch.equal(out["y"], torch.ones(3))
+    with pytest.raises(ValueError, match="first dim"):
+        NamedSharding(mesh, (None, "model"))
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +306,19 @@ def test_pagerank_driver_runs_every_method(method, tmp_path, capsys):
     assert float(out.split("L1err=")[1].split()[0]) < 1e-4
 
 
-def test_pagerank_driver_takes_only_mesh_none():
-    with pytest.raises(NotImplementedError, match="--mesh test"):
-        drv.main(["--device", "cpu", "--mesh", "test"])
+def test_pagerank_driver_takes_only_mesh_none(tmp_path, capsys):
+    """``--mesh test`` replays the stream on a 2 x 2 test mesh (the CPU
+    repeated); ``--mesh production`` needs 256 cards and says so; any
+    other name is refused."""
+    rc = drv.main(["--device", "cpu", "--mesh", "test", "--batches", "1",
+                   "--check-error", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0 and "mesh {'data': 2, 'model': 2}" in out
+    assert float(out.split("L1err=")[1].split()[0]) < 1e-4
+    with pytest.raises(RuntimeError, match="production mesh"):
+        drv.main(["--device", "cpu", "--mesh", "production"])
+    with pytest.raises(SystemExit):
+        drv.main(["--device", "cpu", "--mesh", "pods"])
 
 
 def test_serve_driver_restarts_from_checkpoint(tmp_path, capsys):

@@ -776,7 +776,16 @@ def test_serve_driver_fault_dump_then_replay_cli(tmp_path, capsys):
     assert "bit-for-bit" in capsys.readouterr().out
 
 
-def test_serve_driver_refuses_mesh():
+def test_serve_driver_refuses_mesh(tmp_path, monkeypatch, capsys):
+    """``--mesh test`` is ported: the kernel engine serves sharded over
+    the 2 x 2 test mesh's model axis; ``--mesh production`` needs 256
+    cards and is refused here."""
     from repro_torch.launch.serve import main as serve_main
-    with pytest.raises(NotImplementedError, match="--mesh test"):
-        serve_main(["--device", "cpu", "--mesh", "test"])
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+    rc = serve_main(["--device", "cpu", "--mesh", "test", "--engine",
+                     "kernel", "--events", "150", "--min-queries", "1"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "shards=2" in out and "kernel geometry:" in out
+    assert "serve complete" in out
+    with pytest.raises(RuntimeError, match="production mesh"):
+        serve_main(["--device", "cpu", "--mesh", "production"])

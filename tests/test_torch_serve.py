@@ -176,23 +176,77 @@ def test_queries_answer_from_the_snapshot():
     assert top.generation == 0 and top.staleness_events == 0
 
 
-@pytest.mark.parametrize("bad", [
-    dict(mesh=object()), dict(mesh=object(), ppr_index=IndexConfig()),
-    dict(kernel_opts=dict(tune_measure=True)),
-    dict(kernel_opts=dict(tune_cache_path="x")),
-    dict(kernel_opts=dict(frontier_frac=0.1)),
-    dict(kernel_opts=dict(tune=True)), dict(kernel_opts=dict(use_kernel=1)),
-    dict(kernel_opts=dict(delta_budget=8))])
-def test_serve_engine_rejects_unported_options(bad):
-    """``monitor=`` and ``telemetry=`` are ported (``tests/
-    test_torch_obs*.py``), and so is ``iteration_budget=``
-    (``tests/test_torch_elastic.py``); the mesh and the geometry tuner's
-    keys still raise."""
+def _option_engine(**kw):
     edges, n = jgen.erdos_renyi_edges(N, 100, seed=2)
-    g = port_graph(jstr.from_coo(edges[:, 0], edges[:, 1], n))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServeEngine(g, IngestQueue(device=CPU), RankStore(),
-                    engine="kernel", **bad)
+    g = port_graph(jstr.from_coo(edges[:, 0], edges[:, 1], n,
+                                 edge_capacity=len(edges) + 64))
+    return ServeEngine(g, IngestQueue(flush_size=16, flush_interval=1e9,
+                                      device=CPU), RankStore(),
+                       engine="kernel", static_fallback_frac=1.0, **kw)
+
+
+@pytest.mark.parametrize("opt", [
+    "mesh", "mesh+ppr_index", "tune_measure", "tune_cache_path",
+    "frontier_frac", "tune", "use_kernel", "delta_budget"])
+def test_serve_engine_rejects_unported_options(opt, tmp_path, monkeypatch):
+    """The reference's options are ported and do what the reference's do;
+    only ``mesh=`` with ``ppr_index=`` (the sharded walk index) still
+    raises."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.kernels.pagerank_spmv.tune import TuneCache
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+    mesh = make_test_mesh(4, device=CPU)
+    if opt == "mesh+ppr_index":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            _option_engine(mesh=mesh, ppr_index=IndexConfig())
+        return
+    kw = dict(mesh=dict(mesh=mesh, kernel_opts=dict(be=16, vb=8)),
+              tune_measure=dict(kernel_opts=dict(tune_measure=True)),
+              tune_cache_path=dict(kernel_opts=dict(
+                  tune_cache_path=str(tmp_path / "named.json"))),
+              frontier_frac=dict(kernel_opts=dict(frontier_frac=0.5)),
+              tune=dict(kernel_opts=dict(tune=True, be=64)),
+              use_kernel=dict(kernel_opts=dict(use_kernel=False)),
+              delta_budget=dict(mesh=mesh, kernel_opts=dict(
+                  be=16, vb=8, delta_budget=2)))[opt]
+    eng = _option_engine(**kw)
+    eng.bootstrap()
+    info, geom = eng.tune_info, eng.kernel_geometry
+    assert geom is not None
+    for _ in range(2):
+        for u in range(16):
+            eng.ingest.submit("insert", u, (u * 7 + 3) % N)
+        assert eng.step(force=True)
+    ranks = eng.store.snapshot().ranks
+    assert ranks.dtype == torch.float64 and bool(torch.isfinite(ranks).all())
+    if opt == "mesh":
+        assert eng._sharded is not None and eng._sharded.num_shards == 2
+        assert eng.metrics.comm_bytes > 0
+        assert 0 < eng.metrics.as_dict()["halo_occupancy"] <= 1
+    elif opt == "tune_measure":
+        assert info.source == "measured"
+        assert sum(c[2] is not None for c in info.candidates) == 3
+    elif opt == "tune_cache_path":
+        assert TuneCache(str(tmp_path / "named.json")).get(info.key) == geom
+        assert not (tmp_path / "t.json").exists()
+    elif opt == "frontier_frac":
+        assert info.key.endswith("-f1e0")
+    elif opt == "tune":
+        assert info is not None and geom.be == 64
+    elif opt == "use_kernel":
+        assert eng._kernel_kw["use_kernel"] is False
+        with pytest.raises(ValueError, match="use_kernel"):
+            _option_engine(kernel_opts=dict(use_kernel="yes"))
+        # True insists on the kernel: on CPU tensors the step raises
+        eng = _option_engine(kernel_opts=dict(use_kernel=True))
+        eng.bootstrap()
+        eng.ingest.submit("insert", 1, 2)
+        with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
+            eng.step(force=True)
+    else:
+        # a budget of 2 rows a shard overflows: every shard repacks
+        assert eng.metrics.packed_rebuilds == 2
+        assert sum(eng.metrics.packed_rebuilds_by_shard.values()) >= 2
 
 
 def test_rank_store_checkpoints_not_ported(tmp_path):
