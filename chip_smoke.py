@@ -8,15 +8,17 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --gnn-kernels-only [--out FILE]
     python3 chip_smoke.py --replicas-only [--out FILE]
     python3 chip_smoke.py --mesh-only [--out FILE]
+    python3 chip_smoke.py --ppr-mesh-only [--out FILE]
+    python3 chip_smoke.py --train-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
 frontier_spmv and phase 3b's pull_contrib, slot_count, segment_bounds
 and segment_or kernel cases;
 the third only the set-up and phase 6's kernel cases: pull_rows's on the
 set-up graph, gated_spmm's on the first batch's packed graph; the fourth
-only the set-up and phase 9, the fifth only the set-up and phase 10.
-None prints a summary: they are the quick loops for work on one kernel
-or phase.
+only the set-up and phase 9, the fifth only the set-up and phase 10, the
+sixth phase 11 and the seventh phase 12.  None prints a summary: they are
+the quick loops for work on one kernel or phase.
 
 The kernel engine tunes its pack geometry at bootstrap
 (``kernels/pagerank_spmv/tune.py``); the run keeps the tuner's cache in
@@ -246,12 +248,52 @@ It exits non-zero on the first failed check; no failure is passed over.
              <= 1e-6 against the f64 engine),
              ``rescale_pagerank_state`` from the 4-shard run onto the 2 x
              2 mesh (ranks bitwise, the new mesh's partition), and
-             ``launch.serve --mesh test --engine kernel`` in a subprocess
+             ``launch.serve --mesh test --engine kernel --ppr-walks 8`` (a
+             range-sharded walk index) in a subprocess
              (exit 0).
-11. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
-             launches on its paths (phases 9's and 10's added), max error
-             (frontier_spmv's over phases 3 and 10) and times; then,
-             last, ``{"ok": true, "device": {...}}``.
+11. PPR mesh — the walk index of phase 5 (R=64, L=16, 8.6 GB) range-
+             sharded over a (1, 4) mesh that repeats the card: (a) the
+             sharded build (each shard its start-vertex range, global
+             walk ids) bitwise the unsharded build; (b)
+             ``ServeEngine(engine="kernel", mesh=, ppr_index=)`` over
+             phase 4's first MESH_BATCHES batches: the bootstrap's
+             sharded index, each batch's index bitwise the unsharded
+             repair of the same batch, walk_repair launched once a shard
+             with stale walks, ``batch_host_syncs`` equal to the debug
+             mode's count, the seeds' top-10 equal to the unsharded
+             index's and estimates within 1e-12; prints the repair's ms
+             (a shard's resample: median, max) beside the unsharded
+             repair of the same batch and phase 5's; (c) a tight
+             ``capacity`` raises ``ShardCapacityError`` naming the shards
+             and ``check=False`` drops the overflow; (d) ``engine="xla"``
+             on the 2 x 2 mesh with the index, one batch, its two shards
+             bitwise (b)'s.  The serve driver with a range-sharded index
+             runs in phase 10 (c).
+12. Train  — the GNN family's training step at full width: each of
+             TRAIN_CELLS at its full config, inputs from the ported
+             ``build_inputs(concrete=True, smoke=False, seed=1)``, 3 AdamW
+             steps (``make_gnn_train_step``); graphsage-reddit's
+             minibatch_lg once more on blocks the ported
+             ``NeighborSampler`` draws from the set-up graph's CSR (host
+             ms printed).  Checks: step 0's loss finite (PNA's later
+             steps are NaN, as the reference's: its std aggregator's
+             gradient at zero variance); loss, gradients and the updated
+             parameters bitwise run to run; every ``pull_rows`` call of a
+             step, forward and backward, within GNN_RTOL / GNN_ATOL of
+             ``pull_rows_ref`` on the card; ``pull_rows`` launched in the
+             forward and (but for sampled blocks, whose sums' backward is
+             a gather) the backward; on full_graph_sm and molecule the
+             same steps on the CPU, losses rtol 1e-5 and parameters rtol
+             1e-4 / atol 1e-5·max.  Prints ms a step, peak memory, host
+             syncs a step and ``pull_rows`` launches forward and
+             backward; the cells not run, with the bytes of those one
+             card cannot hold; and ``pull_rows`` at d = 512 over
+             graphcast minibatch_lg's slots by dst beside its plain
+             version and cuSPARSE, with its bound.
+13. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+             launches on its paths (phases 9's, 10's, 11's and 12's
+             added), max error (frontier_spmv's over phases 3 and 10) and
+             times; then, last, ``{"ok": true, "device": {...}}``.
              Each phase prints its peak of allocated device memory.
 
 frontier_spmv sums in a fixed order (bitwise equal run to run), but not
@@ -2001,8 +2043,9 @@ def gnn_setup(torch, dev, graph, n, forward=True):
     every = torch.ones(n, dtype=torch.bool, device=dev)
 
     def layer_fn(g, x):
-        return sage_forward(CONFIG, params,
-                            GraphBatch(x, g.src, g.dst, g.valid, every))
+        with torch.no_grad():             # serving: no gradient kept
+            return sage_forward(CONFIG, params,
+                                GraphBatch(x, g.src, g.dst, g.valid, every))
 
     def plain(p, aw):
         return gated_spmm_ref(p.src, p.dst_rel, p.valid, p.window, feats,
@@ -3535,17 +3578,22 @@ def mesh_checks(args, torch, dev, edges, n, graph):
           f"[rescale] 4 shards onto 2 x 2 in {rescale_s:.2f} s: ranks "
           f"bitwise, the partition the new mesh's {part.src.shape}")
     t0 = time.perf_counter()
+    # the driver once for phases 10 and 11: its walk index is range-
+    # sharded over the test mesh's model axis
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--mesh", "test",
-         "--engine", "kernel", "--events", "2000", "--min-queries", "1"],
+         "--engine", "kernel", "--ppr-walks", "8", "--events", "2000",
+         "--min-queries", "1"],
         capture_output=True, text=True, timeout=600,
         env=dict(os.environ, PYTHONPATH=SRC))
     tail = [l for l in proc.stdout.splitlines()
             if l.startswith(("mesh", "kernel geometry", "serve complete"))]
     print("  [driver] " + " | ".join(tail))
-    check(proc.returncode == 0 and "serve complete" in proc.stdout,
-          f"[driver] launch.serve --mesh test --engine kernel exit "
-          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s"
+    check(proc.returncode == 0 and "serve complete" in proc.stdout
+          and "ppr_top1=" in proc.stdout,
+          f"[driver] launch.serve --mesh test --engine kernel --ppr-walks 8 "
+          f"(a range-sharded walk index) exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s"
           + ("" if proc.returncode == 0 else f": {proc.stderr[-2000:]}"))
     for r in runs.values():
         r.pop("boot")
@@ -3555,6 +3603,681 @@ def mesh_checks(args, torch, dev, edges, n, graph):
                phase_s=time.perf_counter() - t_phase)
     print(f"  phase {out['phase_s']:.1f} s; frontier_spmv launched "
           f"{out['launches']} times in (b)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the walk index range-sharded over four shards of one card
+# ---------------------------------------------------------------------------
+
+# shards of the walk index: a (1, 4) mesh repeating the card, phase 10's
+PPR_SHARDS = 4
+
+
+def _walk_parts(index):
+    """[(first global row, int32[rows, R, L])] of a walk index, whole or
+    sharded."""
+    if hasattr(index, "spec"):
+        vps = index.spec.vertices_per_shard
+        return [(s * vps, t) for s, t in enumerate(index.steps)]
+    return [(0, index.steps)]
+
+
+def same_walks(torch, a, b) -> bool:
+    """Two walk indexes (whole or sharded, any shard count) hold the same
+    walks bit for bit: compared range by range, no shard joined."""
+    V = a.num_vertices
+    pa, pb = _walk_parts(a), _walk_parts(b)
+    cuts = sorted({g for g, _ in pa} | {g for g, _ in pb} | {V})
+
+    def rows(parts, lo, hi):
+        g, t = max((p for p in parts if p[0] <= lo), key=lambda p: p[0])
+        return t[lo - g:hi - g]
+    return all(torch.equal(rows(pa, lo, hi), rows(pb, lo, hi))
+               for lo, hi in zip(cuts[:-1], cuts[1:]) if lo < V)
+
+
+def top10_agrees(torch, est_a, est_b, k=10) -> bool:
+    """The top-k vertices of two estimates agree wherever no other
+    estimate lies within 1e-12 of the k-th's (a tie may order either
+    way)."""
+    va, ia = torch.topk(est_a, k)
+    _, ib = torch.topk(est_b, k)
+    for i in range(k):
+        if int(ia[i]) == int(ib[i]):
+            continue
+        if int(((est_b - va[i]).abs() <= 1e-12).sum()) < 2:
+            return False
+    return True
+
+
+def ppr_mesh_checks(args, torch, dev, edges, n, graph, unsharded=None):
+    """Phase 11: the walk index range-sharded over PPR_SHARDS shards of
+    the card: (a) the sharded build; (b) the kernel engine on the mesh
+    with the index over MESH_BATCHES of phase 4's feed, each batch held
+    to the unsharded repair; (c) a tight capacity; (d) the xla mesh
+    engine.  The serve driver with a range-sharded index runs in phase
+    10 (c)."""
+    phase("11. sharded walk index (walk_repair on four shards)")
+    import numpy as np
+    from repro_torch.core.pagerank import static_pagerank
+    from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
+        LAUNCH_COUNTS as SPMV_COUNTS
+    from repro_torch.kernels.pagerank_spmv.shard import ShardCapacityError
+    from repro_torch.kernels.walk_repair import walk_repair as wr
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.ppr import (IndexConfig, ShardedWalkIndex,
+                                 build_sharded_walk_index, build_walk_index,
+                                 ppr_estimate, repair_walk_index,
+                                 repair_walk_index_sharded,
+                                 shard_stale_counts)
+    from repro_torch.ppr import repair as ppr_repair
+    from repro_torch.ppr import shard as ppr_shard
+    from repro_torch.serve import IngestQueue, RankStore, ServeEngine, \
+        ServeMetrics
+    from repro_torch.serve import engine as serve_engine
+    t_phase = time.perf_counter()
+    cfg = IndexConfig(num_walks=PPR_WALKS, max_len=PPR_LEN, seed=SEED)
+    mesh = make_test_mesh(PPR_SHARDS, device=dev, model=PPR_SHARDS)
+    feed = make_feed(args, edges, n)[:MESH_BATCHES]
+    deg = graph.out_degree(include_self_loop=False).cpu().numpy()
+    seeds = sorted(int(v) for v in np.random.default_rng(SEED).choice(
+        np.flatnonzero(deg >= PPR_MIN_DEG), PPR_SEEDS, replace=False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(shards=PPR_SHARDS, mesh=str(mesh.shape))
+
+    # (a) the sharded build against the unsharded one
+    t0 = time.perf_counter()
+    plain = build_walk_index(graph, cfg)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = build_sharded_walk_index(graph, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    out["sharded_build_s"] = time.perf_counter() - t0
+    vps = sharded.spec.vertices_per_shard
+    check(len(sharded.steps) == PPR_SHARDS and same_walks(torch, sharded,
+                                                          plain),
+          f"(a) sharded build ({PPR_SHARDS} shards of {vps:,} start "
+          f"vertices, {out['sharded_build_s']:.2f} s) == the unsharded "
+          f"build ({out['build_s']:.2f} s), bit for bit")
+    del sharded
+
+    # (b) the kernel engine on the mesh with the index
+    rec = dict(repair=[], resample=[])
+    real = dict(repair=serve_engine.repair_walk_index_sharded,
+                resample=ppr_shard._resample)
+
+    def timed_repair(index, graph_new, touched, **kw):
+        rec["old"] = (index, graph_new, touched)
+        start, stop = cuda_events(torch)
+        start.record()
+        res = real["repair"](index, graph_new, touched, **kw)
+        stop.record()
+        rec["repair"].append((start, stop))
+        return res
+
+    def timed_resample(*a, **kw):
+        start, stop = cuda_events(torch)
+        start.record()
+        res = real["resample"](*a, **kw)
+        stop.record()
+        rec["resample"].append((start, stop))
+        return res
+
+    ranks0 = static_pagerank(graph).ranks
+    ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9, device=dev)
+    store, metrics = RankStore(), ServeMetrics()
+    eng = ServeEngine(graph, ingest, store, metrics=metrics,
+                      method="frontier_prune", engine="kernel", mesh=mesh,
+                      ppr_index=cfg)
+    rows, first = [], None
+    serve_engine.repair_walk_index_sharded = timed_repair
+    ppr_shard._resample = timed_resample
+    try:
+        t0 = time.perf_counter()
+        eng.bootstrap(ranks=ranks0)
+        torch.cuda.synchronize()
+        out["boot_s"] = time.perf_counter() - t0
+        served = store.snapshot().ppr_index
+        check(isinstance(served, ShardedWalkIndex)
+              and all(t.device == d for t, d in
+                      zip(served.steps, mesh.axis_devices("model")))
+              and same_walks(torch, served, plain),
+              f"(b) bootstrap built the index sharded over the mesh's "
+              f"model axis ({out['boot_s']:.2f} s) == the unsharded build")
+        spmv0 = SPMV_COUNTS["frontier_spmv"]
+        for b, events in enumerate(feed):
+            for kind, u, v in events:
+                ingest.submit(kind, u, v)
+            rec["repair"].clear()
+            rec["resample"].clear()
+            before = wr.LAUNCH_COUNTS["walk_repair"]
+            resampled0 = metrics.walks_resampled
+            with recording_syncs(torch) as syncs:
+                check(eng.step(force=True), f"[ppr mesh] batch {b} served")
+            launches = wr.LAUNCH_COUNTS["walk_repair"] - before
+            old, graph_new, touched = rec.pop("old")
+            by_shard = shard_stale_counts(old, touched)
+            del old
+            want = sum(-(-int(c) // ppr_repair.REPAIR_CHUNK_WALKS)
+                       for c in by_shard)
+            # the unsharded repair of the same batch, timed the same way
+            start, stop = cuda_events(torch)
+            start.record()
+            plain, k = repair_walk_index(plain, graph_new, touched)
+            stop.record()
+            stop.synchronize()
+            plain_ms = start.elapsed_time(stop)
+            repair_ms = sum(a.elapsed_time(z) for a, z in rec["repair"])
+            shard_ms = [a.elapsed_time(z) for a, z in rec["resample"]]
+            served = store.snapshot().ppr_index
+            if first is None:
+                first = served
+            row = dict(batch=b, latency_ms=metrics.update_latency_s[-1] * 1e3,
+                       stale_by_shard=[int(c) for c in by_shard],
+                       repair_ms=repair_ms, shard_resample_ms=shard_ms,
+                       unsharded_repair_ms=plain_ms, launches=launches,
+                       host_syncs=metrics.batch_host_syncs[-1],
+                       measured_syncs=len(syncs))
+            rows.append(row)
+            print(f"  [ppr mesh] batch {b}: latency_ms="
+                  f"{row['latency_ms']:.2f} stale by shard "
+                  f"{row['stale_by_shard']} repair_ms={repair_ms:.2f} "
+                  f"(resample a shard {median_max(shard_ms)} ms) beside "
+                  f"the unsharded repair {plain_ms:.2f} ms; walk_repair="
+                  f"{launches} host_syncs={row['host_syncs']} (measured "
+                  f"{len(syncs)})", flush=True)
+            check(same_walks(torch, served, plain),
+                  f"[ppr mesh] batch {b}: every shard == the unsharded "
+                  f"repair of the batch, bit for bit")
+            check(k == sum(row["stale_by_shard"])
+                  and metrics.walks_resampled - resampled0 == k,
+                  f"[ppr mesh] batch {b}: {k:,} walks resampled, the "
+                  f"shards' stale counts summed")
+            check(launches == want and launches > 0,
+                  f"[ppr mesh] batch {b}: walk_repair launched {launches} "
+                  f"times, once a shard with stale walks")
+            if row["host_syncs"] != len(syncs):
+                print(f"  [ppr mesh] batch {b}: synchronizing calls by "
+                      f"site {sync_sites(syncs)}")
+            check(row["host_syncs"] == len(syncs),
+                  f"[ppr mesh] batch {b}: host_syncs {row['host_syncs']} "
+                  f"== {len(syncs)} synchronizing calls")
+        # the serve path's launches (not the unsharded repairs beside it)
+        out["launches"] = dict(
+            walk_repair=sum(r["launches"] for r in rows),
+            frontier_spmv=SPMV_COUNTS["frontier_spmv"] - spmv0)
+        check(out["launches"]["frontier_spmv"] > 0,
+              f"frontier_spmv launched on the sharded PPR serve path "
+              f"({out['launches']})")
+        # queries over the shards against the unsharded index
+        q = []
+        for sd in seeds:
+            t = time.perf_counter()
+            est = ppr_estimate(served, [sd])
+            torch.cuda.synchronize()
+            q_ms = (time.perf_counter() - t) * 1e3
+            one = ppr_estimate(plain, [sd])
+            linf = float((est - one).abs().max())
+            q.append(dict(seed=sd, ms=q_ms, linf=linf))
+            check(linf <= 1e-12 and top10_agrees(torch, est, one),
+                  f"[ppr mesh] seed {sd}: top-10 == the unsharded index's, "
+                  f"L_inf {linf:.3e} <= 1e-12 ({q_ms:.2f} ms)")
+        out["queries"] = q
+        # (c) a tight capacity on the last batch's touched set
+        final_graph = store.snapshot().graph
+        counts = shard_stale_counts(served, touched)
+        tight = max(1, int(counts.max()) // 2)
+        try:
+            repair_walk_index_sharded(served, final_graph, touched,
+                                      capacity=tight)
+            over = None
+        except ShardCapacityError as e:
+            over = list(e.shards)
+        check(bool(over) and all(counts[s] > tight for s in over),
+              f"(c) capacity {tight:,} (stale by shard {counts.tolist()}) "
+              f"raises ShardCapacityError naming shards {over}")
+        drop0 = ppr_shard.REPAIR_COUNTS["dropped_stale"]
+        got, _ = repair_walk_index_sharded(served, final_graph, touched,
+                                           capacity=tight, check=False)
+        dropped = ppr_shard.REPAIR_COUNTS["dropped_stale"] - drop0
+        check(dropped == sum(int(c) - tight for c in counts if c > tight),
+              f"(c) check=False drops {dropped:,} stale walks, the "
+              f"overflow past {tight:,} a shard")
+        del got
+    finally:
+        serve_engine.repair_walk_index_sharded = real["repair"]
+        ppr_shard._resample = real["resample"]
+    del eng, plain, served
+    out["rows"] = rows
+    lat = sorted(r["latency_ms"] for r in rows)
+    out["latency_median_ms"] = lat[len(lat) // 2]
+    shard_all = [m for r in rows for m in r["shard_resample_ms"]]
+    sharded_txt = median_max([r["repair_ms"] for r in rows])
+    plain_txt = median_max([r["unsharded_repair_ms"] for r in rows])
+    phase5_txt = ("" if unsharded is None else "; phase 5's unsharded "
+                  "repair " + median_max([r["repair_ms"]
+                                          for r in unsharded["rows"]])
+                  + " ms")
+    print(f"  [ppr mesh] repair a batch {sharded_txt} ms; resample a "
+          f"shard {median_max(shard_all)} ms; the unsharded repair of the "
+          f"same batches {plain_txt} ms{phase5_txt}", flush=True)
+
+    # (d) the xla engine on the 2 x 2 test mesh with the index, one batch
+    square = make_test_mesh(4, device=dev)
+    ingest = IngestQueue(flush_size=FLUSH, flush_interval=1e9, device=dev)
+    store = RankStore()
+    eng = ServeEngine(graph, ingest, store, metrics=ServeMetrics(),
+                      method="frontier_prune", engine="xla", mesh=square,
+                      ppr_index=cfg)
+    eng.bootstrap(ranks=ranks0)
+    for kind, u, v in feed[0]:
+        ingest.submit(kind, u, v)
+    t0 = time.perf_counter()
+    check(eng.step(force=True), "(d) xla mesh batch 0 served")
+    torch.cuda.synchronize()
+    out["xla_step_s"] = time.perf_counter() - t0
+    got = store.snapshot().ppr_index
+    check(len(got.steps) == square.shape["model"]
+          and same_walks(torch, got, first),
+          f"(d) xla engine on the {square.shape} mesh: its "
+          f"{len(got.steps)}-shard index after batch 0 == the kernel mesh "
+          f"engine's, bit for bit ({out['xla_step_s']:.2f} s)")
+    del eng, got, first
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase {out['phase_s']:.1f} s; launches {out['launches']}",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the GNN family's training step at full width
+# ---------------------------------------------------------------------------
+
+# (architecture, cell) trained at the full config, TRAIN_STEPS AdamW steps
+TRAIN_CELLS = (("graphsage-reddit", "ogb_products"),
+               ("graphsage-reddit", "minibatch_lg"),
+               ("pna", "full_graph_sm"), ("pna", "minibatch_lg"),
+               ("graphcast", "full_graph_sm"),
+               ("graphcast", "minibatch_lg"), ("nequip", "molecule"))
+TRAIN_STEPS = 3
+# cells whose steps are also run on the host's CPU and compared
+TRAIN_CPU_CELLS = ("full_graph_sm", "molecule")
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (NaN included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        kind = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(kind), b.view(kind))
+    return torch.equal(a, b)
+
+
+def close_nan(torch, got, want, rtol, atol_frac):
+    """(ok, max abs err): finite where ``want`` is, NaN where it is NaN,
+    and |got - want| <= atol_frac · max|want| + rtol · |want|; in f64 on
+    ``want``'s device."""
+    want = want.detach().double()
+    got = got.detach().to(want.device).double()
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        return False, float("inf")
+    if not bool(fin.any()):
+        return True, 0.0
+    g, w = got[fin], want[fin]
+    diff = (g - w).abs()
+    big = float(w.abs().max())
+    return (bool((diff <= atol_frac * big + rtol * w.abs()).all()),
+            float(diff.max()))
+
+
+def unrun_cell_bytes(arch, cell):
+    """Bytes of the largest tensors a full-width step of a cell saves for
+    its backward, where one card cannot hold them, else None."""
+    d = cell.dims
+    if cell.name != "ogb_products":
+        return None
+    e = -(-d["n_edges"] // 512) * 512
+    if arch == "pna":          # msg_in f32[E, 2·75] a layer, 4 layers
+        return e * 150 * 4 * 4, "msg_in f32[E, 150] a layer, x4 layers"
+    if arch == "graphcast":    # [hm[src], hm[dst]] f32[E, 1024] a round
+        return e * 1024 * 4 * 16, "edge inputs f32[E, 1024] a round, x16"
+    if arch == "nequip":       # v_src, m1 [E, 3, 32], m2 [E, 5, 32] a layer
+        return e * (3 + 3 + 5) * 32 * 4 * 5, \
+            "v_src, m1 f32[E, 3, 32], m2 f32[E, 5, 32] a layer, x5"
+    return None
+
+
+def sampled_blocks(torch, dev, graph, n, spec, cell):
+    """graphsage-reddit's minibatch_lg batch from blocks the ported
+    NeighborSampler draws on the set-up graph's CSR (host), with random
+    features (a table on the card, gathered) and labels from the seed."""
+    import numpy as np
+    from repro_torch.graph.sampling import NeighborSampler
+    d = cell.dims
+    csr = graph.to_device_csr()
+    indptr = csr.indptr.cpu().numpy()
+    indices = csr.indices.cpu().numpy()
+    seeds = np.random.default_rng(SEED).choice(n, d["batch_nodes"],
+                                               replace=False)
+    fanouts = (d["fanout0"], d["fanout1"])
+    t0 = time.perf_counter()
+    sb = NeighborSampler(indptr, indices, fanouts, seed=SEED).sample(seeds)
+    host_ms_ = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    table = torch.randn(n, spec.config.d_in, generator=gen, device=dev)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.asarray(a)).to(device=dev, dtype=dtype)
+    hop1, hop2 = sb.blocks
+    feats = [table.index_select(0, up(b, torch.int64))
+             for b in (hop2.nodes, hop1.nodes, sb.seeds)]
+    del table
+    batch = dict(
+        blocks_feats=feats,
+        blocks_parent=[up(hop2.parent, torch.int32),
+                       up(hop1.parent, torch.int32)],
+        blocks_mask=[up(hop2.mask, torch.bool), up(hop1.mask, torch.bool)],
+        labels=torch.randint(0, spec.config.n_classes, (len(seeds),),
+                             generator=gen, device=dev, dtype=torch.int32))
+    live = int(hop1.mask.sum()) + int(hop2.mask.sum())
+    print(f"  [sampler] {len(seeds)} seeds, fanouts {fanouts}: blocks of "
+          f"{len(hop1.nodes):,} and {len(hop2.nodes):,} rows ({live:,} "
+          f"sampled edges) drawn on the host in {host_ms_:.1f} ms",
+          flush=True)
+    return batch, host_ms_
+
+
+def train_cell(torch, dev, spec, cell, tag, batch=None):
+    """TRAIN_STEPS AdamW steps of one cell at its full config: loss
+    finite (or NaN exactly where the CPU's is), bitwise run to run, each
+    pull_rows call of a step held to pull_rows_ref on the card, and on
+    TRAIN_CPU_CELLS the steps held to the same steps on the CPU."""
+    import copy
+    import dataclasses
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    from repro_torch.models import gnn as G
+    from repro_torch.models import message
+    from repro_torch.models.tree import tree_map
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    cfg = TI.effective_config(spec, cell, False)
+    spec_eff = dataclasses.replace(spec, config=cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    row = dict(arch=spec.arch_id, cell=cell.name, tag=tag)
+    t_cell = t0 = time.perf_counter()
+    if batch is None:
+        batch = TI.build_inputs(spec, cell, concrete=True, smoke=False,
+                                seed=1, device=dev)
+    torch.cuda.synchronize()
+    row["inputs_s"] = time.perf_counter() - t0
+    row["input_bytes"] = TI.input_bytes(batch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = TI.init_fn(spec_eff)(gen)
+    init = copy.deepcopy(params)
+    row["param_count"] = sum(p.numel() for p in params.leaves())
+    loss_fn = TS.make_gnn_loss(spec.arch_id, cfg)
+    step = TS.make_gnn_train_step(spec.arch_id, cfg)
+
+    def run_steps(p, record=None, data=batch):
+        opt = init_adamw(p)
+        losses = []
+        for s in range(TRAIN_STEPS):
+            if record is None:
+                p, opt, loss = step(p, opt, data)
+                losses.append(loss)
+                continue
+            launches = pc.LAUNCH_COUNTS["pull_rows"]
+            start, stop = cuda_events(torch)
+            t = time.perf_counter()
+            with recording_syncs(torch) as syncs:
+                start.record()
+                p, opt, loss = step(p, opt, batch)
+                stop.record()
+            stop.synchronize()
+            record.append(dict(
+                step=s, ms=start.elapsed_time(stop),
+                wall_ms=(time.perf_counter() - t) * 1e3,
+                host_syncs=len(syncs),
+                pull_rows=pc.LAUNCH_COUNTS["pull_rows"] - launches,
+                loss=float(loss)))
+            losses.append(loss)
+        return p, losses
+
+    # the main path: TRAIN_STEPS steps, counted
+    steps = []
+    launches0 = pc.LAUNCH_COUNTS["pull_rows"]
+    params, losses = run_steps(params, steps)
+    row["pull_rows_launches"] = pc.LAUNCH_COUNTS["pull_rows"] - launches0
+    row["steps"] = steps
+    row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # forward launches alone (no gradient kept); the rest are backward's
+    f0 = pc.LAUNCH_COUNTS["pull_rows"]
+    with torch.no_grad():
+        loss_fn(params, batch)
+    row["pull_rows_forward"] = pc.LAUNCH_COUNTS["pull_rows"] - f0
+    row["pull_rows_backward"] = steps[0]["pull_rows"] - \
+        row["pull_rows_forward"]
+    ms = sorted(s["ms"] for s in steps)
+    row["ms_median"] = ms[len(ms) // 2]
+    step_ms = ", ".join(f"{s['ms']:.2f}" for s in steps)
+    wall_ms = ", ".join(f"{s['wall_ms']:.2f}" for s in steps)
+    print(f"  [{tag}] {row['param_count']:,} parameters, inputs "
+          f"{row['input_bytes'] / 1e9:.3f} GB built in {row['inputs_s']:.2f}"
+          f" s; a step {step_ms} ms (wall {wall_ms}); "
+          f"losses {[s['loss'] for s in steps]}; host syncs a step "
+          f"{[s['host_syncs'] for s in steps]}; pull_rows a step "
+          f"{steps[0]['pull_rows']} (forward {row['pull_rows_forward']}, "
+          f"backward {row['pull_rows_backward']}); peak "
+          f"{row['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    check(bool(torch.isfinite(losses[0])),
+          f"[{tag}] step 0's loss {float(losses[0]):.6g} is finite")
+    # sampled blocks have no gather to differentiate: a sum's backward is
+    # a gather, so that step launches pull_rows in its forward only
+    blocks = "blocks_parent" in batch
+    check(row["pull_rows_forward"] > 0
+          and (row["pull_rows_backward"] > 0 or blocks),
+          f"[{tag}] pull_rows launched in the forward"
+          + ("" if blocks else " and the backward"))
+    # bit for bit run to run: gradients, then the steps again
+    p_a, p_b = copy.deepcopy(init), copy.deepcopy(init)
+    la, ga = TS.value_and_grad(loss_fn, p_a, batch)
+    lb, gb = TS.value_and_grad(loss_fn, p_b, batch)
+    check(bits_equal(torch, la, lb)
+          and all(bits_equal(torch, x, y) for x, y in zip(ga, gb)),
+          f"[{tag}] loss and {len(ga)} gradients bitwise run to run")
+    row["nan_grads"] = int(sum(int(torch.isnan(g).sum()) for g in ga))
+    del gb
+    again, losses2 = run_steps(copy.deepcopy(init))
+    check(all(bits_equal(torch, x, y) for x, y in zip(losses, losses2))
+          and all(bits_equal(torch, x.detach(), y.detach())
+                  for x, y in zip(params.leaves(), again.leaves())),
+          f"[{tag}] {TRAIN_STEPS} steps again: losses and parameters "
+          f"bitwise")
+    del again
+    # each pull_rows call of a step against its plain version on the card
+    real = dict(message=message.pull_rows, gnn=G.pull_rows)
+    errs = dict(calls=0, bad=0, max_abs_err=0.0)
+
+    def held(order, x, **kw):
+        res = real["message"](order, x, **kw)
+        ok, err = close_nan(torch, res, pull_rows_ref(order, x), GNN_RTOL,
+                            GNN_ATOL)
+        errs["calls"] += 1
+        errs["bad"] += not ok
+        errs["max_abs_err"] = max(errs["max_abs_err"], err)
+        return res
+    message.pull_rows = G.pull_rows = held
+    try:
+        TS.value_and_grad(loss_fn, copy.deepcopy(init), batch)
+    finally:
+        message.pull_rows, G.pull_rows = real["message"], real["gnn"]
+    row["pull_rows_check"] = errs
+    check(errs["calls"] > 0 and errs["bad"] == 0,
+          f"[{tag}] {errs['calls']} pull_rows calls of a step (forward and "
+          f"backward) == pull_rows_ref on the card within rtol {GNN_RTOL} / "
+          f"atol {GNN_ATOL}·max (max abs err {errs['max_abs_err']:.3e})")
+    # the same step on the CPU: its loss and every gradient, then the
+    # losses of TRAIN_STEPS steps.  The parameters after the steps are
+    # printed, not held: from the second step AdamW moves each parameter
+    # by ~lr·sign(g), so an element whose gradient is within rounding of
+    # 0 moves either way on either device (graphcast's full config, with
+    # activations near 1e15, has many)
+    if cell.name in TRAIN_CPU_CELLS:
+        t0 = time.perf_counter()
+        cpu_batch = tree_map(lambda t: t.cpu(), batch)
+        cl, cg = TS.value_and_grad(loss_fn, copy.deepcopy(init).to("cpu"),
+                                   cpu_batch)
+        ok, _ = close_nan(torch, la, cl, 1e-5, 0.0)
+        worst = 0.0
+        for x, y in zip(ga, cg):
+            good, err = close_nan(torch, x, y, 1e-4, 1e-5)
+            ok &= good
+            worst = max(worst, err)
+        del cg
+        cpu, cpu_losses = run_steps(copy.deepcopy(init).to("cpu"),
+                                    data=cpu_batch)
+        for x, y in zip(losses, cpu_losses):
+            ok &= close_nan(torch, x, y, 1e-5, 0.0)[0]
+        row["cpu_s"] = time.perf_counter() - t0
+        row["cpu_grad_max_abs_err"] = worst
+        check(ok, f"[{tag}] == the same step on the CPU "
+              f"({row['cpu_s']:.1f} s): loss rtol 1e-5, {len(ga)} "
+              f"gradients rtol 1e-4 / atol 1e-5·max (max abs err "
+              f"{worst:.3e}), the {TRAIN_STEPS} steps' losses rtol 1e-5")
+        off, p_err = 0, 0.0
+        for x, y in zip(params.leaves(), cpu.leaves()):
+            x, y = x.detach().double().cpu(), y.detach().double()
+            d = (x - y).abs()
+            p_err = max(p_err, float(d.max()))
+            off += int((d > 1e-5 * float(y.abs().max())
+                        + 1e-4 * y.abs()).sum())
+        row.update(cpu_param_max_abs_err=p_err, cpu_params_off=off)
+        print(f"  [{tag}] parameters after {TRAIN_STEPS} steps vs the CPU: "
+              f"max abs err {p_err:.3e}, {off:,} of {row['param_count']:,} "
+              f"past rtol 1e-4 / atol 1e-5·max", flush=True)
+        del cpu, cpu_batch
+    del ga
+    if row["nan_grads"]:
+        print(f"  [{tag}] {row['nan_grads']:,} gradient entries are NaN "
+              f"(the reference's std aggregator: sqrt at zero variance); "
+              f"losses after step 0 {[float(x) for x in losses[1:]]}",
+              flush=True)
+    row["cell_s"] = time.perf_counter() - t_cell
+    print(f"  [{tag}] {row['cell_s']:.1f} s", flush=True)
+    del params, batch, init
+    return row
+
+
+def train_case(torch, dev):
+    """pull_rows at a training width: graphcast's processor sum by dst
+    (d = 512) on minibatch_lg's slot order, against its plain version and
+    one cuSPARSE SpMM of the same matrix, with its bytes bound."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    from repro_torch.models.message import slot_order
+    from repro_torch.train import inputs as TI
+    spec = REGISTRY["graphcast"]
+    cell = spec.shapes["minibatch_lg"]
+    b = TI.build_inputs(spec, cell, concrete=True, smoke=False, seed=1,
+                        device=dev)
+    dst, m = b["edge_dst"], b["mesh_feats"].shape[0]
+    del b
+    order, _ = slot_order(dst, m)
+    e, d = dst.shape[0], spec.config.d_hidden
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.randn(e, d, generator=gen, device=dev)
+    call = lambda: pc.pull_rows(order, x, hot_bytes=0)   # noqa: E731
+    res = call()
+    check(torch.equal(call(), res), f"pull_rows at d={d} (slot order): "
+          "bitwise run to run")
+    ok, err = close_nan(torch, res, pull_rows_ref(order, x), GNN_RTOL,
+                        GNN_ATOL)
+    check(ok, f"pull_rows at d={d} (slot order) == pull_rows_ref within "
+          f"the GNN tolerance (max abs err {err:.3e})")
+    ms = time_ms(torch, call, reps=5, warmup=1)
+    plain_ms = time_ms(torch, lambda: pull_rows_ref(order, x), reps=2,
+                       warmup=1)
+    a = torch.sparse_csr_tensor(
+        order.ptr.long(), order.src.long(),
+        torch.ones(e, dtype=torch.float32, device=dev), (m, e),
+        check_invariants=False)
+    lok, lerr = close_nan(torch, torch.sparse.mm(a, x), res, GNN_RTOL,
+                          GNN_ATOL)
+    library_ms = (time_ms(torch, lambda: torch.sparse.mm(a, x), reps=5,
+                          warmup=1) if lok else None)
+    bound_ms, bound_by, detail = pull_rows_bound(torch, order, d)
+    print(f"  pull_rows d={d} on graphcast minibatch_lg's slots by dst "
+          f"({e:,} slots into {m:,} rows): kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
+          + ("- (cuSPARSE disagrees)" if library_ms is None
+             else f"{library_ms:.4f} (cuSPARSE CSR SpMM)"), flush=True)
+    del x, a, res
+    return dict(case=f"train d={d}", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                max_abs_err=err, library_err=lerr, **detail)
+
+
+def train_checks(args, torch, dev, edges, n, graph):
+    """Phase 12: TRAIN_CELLS at their full configs, TRAIN_STEPS AdamW
+    steps each (graphsage-reddit's minibatch_lg twice: its random blocks,
+    then blocks the sampler draws on the set-up graph); the cells one
+    card cannot hold listed with their bytes; pull_rows at a training
+    width."""
+    phase("12. GNN training (pull_rows forward and backward)")
+    from repro_torch.configs.registry import REGISTRY
+    t_phase = time.perf_counter()
+    rows = []
+    for arch, cell_name in TRAIN_CELLS:
+        spec = REGISTRY[arch]
+        rows.append(train_cell(torch, dev, spec, spec.shapes[cell_name],
+                               f"{arch} {cell_name}"))
+        if (arch, cell_name) == ("graphsage-reddit", "minibatch_lg"):
+            cell = spec.shapes[cell_name]
+            batch, sample_ms = sampled_blocks(torch, dev, graph, n, spec,
+                                              cell)
+            r = train_cell(torch, dev, spec, cell,
+                           f"{arch} {cell_name} sampled", batch=batch)
+            r["sampler_host_ms"] = sample_ms
+            rows.append(r)
+    not_run = []
+    for spec in REGISTRY.values():
+        if spec.family != "gnn":
+            continue
+        for cell in spec.shapes.values():
+            if (spec.arch_id, cell.name) in TRAIN_CELLS:
+                continue
+            big = unrun_cell_bytes(spec.arch_id, cell)
+            not_run.append(dict(
+                arch=spec.arch_id, cell=cell.name,
+                bytes=None if big is None else big[0],
+                why=("one card cannot hold it: " + big[1]) if big
+                else "not in this phase's list"))
+    for r in not_run:
+        if r["bytes"] is not None:
+            print(f"  not run: {r['arch']} {r['cell']}: "
+                  f"{r['bytes'] / 1e9:.1f} GB ({r['why']})")
+    print("  not run (not in this phase's list): " + ", ".join(
+        f"{r['arch']} {r['cell']}" for r in not_run if r["bytes"] is None))
+    case = train_case(torch, dev)
+    out = dict(cells=rows, not_run=not_run, case=case,
+               launches=sum(r["pull_rows_launches"] for r in rows),
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  phase {out['phase_s']:.1f} s; pull_rows launched "
+          f"{out['launches']} times on the train steps", flush=True)
     return out
 
 
@@ -3595,6 +4318,14 @@ def main(argv=None) -> int:
                     help="run only the set-up and phase 10 (the tuner, "
                          "the sharded engines); prints its launches last "
                          "and no summary")
+    ap.add_argument("--ppr-mesh-only", action="store_true",
+                    help="run only the set-up and phase 11 (the sharded "
+                         "walk index); prints its launches last and no "
+                         "summary")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only the set-up and phase 12 (GNN "
+                         "training); prints its launches last and no "
+                         "summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
                     help="run only the set-up, phase 3's frontier_spmv and "
                          "phase 3b's pull_contrib and edge-slot count "
@@ -3651,6 +4382,22 @@ def run(args, torch, dev, t_start) -> int:
                              mesh=only))
         print(json.dumps({"mesh_launches": only["launches"]}))
         return 0
+    if args.ppr_mesh_only:
+        only = ppr_mesh_checks(args, torch, dev, edges, n, graph)
+        peak_memory(torch, "11")
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             ppr_mesh=only))
+        print(json.dumps({"ppr_mesh_launches": only["launches"]}))
+        return 0
+    if args.train_only:
+        only = train_checks(args, torch, dev, edges, n, graph)
+        peak_memory(torch, "12")
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             train=only))
+        print(json.dumps({"train_launches": only["launches"]}))
+        return 0
     if args.replicas_only:
         only = replica_checks(args, torch, dev, edges, n, graph)
         peak_memory(torch, "9")
@@ -3694,9 +4441,16 @@ def run(args, torch, dev, t_start) -> int:
     torch.cuda.empty_cache()
     mesh = mesh_checks(args, torch, dev, edges, n, graph)
     peak_memory(torch, "10")
+    torch.cuda.empty_cache()
+    ppr_mesh = ppr_mesh_checks(args, torch, dev, edges, n, graph,
+                               unsharded=ppr)
+    peak_memory(torch, "11")
+    torch.cuda.empty_cache()
+    train = train_checks(args, torch, dev, edges, n, graph)
+    peak_memory(torch, "12")
     extra = replicas["launches"]           # phase 9's launches
 
-    phase("11. summary")
+    phase("13. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -3704,7 +4458,8 @@ def run(args, torch, dev, t_start) -> int:
         source="src/repro_torch/kernels/pagerank_spmv/csrc/frontier_spmv.cu",
         replaces="src/repro/kernels/pagerank_spmv/pagerank_spmv.py:239",
         launches=serve["kernel"]["launches"].get("frontier_spmv", 0)
-        + extra["frontier_spmv"] + mesh["launches"],
+        + extra["frontier_spmv"] + mesh["launches"]
+        + ppr_mesh["launches"]["frontier_spmv"],
         max_abs_err=max(max_err, mesh["tune"]["max_abs_err"],
                         mesh["shard_kernels"]["max_abs_err"]),
         ms=main_case["ms"],
@@ -3714,7 +4469,8 @@ def run(args, torch, dev, t_start) -> int:
         name="walk_repair", route="cuda",
         source="src/repro_torch/kernels/walk_repair/csrc/walk_repair.cu",
         replaces="src/repro/kernels/walk_repair/walk_repair.py:72",
-        launches=ppr["launches"]["walk_repair"] + extra["walk_repair"],
+        launches=ppr["launches"]["walk_repair"] + extra["walk_repair"]
+        + ppr_mesh["launches"]["walk_repair"],
         max_abs_err=ppr["kernel"]["max_abs_err"], ms=ppr["kernel"]["ms"],
         plain_ms=ppr["kernel"]["plain_ms"],
         bound_ms=ppr["kernel"]["bound_ms"],
@@ -3778,8 +4534,10 @@ def run(args, torch, dev, t_start) -> int:
         name="pull_rows", route="cuda",
         source="src/repro_torch/kernels/pull_contrib/csrc/pull_contrib.cu",
         replaces="none: the port's own kernel, the f32 index_add_ of "
-                 "src/repro_torch/models/gnn.py neighbor_sum",
-        launches=gnn["row_launches"],
+                 "src/repro_torch/models/gnn.py neighbor_sum, and the "
+                 "train step's segment sums and gather backwards "
+                 "(src/repro_torch/models/message.py)",
+        launches=gnn["row_launches"] + train["launches"],
         max_abs_err=gnn["row_sum"]["max_abs_err"], ms=row_case["ms"],
         plain_ms=row_case["plain_ms"], bound_ms=row_case["bound_ms"],
         bound_by=row_case["bound_by"], library_ms=row_case["library_ms"]))
@@ -3793,8 +4551,8 @@ def run(args, torch, dev, t_start) -> int:
                          serve={k: v for k, v in serve.items()
                                 if k != "final_ranks"},
                          ppr=ppr, gnn=gnn, paper=paper, obs=observ,
-                         replicas=replicas, mesh=mesh,
-                         kernels=kernels, wall_s=wall))
+                         replicas=replicas, mesh=mesh, ppr_mesh=ppr_mesh,
+                         train=train, kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 
 The rank service has no weights; its state is the graph, the packed
 structure, the update batch, the ranks and the PPR walk index.  The GNN
-refresh adds GraphSAGE parameters.  These functions build each of them from
+refresh adds GraphSAGE parameters, and training every GNN's parameters
+and an AdamW state (``gnn_params_from_numpy``, ``adamw_state_from_numpy``;
+``*_to_numpy`` hand them back, so the two packages can be compared after
+k steps).  These functions build each of them from
 plain NumPy arrays and ints (for example arrays read out of the JAX
 package with ``np.asarray``), so two implementations can be handed the
 same state.  Arrays are copied to ``device`` with their dtypes fixed to
@@ -18,6 +21,8 @@ from repro_torch.graph.dynamic import BatchUpdate
 from repro_torch.graph.structure import CSRView, EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import PackedGraph
 from repro_torch.models.gnn import SAGE
+from repro_torch.models.tree import ParamTree, tree_map
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.ppr.walks import WalkIndex
 
 
@@ -97,3 +102,63 @@ def sage_params_from_numpy(params, device: DeviceLike = None) -> SAGE:
     device = resolve_device(device)
     return SAGE([{k: tuple(_t(a, np.float32, device) for a in lp[k])
                   for k in ("w_self", "w_neigh")} for lp in params])
+
+
+def gnn_params_from_numpy(arch_id: str, params,
+                          device: DeviceLike = None) -> ParamTree:
+    """A GNN's parameters from the reference's ``init_*`` pytree of
+    arrays (dicts, lists and tuples as the reference nests them), each
+    leaf f32 (the reference draws NequIP's ``embed`` and ``mix_v`` in its
+    default float, f64 under x64; the port trains in f32)."""
+    device = resolve_device(device)
+    if arch_id == "graphsage-reddit":
+        return sage_params_from_numpy(params, device)
+    return ParamTree(tree_map(lambda a: _t(a, np.float32, device), params))
+
+
+def gnn_params_to_numpy(params: ParamTree):
+    """A GNN's parameters as the reference nests them, each leaf a host
+    NumPy copy."""
+    return tree_map(lambda p: p.detach().cpu().numpy(), params.tree)
+
+
+def _flatten_up_to(like, tree) -> list:
+    """``tree``'s subtrees at the leaves of ``like`` (the reference's
+    ``treedef.flatten_up_to``): a factored second moment's (row, col)
+    pair stays one entry."""
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        return [x for k in sorted(like)
+                for x in _flatten_up_to(like[k], tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for a, b in zip(like, tree) for x in _flatten_up_to(a, b)]
+    return [tree]
+
+
+def adamw_state_from_numpy(params, step, m, v,
+                           device: DeviceLike = None) -> AdamWState:
+    """An ``AdamWState`` from the reference's (``step``, ``m``, ``v``)
+    pytrees of arrays, with ``params`` the reference's parameter pytree
+    (its structure pairs the leaves): lists in flatten order, each moment
+    keeping its dtype."""
+    device = resolve_device(device)
+
+    def put(a):
+        a = np.asarray(a)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        m=[put(a) for a in _flatten_up_to(params, m)],
+        v=[tuple(put(x) for x in a) if isinstance(a, tuple) else put(a)
+           for a in _flatten_up_to(params, v)])
+
+
+def adamw_state_to_numpy(state: AdamWState):
+    """(step, m, v) of a state as host NumPy: lists in flatten order."""
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    return (int(state.step), [host(t) for t in state.m],
+            [tuple(host(x) for x in t) if isinstance(t, tuple) else host(t)
+             for t in state.v])

@@ -46,7 +46,8 @@ def incremental_refresh(graph: EdgeListGraph, feats: torch.Tensor,
     elsewhere; ``affected_ever`` reports the work skipped.
     """
     affected = touched | graph.push_or(touched)
-    new_full = layer_fn(graph, feats)
+    with torch.no_grad():        # serving: no parameter gradient is kept
+        new_full = layer_fn(graph, feats)
     # relative movement of each candidate vertex (Δr/r on vectors)
     dn = torch.linalg.vector_norm(new_full - old_embeddings, dim=-1)
     base = torch.linalg.vector_norm(old_embeddings, dim=-1).clamp(min=1e-12)

@@ -98,20 +98,21 @@ def pull_contrib_ref(order: PullOrder, ranks: torch.Tensor,
 def pull_rows_ref(order: PullOrder, x: torch.Tensor,
                   chunk_slots: int = ROW_CHUNK,
                   slots_at_once: Optional[int] = None) -> torch.Tensor:
-    """f32[V, D]: out[v] = the sum of the rows x[src[k]] over v's segment,
-    cut as the kernel cuts it: chunks of at most ``chunk_slots`` slots,
-    each summed in slot order from +0.0, then a vertex's chunk sums added
-    in chunk order to its first.  The gathered rows are taken
-    ``slots_at_once`` (default ``EDGE_CHUNK``) slots at a time."""
+    """f32[V, D] (f64 for f64 rows): out[v] = the sum of the rows
+    x[src[k]] over v's segment, cut as the kernel cuts it: chunks of at
+    most ``chunk_slots`` slots, each summed in slot order from +0.0, then
+    a vertex's chunk sums added in chunk order to its first.  The gathered
+    rows are taken ``slots_at_once`` (default ``EDGE_CHUNK``) slots at a
+    time."""
     if slots_at_once is None:
         slots_at_once = EDGE_CHUNK
     V, d = order.ptr.shape[0] - 1, x.shape[1]
+    # f32 sums (the kernel's); f64 rows stay f64 (gradient checks)
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
     row, owner = chunk_rows(order.ptr, chunk_slots)
-    buf = torch.zeros(V + owner.shape[0], d, dtype=torch.float32,
-                      device=x.device)
+    buf = torch.zeros(V + owner.shape[0], d, dtype=dtype, device=x.device)
     for s in range(0, row.shape[0], slots_at_once):
         e = min(s + slots_at_once, row.shape[0])
-        buf.index_add_(0, row[s:e],
-                       x[order.src[s:e].long()].to(torch.float32))
+        buf.index_add_(0, row[s:e], x[order.src[s:e].long()].to(dtype))
     out = buf[:V]
     return out.index_add_(0, owner, buf[V:])

@@ -82,7 +82,9 @@ def main(argv=None):
     ap.add_argument("--ppr-walks", type=int, default=0,
                     help="maintain a PPR walk index with R walks/vertex "
                          "(0 = off); query bursts then include a "
-                         "personalized top-k")
+                         "personalized top-k; combined with --mesh the "
+                         "index is range-sharded over the mesh's model "
+                         "axis and repaired per shard")
     ap.add_argument("--ppr-len", type=int, default=16,
                     help="walk-index max length L (with --ppr-walks)")
     ap.add_argument("--ckpt-dir", default="")

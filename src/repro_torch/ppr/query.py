@@ -54,23 +54,46 @@ def _keyed_sum(keys: torch.Tensor, rows: int, values: torch.Tensor,
     return pull_values(order, values)
 
 
+def _counts_local(steps: torch.Tensor, sources: torch.Tensor,
+                  weights: torch.Tensor, v_start: int,
+                  num_vertices: int) -> torch.Tensor:
+    """f64[num_vertices] visit counts contributed by the rows of one
+    start-vertex range [v_start, v_start + steps.shape[0]): sources
+    outside the range add nothing, so adding the ranges' results gives the
+    whole aggregation (``ppr.shard``).  With ``v_start=0`` and a whole
+    index this is the unsharded aggregation."""
+    vps, R, L = steps.shape
+    loc = sources.long() - v_start
+    own = (loc >= 0) & (loc < vps)
+    sel = steps[loc.clamp(0, vps - 1)]                    # [B, R, L]
+    keys = torch.where(own[:, None, None], sel, -1)
+    return _keyed_sum(keys.reshape(-1), R * L, weights, num_vertices)
+
+
 def _counts(steps: torch.Tensor, sources: torch.Tensor,
             weights: torch.Tensor) -> torch.Tensor:
     """f64[V] Σ over walk positions of the gathered ``sources`` rows,
     each position weighted by its source's scalar weight."""
-    V, R, L = steps.shape
-    sel = steps[sources.long()]                           # [B, R, L]
-    return _keyed_sum(sel.reshape(-1), R * L, weights, V)
+    return _counts_local(steps, sources, weights, 0, steps.shape[0])
 
 
-def _direct_estimate(steps: torch.Tensor, alpha: float,
-                     seeds: torch.Tensor, normalize: bool) -> torch.Tensor:
+def _index_counts(index):
+    """(sources, weights) -> f64[V] visit counts over ``index``'s walks,
+    whole or sharded."""
+    if isinstance(index, WalkIndex):
+        return lambda s, w: _counts(index.steps, s, w)
+    from repro_torch.ppr.shard import sharded_counts
+    return lambda s, w: sharded_counts(index, s, w)
+
+
+def _direct_estimate(index, seeds: torch.Tensor,
+                     normalize: bool) -> torch.Tensor:
     """Raw estimator: (1-α)/R · visit counts of the seeds' own walks."""
-    R = steps.shape[1]
+    R, alpha = index.num_walks, index.alpha
     n_seeds = float(seeds.shape[0])
     w = torch.full(seeds.shape, (1.0 - alpha) / (R * n_seeds), dtype=F64,
-                   device=steps.device)
-    est = _counts(steps, seeds, w)
+                   device=seeds.device)
+    est = _index_counts(index)(seeds, w)
     if normalize:
         est = est / est.sum().clamp(min=1e-300)
     return est
@@ -100,17 +123,6 @@ def _nbr_slab(indptr: torch.Tensor, indices: torch.Tensor, deg: torch.Tensor,
     return nbr.reshape(-1), w_nbr.reshape(-1)
 
 
-def _unrolled_chunk(steps: torch.Tensor, indptr: torch.Tensor,
-                    indices: torch.Tensor, deg: torch.Tensor, alpha: float,
-                    seeds: torch.Tensor, offset: int,
-                    width: int) -> torch.Tensor:
-    """Visit counts of neighbour columns [offset, offset+width) of each
-    seed's CSR row: one bounded slab of the unrolled estimator."""
-    nbr, w_nbr = _nbr_slab(indptr, indices, deg, alpha, seeds, offset,
-                           width, steps.shape[1])
-    return _counts(steps, nbr, w_nbr)
-
-
 def _seed_point_mass(est: torch.Tensor, deg: torch.Tensor, alpha: float,
                      seeds: torch.Tensor) -> torch.Tensor:
     """Add each seed's closed-form point mass (1-α)/(z·|S|); the masses of
@@ -122,16 +134,19 @@ def _seed_point_mass(est: torch.Tensor, deg: torch.Tensor, alpha: float,
     return est + mass
 
 
-def _unrolled_estimate(index: WalkIndex, seeds: torch.Tensor, nbr_cap: int,
+def _unrolled_estimate(index, seeds: torch.Tensor, nbr_cap: int,
                        normalize: bool) -> torch.Tensor:
     """One-step-unrolled estimate, the neighbour axis in slabs of at most
-    ``_MAX_NBR_WIDTH`` columns."""
+    ``_MAX_NBR_WIDTH`` columns (each a bounded slab of visit counts)."""
     deg = index.csr.deg.to(F64)
+    counts = _index_counts(index)
     width = min(nbr_cap, _MAX_NBR_WIDTH)
     est = None
     for offset in range(0, nbr_cap, width):
-        c = _unrolled_chunk(index.steps, index.csr.indptr, index.csr.indices,
-                            deg, index.alpha, seeds, offset, width)
+        nbr, w_nbr = _nbr_slab(index.csr.indptr, index.csr.indices, deg,
+                               index.alpha, seeds, offset, width,
+                               index.num_walks)
+        c = counts(nbr, w_nbr)
         est = c if est is None else est + c
     est = _seed_point_mass(est, deg, index.alpha, seeds)
     if normalize:
@@ -152,28 +167,29 @@ def _seed_index(seeds: Sequence[int], V: int,
     return torch.from_numpy(s.astype(np.int32)).to(device)
 
 
-def _nbr_cap(index: WalkIndex, seeds: torch.Tensor) -> int:
+def _nbr_cap(index, seeds: torch.Tensor) -> int:
     """Neighbour-block width covering the query's largest seed (≥ 1); one
     host read."""
     return max(1, int(index.csr.deg[seeds.long()].max()))
 
 
-def ppr_estimate(index: WalkIndex, seeds: Sequence[int],
-                 normalize: bool = True, unroll: bool = True) -> torch.Tensor:
+def ppr_estimate(index, seeds: Sequence[int], normalize: bool = True,
+                 unroll: bool = True) -> torch.Tensor:
     """f64[V] estimated PPR vector for a seed set (uniform teleport over
     the seeds).  ``normalize=True`` rescales to a distribution (absorbs
-    the α^L truncation tail); top-k is unaffected either way."""
-    if not isinstance(index, WalkIndex):
-        raise NotImplementedError(
-            f"ppr_estimate: {type(index).__name__} is not ported yet (the "
-            "port has no sharded walk index)")
+    the α^L truncation tail); top-k is unaffected either way.
+
+    Accepts a ``ShardedWalkIndex`` too: the visit counts are then summed
+    a shard at a time over that shard's rows and the shards' vectors
+    added in shard order; the walks never leave their shards
+    (``ppr.shard``)."""
     s = _seed_index(seeds, index.num_vertices, index.device)
     if not unroll:
-        return _direct_estimate(index.steps, index.alpha, s, normalize)
+        return _direct_estimate(index, s, normalize)
     return _unrolled_estimate(index, s, _nbr_cap(index, s), normalize)
 
 
-def ppr_top_k(index: WalkIndex, seeds: Sequence[int], k: int,
+def ppr_top_k(index, seeds: Sequence[int], k: int,
               unroll: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vertices int64[k], estimates f64[k]), highest first: the serving
     fast path."""

@@ -53,14 +53,16 @@ def stale_walks(steps: torch.Tensor, touched: torch.Tensor,
                 chunk_walks: int = STALE_CHUNK_WALKS
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(stale bool[V, R], first_stale_hop int32[V, R]) for a touched mask;
-    the first stale hop is 0 for a walk that is not stale."""
+    the first stale hop is 0 for a walk that is not stale.  ``steps`` may
+    be a shard's rows: its entries index ``touched`` (all vertices)."""
     V, R, L = steps.shape
+    n = touched.shape[0]
     stale = torch.empty((V, R), dtype=torch.bool, device=steps.device)
     t0 = torch.empty((V, R), dtype=torch.int32, device=steps.device)
     rows = max(1, chunk_walks // R)
     for a in range(0, V, rows):
         s = steps[a:a + rows]
-        idx = s.clamp(0, V - 1).view(-1)                   # int32 gather
+        idx = s.clamp(0, n - 1).view(-1)                   # int32 gather
         visited = (touched.index_select(0, idx).view(s.shape) & (s >= 0))
         stale[a:a + rows] = visited.any(dim=-1)
         # argmax returns the first maximum, as jnp.argmax does
@@ -79,9 +81,12 @@ def stale_ids(stale: torch.Tensor, t0: torch.Tensor
 
 def _resample(csr: CSRView, key, steps: torch.Tensor, ids: torch.Tensor,
               t0: torch.Tensor, alpha: float,
-              chunk_walks: int = REPAIR_CHUNK_WALKS) -> torch.Tensor:
+              chunk_walks: int = REPAIR_CHUNK_WALKS,
+              id_offset: int = 0) -> torch.Tensor:
     """A copy of ``steps`` with walks ``ids`` re-walked on ``csr`` from
-    their first stale hops ``t0``, ``chunk_walks`` walks per launch."""
+    their first stale hops ``t0``, ``chunk_walks`` walks per launch.
+    ``id_offset`` shifts the rows' walk ids into the index's global id
+    space (a shard's first walk id; ``ppr.shard``)."""
     V, R, L = steps.shape
     flat = steps.view(V * R, L)
     out = steps.clone()
@@ -89,7 +94,7 @@ def _resample(csr: CSRView, key, steps: torch.Tensor, ids: torch.Tensor,
     for a in range(0, ids.shape[0], chunk_walks):
         idc = ids[a:a + chunk_walks]
         out_flat[idc] = resample_rows(csr, flat[idc], t0[a:a + chunk_walks],
-                                      key, idc, alpha=alpha)
+                                      key, idc + id_offset, alpha=alpha)
     return out
 
 

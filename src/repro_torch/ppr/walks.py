@@ -97,12 +97,23 @@ def _transition(csr: CSRView, cur: torch.Tensor,
 
 
 def _build_steps_range(csr: CSRView, key, v_start: int, num_local: int,
-                       num_walks: int, max_len: int,
-                       alpha: float) -> torch.Tensor:
+                       num_walks: int, max_len: int, alpha: float,
+                       num_vertices: Optional[int] = None) -> torch.Tensor:
     """int32[num_local, R, L]: rows [v_start, v_start + num_local) of the
-    full build, sampled with global walk ids (v·R + r)."""
+    full build, sampled with global walk ids (v·R + r).  Rows whose vertex
+    lies at or past ``num_vertices`` (a shard's padding, ``ppr.shard``)
+    come out all ``-1``, which staleness and queries ignore."""
     R, L = num_walks, max_len
     dev = csr.deg.device
+    if num_vertices is not None:
+        live = min(max(num_vertices - v_start, 0), num_local)
+        if live < num_local:
+            out = torch.full((num_local, R, L), -1, dtype=torch.int32,
+                             device=dev)
+            if live:
+                out[:live] = _build_steps_range(csr, key, v_start, live, R,
+                                                L, alpha)
+            return out
     n_loc = num_local * R
     gids = v_start * R + torch.arange(n_loc, dtype=torch.int64, device=dev)
     walk_keys = threefry.walk_keys(key, gids)
@@ -123,17 +134,24 @@ def _build_steps_range(csr: CSRView, key, v_start: int, num_local: int,
 
 def _build_steps(csr: CSRView, key, num_vertices: int, num_walks: int,
                  max_len: int, alpha: float,
-                 chunk_vertices: Optional[int] = None) -> torch.Tensor:
-    """int32[V, R, L]: every vertex's walks under ``key``, one vertex
+                 chunk_vertices: Optional[int] = None, v_start: int = 0,
+                 num_local: Optional[int] = None) -> torch.Tensor:
+    """int32[num_local, R, L] (default: every vertex's walks): rows
+    [v_start, v_start + num_local) of the build under ``key``, one vertex
     range of ``chunk_vertices`` at a time (default: as many as
-    ``BUILD_CHUNK_WALKS`` walks)."""
-    V, R, L = num_vertices, num_walks, max_len
+    ``BUILD_CHUNK_WALKS`` walks); rows past ``num_vertices`` are all
+    ``-1``."""
+    R, L = num_walks, max_len
+    if num_local is None:
+        num_local = num_vertices - v_start
     if chunk_vertices is None:
         chunk_vertices = max(1, BUILD_CHUNK_WALKS // R)
-    steps = torch.empty((V, R, L), dtype=torch.int32, device=csr.deg.device)
-    for v0 in range(0, V, chunk_vertices):
-        n = min(chunk_vertices, V - v0)
-        steps[v0:v0 + n] = _build_steps_range(csr, key, v0, n, R, L, alpha)
+    steps = torch.empty((num_local, R, L), dtype=torch.int32,
+                        device=csr.deg.device)
+    for a in range(0, num_local, chunk_vertices):
+        n = min(chunk_vertices, num_local - a)
+        steps[a:a + n] = _build_steps_range(csr, key, v_start + a, n, R, L,
+                                            alpha, num_vertices)
     return steps
 
 

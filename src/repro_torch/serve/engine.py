@@ -27,8 +27,10 @@ the pinned shapes (``metrics.packed_rebuilds`` counts these).
 (``tol_f32``, ``polish``, ...).
 
 ``ppr_index=`` (a ``repro_torch.ppr.IndexConfig`` or a prebuilt
-``WalkIndex``) makes the engine keep a random-walk PPR index beside the
-ranks: built at bootstrap, repaired in every step from the batch's
+``WalkIndex`` / ``ShardedWalkIndex``) makes the engine keep a random-walk
+PPR index beside the ranks: built at bootstrap (range-sharded over the
+mesh's ``model`` axis when a ``mesh=`` is given), repaired in every step
+from the batch's
 ``touched_vertices_mask`` (only walks that visit a touched vertex are
 re-walked, by the ``walk_repair`` kernel on the card) and published in
 each snapshot, so index-backed ``personalized_top_k`` answers match the
@@ -83,8 +85,9 @@ shard's routed rows, ``kernel_opts["exchange"]`` / ``["wire"]`` pick the
 f32 exchange), repacking on a ``ShardCapacityError``
 (``metrics.packed_rebuilds_by_shard``); the xla engine runs the f64
 dst-range x edge-stripe loop.  ``metrics.comm_bytes`` adds each solve's
-wire bytes; the ``halo_occupancy`` gauge is set a batch.  A sharded walk
-index is not ported yet: ``mesh=`` with ``ppr_index=`` raises.
+wire bytes; the ``halo_occupancy`` gauge is set a batch.  With
+``ppr_index=`` the walk index is range-sharded over the same axis
+(``ppr.shard``) and each shard repairs its own walks.
 
 Each batch records its host syncs (``metrics.batch_host_syncs``): every
 call of the step that synchronizes the host with the card, as each call
@@ -139,8 +142,9 @@ from repro_torch.kernels.pagerank_spmv.update import PackedSpillError, \
     apply_batch_packed, pack_graph
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.frontier import FrontierTelemetry
-from repro_torch.ppr import IndexConfig, WalkIndex, build_walk_index, \
-    repair_walk_index
+from repro_torch.ppr import IndexConfig, ShardedWalkIndex, WalkIndex, \
+    build_sharded_walk_index, build_walk_index, repair_walk_index, \
+    repair_walk_index_sharded
 from repro_torch.serve.ingest import IngestQueue
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.state import RankStore
@@ -165,24 +169,21 @@ class ServeEngine:
                  iteration_budget=None, **pr_kw):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; options {ENGINES}")
-        if mesh is not None and ppr_index is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=, ppr_index=): the sharded walk index is "
-                "not ported yet")
         if mesh is not None:
             _mesh_dims(mesh)                 # a Mesh with a 'model' axis
         opts = dict(kernel_opts or {})
-        # opt-in walk index: an IndexConfig to build at bootstrap, or a
-        # prebuilt WalkIndex to adopt
+        # opt-in walk index: an IndexConfig to build at bootstrap (sharded
+        # over `mesh` when one is given), or a prebuilt index to adopt
         self._ppr_cfg: Optional[IndexConfig] = None
-        self._ppr: Optional[WalkIndex] = None
+        self._ppr = None
         if isinstance(ppr_index, IndexConfig):
             self._ppr_cfg = ppr_index
-        elif isinstance(ppr_index, WalkIndex):
+        elif isinstance(ppr_index, (WalkIndex, ShardedWalkIndex)):
             self._ppr = ppr_index
         elif ppr_index is not None:
             raise TypeError("ppr_index must be an IndexConfig or a "
-                            f"WalkIndex, got {type(ppr_index).__name__}")
+                            "WalkIndex (or a ShardedWalkIndex), got "
+                            f"{type(ppr_index).__name__}")
         self.ingest = ingest
         self.store = store
         self.metrics = metrics if metrics is not None else ServeMetrics()
@@ -253,7 +254,7 @@ class ServeEngine:
 
     # ---- lifecycle -------------------------------------------------------
     @property
-    def ppr_index(self) -> Optional[WalkIndex]:
+    def ppr_index(self):
         """The walk index the engine keeps (None without one, or before
         bootstrap builds it)."""
         return self._ppr
@@ -317,7 +318,11 @@ class ServeEngine:
             self._packed = dataclasses.replace(
                 self._packed, max_entries_per_window=cap)
         if self._ppr_cfg is not None and self._ppr is None:
-            self._ppr = build_walk_index(self._graph, self._ppr_cfg)
+            if self.mesh is not None:
+                self._ppr = build_sharded_walk_index(
+                    self._graph, self._ppr_cfg, mesh=self.mesh)
+            else:
+                self._ppr = build_walk_index(self._graph, self._ppr_cfg)
         self._ranks = ranks
         seq = self.ingest.start_seq - 1 if last_seq is None else last_seq
         gen = self.store.publish(self._graph, ranks, seq,
@@ -465,8 +470,12 @@ class ServeEngine:
             # stale walks; the stale count is the repair's one host read
             touched = touched_vertices_mask(batch.update,
                                             graph_new.num_vertices)
-            self._ppr, resampled = repair_walk_index(self._ppr, graph_new,
-                                                     touched)
+            if isinstance(self._ppr, ShardedWalkIndex):
+                self._ppr, resampled = repair_walk_index_sharded(
+                    self._ppr, graph_new, touched)
+            else:
+                self._ppr, resampled = repair_walk_index(
+                    self._ppr, graph_new, touched)
         # one read of the batch's counters; it also waits for the device
         note_host_syncs()
         affected, edges, verts = torch.stack([

@@ -165,8 +165,9 @@ def _update_from_wire(update: Dict[str, np.ndarray],
 
 
 def _ppr_identity(index) -> Optional[Dict]:
-    """Wire-format identity of a walk index: the statics plus the base
-    PRNG key, everything that determines the walks besides the graph."""
+    """Wire-format identity of a walk index (``WalkIndex`` or
+    ``ShardedWalkIndex``): the statics plus the base PRNG key, everything
+    that determines the walks besides the graph."""
     if index is None:
         return None
     return dict(num_walks=int(index.num_walks),

@@ -1,0 +1,157 @@
+"""Train steps, GNN family (twin of ``repro.train.steps``).
+
+``make_gnn_train_step(arch_id, cfg)`` returns ``train_step(params,
+opt_state, batch) -> (params, opt_state, loss)``: the loss and its
+gradients (``torch.autograd.grad`` over the ``ParamTree``'s leaves in
+flatten order), a ``warmup_cosine`` learning rate and an AdamW update,
+written into the parameters in place.  Every message sum of the forward
+and the backward goes through ``pull_rows`` in a fixed order
+(``models.message``), so a step is the same bit for bit from run to run
+on the card; nothing in it reads the device back.
+
+``_accumulate_grads`` splits the batch's leading dim into microbatches and
+averages their gradients, as the reference's ``lax.scan`` does.  The LM
+and recsys steps are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+import torch
+
+from repro_torch.configs.registry import not_ported
+from repro_torch.models import gnn as G
+from repro_torch.models.tree import ParamTree, tree_map
+from repro_torch.optim.adamw import AdamWState, adamw_update
+from repro_torch.optim.schedules import warmup_cosine
+
+F32 = torch.float32
+
+
+def value_and_grad(loss_fn: Callable, params: ParamTree, batch
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(loss, gradients in ``params.leaves()`` order); a leaf the loss
+    does not reach gets zeros, as ``jax.grad`` gives it."""
+    leaves = params.leaves()
+    with torch.enable_grad():
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+def _accumulate_grads(loss_fn, params, batch, n_micro: int,
+                      accum_dtype=F32):
+    """Split the batch's leading dim into ``n_micro`` slices and average
+    the gradients (``accum_dtype`` is the accumulator's)."""
+    if n_micro <= 1:
+        return value_and_grad(loss_fn, params, batch)
+    reshaped = tree_map(
+        lambda x: x.reshape((n_micro, x.shape[0] // n_micro)
+                            + tuple(x.shape[1:])), batch)
+    loss_acc = None
+    grad_acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                for p in params.leaves()]
+    for i in range(n_micro):
+        loss, grads = value_and_grad(loss_fn, params,
+                                     tree_map(lambda x: x[i], reshaped))
+        grad_acc = [a + g.to(accum_dtype) for a, g in zip(grad_acc, grads)]
+        loss_acc = loss if loss_acc is None else loss_acc + loss
+    scale = 1.0 / n_micro
+    return loss_acc * scale, [g.to(F32) * scale for g in grad_acc]
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+def _xent(logits, labels, mask=None):
+    """Mean cross-entropy; with ``mask`` over its rows, in f64 as the
+    reference's (its f32 sum over an int count).  The gold logit is picked
+    by a one-hot select: no scatter in the backward."""
+    logz = torch.logsumexp(logits, dim=-1)
+    pick = labels.long()[..., None] == torch.arange(
+        logits.shape[-1], device=logits.device)
+    gold = torch.where(pick, logits, 0.0).sum(dim=-1)
+    per = logz - gold
+    if mask is not None:
+        per = torch.where(mask, per, 0.0)
+        return torch.sum(per).double() / torch.clamp(
+            mask.sum(), min=1).double()
+    return torch.mean(per)
+
+
+def _graph_batch(batch) -> G.GraphBatch:
+    return G.GraphBatch(
+        node_feats=batch["node_feats"],
+        edge_src=batch["edge_src"], edge_dst=batch["edge_dst"],
+        edge_mask=batch["edge_mask"], node_mask=batch["node_mask"],
+        positions=batch.get("positions"),
+        mesh_feats=batch.get("mesh_feats"),
+        g2m_src=batch.get("g2m_src"), g2m_dst=batch.get("g2m_dst"),
+        m2g_src=batch.get("m2g_src"), m2g_dst=batch.get("m2g_dst"))
+
+
+def make_gnn_loss(spec_arch_id: str, cfg) -> Callable:
+    """(params, batch) -> scalar loss for each GNN arch."""
+    if spec_arch_id == "graphsage-reddit":
+        def loss_fn(params, batch):
+            if "blocks_parent" in batch:       # minibatch path
+                logits = G.sage_block_forward(
+                    cfg, params, batch["blocks_feats"],
+                    batch["blocks_parent"], batch["blocks_mask"])
+                return _xent(logits, batch["labels"])
+            logits = G.sage_forward(cfg, params, _graph_batch(batch))
+            return _xent(logits, batch["labels"], batch["node_mask"])
+        return loss_fn
+    if spec_arch_id == "pna":
+        def loss_fn(params, batch):
+            logits = G.pna_forward(cfg, params, _graph_batch(batch))
+            return _xent(logits, batch["labels"], batch["node_mask"])
+        return loss_fn
+    if spec_arch_id == "nequip":
+        def loss_fn(params, batch):
+            args = (batch["species"], batch["positions"], batch["edge_src"],
+                    batch["edge_dst"], batch["edge_mask"])
+            # a batch of molecules is one graph with node offsets
+            if batch["species"].dim() == 2:
+                energies = G.nequip_energies(cfg, params, *args)
+            else:
+                energies = G.nequip_forward(cfg, params, *args)
+            return torch.mean(torch.square(energies - batch["energy"]))
+        return loss_fn
+    if spec_arch_id == "graphcast":
+        def loss_fn(params, batch):
+            pred = G.graphcast_forward(cfg, params, _graph_batch(batch))
+            se = torch.square(pred - batch["targets"])
+            m = batch["node_mask"]
+            n_valid = torch.clamp(torch.sum(m.to(F32)), min=1.0)
+            return torch.sum(torch.where(m[:, None], se, 0.0)) \
+                / (n_valid * se.shape[-1])
+        return loss_fn
+    raise KeyError(spec_arch_id)
+
+
+def make_gnn_train_step(arch_id: str, cfg, *, peak_lr=1e-3) -> Callable:
+    loss_fn = make_gnn_loss(arch_id, cfg)
+
+    def train_step(params: ParamTree, opt_state: AdamWState, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        lr = warmup_cosine(opt_state.step, peak_lr=peak_lr,
+                           warmup_steps=10, total_steps=1000)
+        new, opt_state = adamw_update(params, grads, opt_state, lr=lr,
+                                      weight_decay=0.0)
+        with torch.no_grad():
+            for p, q in zip(params.leaves(), new):
+                p.copy_(q)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_lm_train_step(*args, **kwargs):
+    raise not_ported("the LM train step")
+
+
+def make_recsys_train_step(*args, **kwargs):
+    raise not_ported("the recsys train step")

@@ -36,7 +36,7 @@ os.environ.setdefault("REPRO_TORCH_TUNE_CACHE", os.path.join(
 def np_(x):
     """NumPy view of a torch tensor or a JAX array."""
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
+        return x.detach().cpu().numpy()
     return np.asarray(x)
 
 

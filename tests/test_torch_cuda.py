@@ -1715,3 +1715,126 @@ def test_use_kernel_false_is_refused_on_card(cuda):
         ServeEngine(graph, IngestQueue(flush_size=16, device=cuda),
                     RankStore(), engine="kernel",
                     kernel_opts=dict(use_kernel=False))
+
+
+# ---------------------------------------------------------------------------
+# the training primitives, a SAGE train step, the sharded walk index
+# ---------------------------------------------------------------------------
+
+def _prim_inputs(dev, n=300, e=5000, d=24, seed=0):
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, n, e).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((e, d)).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)).to(dev)
+    return idx, vals, x
+
+
+@pytest.mark.parametrize("prim", ["seg_sum", "edge_gather", "seg_max",
+                                  "neighbor_sum"])
+def test_training_primitives_on_card(cuda, prim):
+    """Forward and backward of each primitive on the card: bitwise run to
+    run, the sums launched through pull_rows, and within atol 1e-5 times
+    the largest magnitude of the same primitive on the CPU."""
+    from repro_torch.models import message
+    n = 300
+    idx, vals, x = _prim_inputs(cuda)
+    src = torch.flip(idx, (0,)).contiguous()
+    mask = torch.arange(idx.shape[0], device=cuda) % 5 != 0
+
+    def run(dev):
+        i, s, m = idx.to(dev), src.to(dev), mask.to(dev)
+        arg = (x if prim in ("edge_gather", "neighbor_sum") else vals)
+        a = arg.to(dev).clone().requires_grad_()
+        out = {"seg_sum": lambda: message.seg_sum(a, i, n),
+               "edge_gather": lambda: message.edge_gather(a, i),
+               "seg_max": lambda: message.seg_max(a, i, n),
+               "neighbor_sum": lambda: message.neighbor_sum(a, s, i, m,
+                                                            n)}[prim]()
+        g = torch.linspace(-1, 1, out.numel(), device=dev).reshape(
+            out.shape)
+        (grad,) = torch.autograd.grad(out, a, g)
+        return out.detach(), grad
+    before = pc.LAUNCH_COUNTS["pull_rows"]
+    out, grad = run(cuda)
+    assert pc.LAUNCH_COUNTS["pull_rows"] > before
+    out2, grad2 = run(cuda)
+    assert torch.equal(out, out2) and torch.equal(grad, grad2)
+    ref_out, ref_grad = run("cpu")
+    for a, b in ((out, ref_out), (grad, ref_grad)):
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a.cpu()[fin], b[fin], rtol=1e-5,
+                                   atol=1e-5 * float(b[fin].abs().max()))
+
+
+def test_sage_train_step_bitwise_on_card(cuda):
+    """A SAGE train step at a small size, twice from the same state:
+    loss, gradients and updated parameters bitwise; within the CPU
+    tests' tolerance of the same step on the CPU."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    spec = REGISTRY["graphsage-reddit"]
+    results = {}
+    for dev, tag in ((cuda, "a"), (cuda, "b"), ("cpu", "cpu")):
+        for cell in ("full_graph_sm", "minibatch_lg"):
+            cfg = TI.effective_config(spec, spec.shapes[cell], True)
+            batch = TI.build_inputs(spec, spec.shapes[cell], concrete=True,
+                                    smoke=True, seed=1, device=dev)
+            params = TI.init_fn(spec, True)(
+                torch.Generator().manual_seed(0)).to(dev)
+            loss_fn = TS.make_gnn_loss(spec.arch_id, cfg)
+            loss, grads = TS.value_and_grad(loss_fn, params, batch)
+            step = TS.make_gnn_train_step(spec.arch_id, cfg)
+            opt = init_adamw(params)
+            losses = []
+            for _ in range(3):
+                params, opt, l3 = step(params, opt, batch)
+                losses.append(l3)
+            results[tag, cell] = ([loss] + grads + losses
+                                  + [p.detach() for p in params.leaves()])
+    for cell in ("full_graph_sm", "minibatch_lg"):
+        for a, b, c in zip(results["a", cell], results["b", cell],
+                           results["cpu", cell]):
+            assert torch.equal(a, b)
+            torch.testing.assert_close(
+                a.cpu().double(), c.double(), rtol=1e-4,
+                atol=1e-5 * float(c.abs().max()) + 1e-30)
+
+
+def test_four_shard_walk_index_on_card(cuda):
+    """A four-shard walk index on cuda:0 equals the unsharded one, built
+    and repaired; one walk_repair launch a shard that has stale walks;
+    one host read a repair; queries within 1e-12."""
+    from repro_torch.device import host_sync_count
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.ppr import (build_sharded_walk_index, ppr_estimate,
+                                 repair_walk_index, shard_stale_counts,
+                                 shard_walk_index)
+    from repro_torch.ppr.shard import repair_walk_index_sharded
+    edges, n = rmat_edges(10, 8, seed=3)
+    dele, ins = random_batch_update(edges, n, 64, seed=4)
+    g = from_coo(edges[:, 0], edges[:, 1], n, edge_capacity=len(edges) + 256,
+                 device=cuda)
+    cfg = IndexConfig(num_walks=16, max_len=12, seed=2)
+    mesh = make_test_mesh(4, device=cuda, model=4)
+    sharded = build_sharded_walk_index(g, cfg, mesh=mesh)
+    plain = build_walk_index(g, cfg)
+    assert torch.equal(sharded.stacked(), shard_walk_index(plain, 4).stacked())
+    upd = make_batch_update(dele, ins, 64, 64, device=cuda)
+    g2 = apply_batch(g, upd)
+    touched = touched_vertices_mask(upd, n)
+    stale_shards = int((shard_stale_counts(sharded, touched) > 0).sum())
+    before, syncs = wr.LAUNCH_COUNTS["walk_repair"], host_sync_count()
+    got, k = repair_walk_index_sharded(sharded, g2, touched)
+    assert host_sync_count() - syncs == 1
+    assert wr.LAUNCH_COUNTS["walk_repair"] - before == stale_shards > 0
+    want, k1 = repair_walk_index(plain, g2, touched)
+    assert k == k1 > 0
+    assert torch.equal(got.stacked(), shard_walk_index(want, 4).stacked())
+    for seeds in ([3], [7, 100]):
+        torch.testing.assert_close(ppr_estimate(got, seeds),
+                                   ppr_estimate(want, seeds), rtol=0,
+                                   atol=1e-12)

@@ -189,18 +189,16 @@ def _option_engine(**kw):
     "mesh", "mesh+ppr_index", "tune_measure", "tune_cache_path",
     "frontier_frac", "tune", "use_kernel", "delta_budget"])
 def test_serve_engine_rejects_unported_options(opt, tmp_path, monkeypatch):
-    """The reference's options are ported and do what the reference's do;
-    only ``mesh=`` with ``ppr_index=`` (the sharded walk index) still
-    raises."""
+    """The reference's options are ported and do what the reference's do,
+    ``mesh=`` with ``ppr_index=`` (the sharded walk index) included."""
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.kernels.pagerank_spmv.tune import TuneCache
     monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
     mesh = make_test_mesh(4, device=CPU)
-    if opt == "mesh+ppr_index":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            _option_engine(mesh=mesh, ppr_index=IndexConfig())
-        return
     kw = dict(mesh=dict(mesh=mesh, kernel_opts=dict(be=16, vb=8)),
+              **{"mesh+ppr_index": dict(
+                  mesh=mesh, kernel_opts=dict(be=16, vb=8),
+                  ppr_index=IndexConfig(num_walks=4, max_len=6, seed=1))},
               tune_measure=dict(kernel_opts=dict(tune_measure=True)),
               tune_cache_path=dict(kernel_opts=dict(
                   tune_cache_path=str(tmp_path / "named.json"))),
@@ -219,7 +217,17 @@ def test_serve_engine_rejects_unported_options(opt, tmp_path, monkeypatch):
         assert eng.step(force=True)
     ranks = eng.store.snapshot().ranks
     assert ranks.dtype == torch.float64 and bool(torch.isfinite(ranks).all())
-    if opt == "mesh":
+    if opt == "mesh+ppr_index":
+        from repro_torch.ppr import ShardedWalkIndex, build_walk_index, \
+            unshard_walk_index
+        snap = eng.store.snapshot()
+        assert isinstance(snap.ppr_index, ShardedWalkIndex)
+        assert len(snap.ppr_index.steps) == 2
+        fresh = build_walk_index(snap.graph, IndexConfig(
+            num_walks=4, max_len=6, seed=1))
+        assert torch.equal(unshard_walk_index(snap.ppr_index).steps,
+                           fresh.steps)
+    elif opt == "mesh":
         assert eng._sharded is not None and eng._sharded.num_shards == 2
         assert eng.metrics.comm_bytes > 0
         assert 0 < eng.metrics.as_dict()["halo_occupancy"] <= 1
