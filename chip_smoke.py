@@ -10,6 +10,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --mesh-only [--out FILE]
     python3 chip_smoke.py --ppr-mesh-only [--out FILE]
     python3 chip_smoke.py --train-only [--out FILE]
+    python3 chip_smoke.py --lm-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
 frontier_spmv and phase 3b's pull_contrib, slot_count, segment_bounds
@@ -17,8 +18,9 @@ and segment_or kernel cases;
 the third only the set-up and phase 6's kernel cases: pull_rows's on the
 set-up graph, gated_spmm's on the first batch's packed graph; the fourth
 only the set-up and phase 9, the fifth only the set-up and phase 10, the
-sixth phase 11 and the seventh phase 12.  None prints a summary: they are
-the quick loops for work on one kernel or phase.
+sixth phase 11 and the seventh phase 12; the eighth runs the build, the
+device and phase 13 alone, with no R-MAT set-up.  None prints a summary:
+they are the quick loops for work on one kernel or phase.
 
 The kernel engine tunes its pack geometry at bootstrap
 (``kernels/pagerank_spmv/tune.py``); the run keeps the tuner's cache in
@@ -290,9 +292,42 @@ It exits non-zero on the first failed check; no failure is passed over.
              card cannot hold; and ``pull_rows`` at d = 512 over
              graphcast minibatch_lg's slots by dst beside its plain
              version and cuSPARSE, with its bound.
-13. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
-             launches on its paths (phases 9's, 10's, 11's and 12's
-             added), max error (frontier_spmv's over phases 3 and 10) and
+13. LM     — the LM family at full width: each LM_CELLS cell
+             of the five architectures, its depth and batch cut to fit
+             one 80 GB card and the phase's time (each cut printed), bf16
+             weights drawn from the seed, inputs from the ported
+             ``build_inputs(concrete=True, seed=1)``.  Train cells:
+             LM_STEPS AdamW steps (``make_lm_train_step`` with the
+             arch's MICROBATCHES, moment and accumulator dtypes); on
+             qwen2.5-3b, whole (36 layers, batch 4 x 4,096), a
+             microbatch's loss and gradients twice and the steps again
+             from the seed, bitwise; every ``pull_rows`` call of a
+             microbatch (the embedding's and the MoE's row sums, forward
+             and backward) within GNN_RTOL / GNN_ATOL of
+             ``pull_rows_ref`` on the card.  arctic-480b's train_4k is
+             sized and printed as not run.  Prefill cells (2 x 32,768):
+             one ``make_lm_prefill`` call, last-position logits finite.
+             Decode cells: LM_DECODE_STEPS greedy steps into a full-size
+             cache drawn on the card, from ctx - 16 to ctx.  Then
+             qwen2.5-3b (2 layers) and qwen3-moe (1 layer) at full width
+             in f32 against the CPU: the MoE's routing equal first, the
+             loss rtol 1e-5, gradients and the parameters and moments
+             after one AdamW update rtol 1e-4 / atol 1e-5·max (the
+             parameters where the two gradients agree to rtol 1e-4: the
+             first update moves an element by ~lr·sign(g), the rest are
+             counted); decode against prefill's last logits (rtol / atol
+             2e-3).  Prints ms
+             a step (first and later) and tokens/s, prefill ms and
+             tokens/s, decode ms a step, peak GiB a cell, host syncs a
+             train and a decode step (``set_sync_debug_mode``), and
+             ``pull_rows`` launches forward and backward; last, the
+             attention yardstick: one qwen2.5-3b layer's
+             ``chunked_causal_attention`` at 2 x 32,768 beside
+             ``F.scaled_dot_product_attention(is_causal=True)`` (printed,
+             no part of the port) and the FLOP bound.
+14. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+             launches on its paths (phases 9's, 10's, 11's, 12's and
+             13's added), max error (frontier_spmv's over phases 3 and 10) and
              times; then, last, ``{"ok": true, "device": {...}}``.
              Each phase prints its peak of allocated device memory.
 
@@ -313,6 +348,7 @@ import argparse
 import collections
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4281,6 +4317,547 @@ def train_checks(args, torch, dev, edges, n, graph):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM family at full width
+# ---------------------------------------------------------------------------
+
+H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core rate (data sheet)
+LM_STEPS = 3                     # AdamW steps a train cell
+LM_DECODE_STEPS = 16             # decode steps, from ctx - 16 to ctx
+# every LM cell at full width as (layers kept, batch), None keeping the
+# config's depth: cut only as far as one 80 GB card and the phase's time
+# force (PERF.md §4 lists each cut).  arctic-480b's train_4k is sized and
+# printed as not run.
+LM_CELLS = {
+    "qwen2.5-3b": dict(train_4k=(None, 4), prefill_32k=(None, 2),
+                       decode_32k=(None, 32)),
+    "gemma3-12b": dict(train_4k=(6, 4), prefill_32k=(6, 2),
+                       decode_32k=(6, 16), long_500k=(6, 1)),
+    "glm4-9b": dict(train_4k=(8, 4), prefill_32k=(None, 2),
+                    decode_32k=(None, 32)),
+    "qwen3-moe-30b-a3b": dict(train_4k=(6, 4), prefill_32k=(24, 2),
+                              decode_32k=(24, 32)),
+    "arctic-480b": dict(prefill_32k=(1, 2), decode_32k=(1, 32)),
+}
+# the card against the CPU: full width in f32, these depths, a batch of
+# LM_CPU_BATCH x LM_CPU_SEQ tokens
+LM_CPU_LAYERS = {"qwen2.5-3b": 2, "qwen3-moe-30b-a3b": 1}
+LM_CPU_BATCH, LM_CPU_SEQ = 2, 128
+
+
+def lm_cut(spec, cell_name, layers, batch):
+    """(config, cell) of ``spec`` cut to ``layers`` and ``batch``."""
+    import dataclasses
+    cfg = spec.config if layers is None else dataclasses.replace(
+        spec.config, n_layers=layers)
+    cell = spec.shapes[cell_name]
+    return cfg, dataclasses.replace(cell, dims={**cell.dims,
+                                                "batch": batch})
+
+
+def lm_cut_text(spec, cfg, cell) -> str:
+    full = spec.shapes[cell.name].dims["batch"]
+    return (f"{cfg.n_layers} of {spec.config.n_layers} layers, batch "
+            f"{cell.dims['batch']} of {full}")
+
+
+def lm_init(torch, dev, spec, cfg):
+    """Random parameters of ``cfg`` on the card from the seed."""
+    import dataclasses
+    from repro_torch.train import inputs as TI
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    return TI.init_fn(dataclasses.replace(spec, config=cfg))(gen)
+
+
+@contextlib.contextmanager
+def held_pull_rows(torch):
+    """Every pull_rows call inside the block held to pull_rows_ref on the
+    card (GNN_RTOL / GNN_ATOL relative to the largest sum); yields the
+    tally."""
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    from repro_torch.models import message
+    real = message.pull_rows
+    errs = dict(calls=0, bad=0, max_abs_err=0.0)
+
+    def held(order, x, **kw):
+        res = real(order, x, **kw)
+        err, _, bad = compare_rows(res, pull_rows_ref(order, x))
+        errs["calls"] += 1
+        errs["bad"] += bad
+        errs["max_abs_err"] = max(errs["max_abs_err"], err)
+        return res
+    message.pull_rows = held
+    try:
+        yield errs
+    finally:
+        message.pull_rows = real
+
+
+def lm_train_cell(torch, dev, spec, cfg, cell, twice=False):
+    """LM_STEPS AdamW steps of a train cell (the arch's microbatches,
+    moment and accumulator dtypes); every pull_rows call of a step held to
+    its plain version; with ``twice``, the gradients and then the steps
+    again from the same seed, bitwise.  Returns (row, final parameters)."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    arch = spec.arch_id
+    tag = f"{arch} {cell.name}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_cell = time.perf_counter()
+    batch = TI.build_inputs(spec, cell, concrete=True, seed=1, device=dev)
+    b, s = batch["tokens"].shape
+    micro = TI.MICROBATCHES[arch]
+    factored = TI.FACTORED_V.get(arch, False)
+    mdt = TI.MOMENT_DTYPE.get(arch, torch.float32)
+    step = TS.make_lm_train_step(
+        cfg, n_microbatches=micro, factored=factored,
+        accum_dtype=TI.ACCUM_DTYPE.get(arch, torch.float32))
+
+    def loss_fn(p, bt):
+        return T.lm_loss(cfg, p, bt["tokens"], bt["labels"])
+    params = lm_init(torch, dev, spec, cfg)
+    row = dict(arch=arch, cell=cell.name, kind="train",
+               cut=lm_cut_text(spec, cfg, cell), layers=cfg.n_layers,
+               batch=b, seq=s, microbatches=micro,
+               param_count=sum(p.numel() for p in tree_leaves(params)))
+    mb = {k: v[: b // micro] for k, v in batch.items()}
+    f0 = pc.LAUNCH_COUNTS["pull_rows"]
+    with torch.no_grad():
+        loss_fn(params, mb)
+    row["pull_rows_forward"] = pc.LAUNCH_COUNTS["pull_rows"] - f0
+    # a microbatch's gradients: every pull_rows call held to its plain
+    # version; with ``twice``, again, bitwise
+    with held_pull_rows(torch) as errs:
+        la, ga = TS.value_and_grad(loss_fn, params, mb)
+    row["pull_rows_check"] = errs
+    check(errs["calls"] > 0 and errs["bad"] == 0,
+          f"[{tag}] {errs['calls']} pull_rows calls of a microbatch "
+          f"(forward and backward) == pull_rows_ref on the card within "
+          f"rtol {GNN_RTOL} / atol {GNN_ATOL}·max (max abs err "
+          f"{errs['max_abs_err']:.3e})")
+    if twice:
+        lb, gb = TS.value_and_grad(loss_fn, params, mb)
+        check(bits_equal(torch, la, lb)
+              and all(bits_equal(torch, x, y) for x, y in zip(ga, gb)),
+              f"[{tag}] loss and {len(ga)} gradients bitwise run to run")
+        del gb
+    del ga
+
+    def run(p, n, keep_first=False):
+        """n steps from ``p``; with ``keep_first``, also a copy of the
+        parameters after the first."""
+        opt = init_adamw(p, moment_dtype=mdt, factored=factored)
+        rec, first = [], None
+        for i in range(n):
+            launches = pc.LAUNCH_COUNTS["pull_rows"]
+            start, stop = cuda_events(torch)
+            t = time.perf_counter()
+            with recording_syncs(torch) as syncs:
+                start.record()
+                p, opt, loss = step(p, opt, batch)
+                stop.record()
+            stop.synchronize()
+            ms = start.elapsed_time(stop)
+            rec.append(dict(step=i, ms=ms,
+                            wall_ms=(time.perf_counter() - t) * 1e3,
+                            host_syncs=len(syncs),
+                            pull_rows=pc.LAUNCH_COUNTS["pull_rows"]
+                            - launches, loss=float(loss),
+                            tokens_per_s=b * s / (ms / 1e3)))
+            if keep_first and i == 0:
+                first = [x.detach().clone() for x in tree_leaves(p)]
+        del opt
+        return ((p, first) if keep_first else p), rec
+
+    params, steps = run(params, LM_STEPS, keep_first=twice)
+    if twice:
+        params, first = params
+    row.update(steps=steps, peak_bytes=torch.cuda.max_memory_allocated(),
+               launches=sum(r["pull_rows"] for r in steps))
+    row["pull_rows_backward"] = steps[0]["pull_rows"] // micro - \
+        row["pull_rows_forward"]
+    check(all(math.isfinite(r["loss"]) for r in steps),
+          f"[{tag}] {LM_STEPS} losses finite: {[r['loss'] for r in steps]}")
+    # the embedding's backward sums its rows through pull_rows; an MoE's
+    # combine sums its pairs by token forward too
+    check(row["pull_rows_backward"] > 0
+          and (row["pull_rows_forward"] > 0 or not cfg.is_moe),
+          f"[{tag}] pull_rows launched in the backward"
+          + (" and the forward" if cfg.is_moe else ""))
+    if twice:
+        del params
+        again, steps2 = run(lm_init(torch, dev, spec, cfg), 1)
+        check(steps[0]["loss"] == steps2[0]["loss"]
+              and all(bits_equal(torch, x, y.detach())
+                      for x, y in zip(first, tree_leaves(again))),
+              f"[{tag}] the first step again from the seed: loss and "
+              f"{len(first)} updated parameters bitwise")
+        row["launches"] += sum(r["pull_rows"] for r in steps2)
+        del first
+        params = again
+    row["cell_s"] = time.perf_counter() - t_cell
+    ms = ", ".join(f"{r['ms']:.1f}" for r in steps)
+    print(f"  [{tag}] {row['cut']}, {micro} microbatches of "
+          f"{b // micro} x {s}; {row['param_count'] / 1e9:.3f} B "
+          f"parameters; a step {ms} ms ({steps[-1]['tokens_per_s']:,.0f} "
+          f"tokens/s after the first); host syncs a step "
+          f"{[r['host_syncs'] for r in steps]}; pull_rows a step "
+          f"{steps[0]['pull_rows']} ({row['pull_rows_forward']} forward, "
+          f"{row['pull_rows_backward']} backward a microbatch); peak "
+          f"{row['peak_bytes'] / 2**30:.2f} GiB; {row['cell_s']:.1f} s",
+          flush=True)
+    return row, params
+
+
+def lm_prefill_cell(torch, dev, spec, cfg, cell, params):
+    """One prefill of a cell (the last position's logits)."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    tag = f"{spec.arch_id} {cell.name}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = TI.build_inputs(spec, cell, concrete=True, seed=1,
+                             device=dev)["tokens"]
+    b, s = tokens.shape
+    launches = pc.LAUNCH_COUNTS["pull_rows"]
+    start, stop = cuda_events(torch)
+    start.record()
+    logits = TS.make_lm_prefill(cfg)(params, tokens)
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop)
+    row = dict(arch=spec.arch_id, cell=cell.name, kind="prefill",
+               cut=lm_cut_text(spec, cfg, cell), layers=cfg.n_layers,
+               batch=b, seq=s, ms=ms, tokens_per_s=b * s / (ms / 1e3),
+               launches=pc.LAUNCH_COUNTS["pull_rows"] - launches,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    check(tuple(logits.shape) == (b, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"[{tag}] {row['cut']} x {s}: last-position logits "
+          f"[{b}, {cfg.vocab}] finite; {ms:.1f} ms "
+          f"({row['tokens_per_s']:,.0f} tokens/s), pull_rows "
+          f"{row['launches']}, peak {row['peak_bytes'] / 2**30:.2f} GiB")
+    return row
+
+
+def lm_decode_cell(torch, dev, spec, cfg, cell, params):
+    """LM_DECODE_STEPS greedy decode steps into a full-size KV cache whose
+    contents are drawn on the card, from ctx - LM_DECODE_STEPS to ctx."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.models import transformer as T
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    tag = f"{spec.arch_id} {cell.name}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = TI.build_inputs(spec, cell, concrete=True, seed=1, device=dev)
+    b, ctx = batch["batch"], batch["ctx"]
+    cache = T.init_cache(cfg, b, ctx, length=ctx - LM_DECODE_STEPS,
+                         device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for i in range(cfg.n_layers):
+        cache.k[i].normal_(generator=gen)
+        cache.v[i].normal_(generator=gen)
+    cache_bytes = 2 * cache.k.numel() * cache.k.element_size()
+    decode = TS.make_lm_decode_step(cfg)
+    toks = batch["tokens"]
+    rec = []
+    launches = pc.LAUNCH_COUNTS["pull_rows"]
+    finite = True
+    for i in range(LM_DECODE_STEPS):
+        start, stop = cuda_events(torch)
+        with recording_syncs(torch) as syncs:
+            start.record()
+            logits, cache = decode(params, cache, toks)
+            stop.record()
+        toks = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        stop.synchronize()
+        finite &= bool(torch.isfinite(logits).all())
+        rec.append(dict(step=i, ms=start.elapsed_time(stop),
+                        host_syncs=len(syncs)))
+    ms = sorted(r["ms"] for r in rec[1:])
+    row = dict(arch=spec.arch_id, cell=cell.name, kind="decode",
+               cut=lm_cut_text(spec, cfg, cell), layers=cfg.n_layers,
+               batch=b, ctx=ctx, cache_bytes=cache_bytes, steps=rec,
+               ms_median=ms[len(ms) // 2],
+               launches=pc.LAUNCH_COUNTS["pull_rows"] - launches,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    check(finite and int(cache.length) == ctx,
+          f"[{tag}] {row['cut']}, cache {cache_bytes / 1e9:.2f} GB at "
+          f"{ctx:,}: {LM_DECODE_STEPS} steps, logits finite, length "
+          f"{ctx:,}; a step {rec[0]['ms']:.2f} ms first, "
+          f"{row['ms_median']:.2f} median after ({b} tokens a step); host "
+          f"syncs a step {[r['host_syncs'] for r in rec]}; pull_rows "
+          f"{row['launches']}; peak {row['peak_bytes'] / 2**30:.2f} GiB")
+    del cache
+    return row
+
+
+def lm_train_bytes(torch, spec, layers):
+    """(bytes, text) of what a train step of ``spec`` at ``layers`` layers
+    holds before any activation: weights, gradients, the accumulator and
+    the moments (factored second moments as rows and columns)."""
+    import dataclasses
+    from repro_torch.optim.adamw import _FACTOR_MIN_SIZE
+    from repro_torch.train import inputs as TI
+    arch = spec.arch_id
+    cfg = dataclasses.replace(spec.config, n_layers=layers)
+    # the leaves' shapes and bytes, as init_lm lays them out
+    d, hd, h, kvh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    e, fm = cfg.n_experts, cfg.moe_d_ff
+    f = cfg.d_ff if (not cfg.is_moe or cfg.dense_residual) else 0
+    shapes = [((cfg.vocab, d), 2), ((d,), 2)]
+    shapes += [((layers,) + s, 2) for s in (
+        (d,), (d, h * hd), (d, kvh * hd), (d, kvh * hd), (h * hd,),
+        (kvh * hd,), (kvh * hd,), (h * hd, d), (d,), (d, f), (d, f),
+        (f, d))]
+    if cfg.is_moe:
+        shapes += [((layers, d, e), 4), ((layers, e, d, fm), 2),
+                   ((layers, e, d, fm), 2), ((layers, e, fm, d), 2)]
+    n = lambda s: math.prod(s)     # noqa: E731
+    weights = sum(n(s) * w for s, w in shapes)
+    accum = TI.ACCUM_DTYPE.get(arch, torch.float32).itemsize
+    mom = TI.MOMENT_DTYPE.get(arch, torch.float32).itemsize
+    fac = TI.FACTORED_V.get(arch, False)
+    m = sum(n(s) * mom for s, _ in shapes)
+    v = sum((n(s[:-1]) + n(s[:-2] + s[-1:])) * 4
+            if fac and len(s) >= 2 and n(s) >= _FACTOR_MIN_SIZE
+            else n(s) * mom for s, _ in shapes)
+    total = 2 * weights + sum(n(s) for s, _ in shapes) * accum + m + v
+    return total, (f"{layers} layer: weights {weights / 1e9:.1f} GB, "
+                   f"gradients {weights / 1e9:.1f}, accumulator "
+                   f"{sum(n(s) for s, _ in shapes) * accum / 1e9:.1f}, "
+                   f"moments {m / 1e9:.1f} + {v / 1e9:.1f} (factored)")
+
+
+def lm_cpu_case(torch, dev, spec, layers):
+    """The card against the CPU at full width in f32 (``layers`` layers, a
+    batch of LM_CPU_BATCH x LM_CPU_SEQ): the MoE's routing (top-k experts
+    and kept pairs) first, then the loss (rtol 1e-5), every gradient and,
+    after one AdamW update (lr 3e-4), every parameter and moment (rtol
+    1e-4 / atol 1e-5·max).  Returns (row, the card's parameters)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.optim.adamw import adamw_update_, init_adamw
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import steps as TS
+    tag = f"{spec.arch_id} f32 x {layers} layer(s)"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(spec.config, n_layers=layers, dtype="float32")
+    card = lm_init(torch, dev, spec, cfg)
+    host = T.trainable(tree_map(lambda p: p.detach().cpu(), card))
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, (LM_CPU_BATCH, LM_CPU_SEQ + 1))
+    data = {k: torch.from_numpy(v.astype(np.int32)) for k, v in
+            (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+    routes = dict(card=[], cpu=[])
+    real = moe.route
+
+    def loss_fn(p, b):
+        return T.lm_loss(cfg, p, b["tokens"], b["labels"])
+
+    def grads(where, p, b):
+        def recorded(*a, **kw):
+            r = real(*a, **kw)
+            routes[where].append((r.slot, r.keep))
+            return r
+        moe.route = recorded
+        try:
+            return TS.value_and_grad(loss_fn, p, b)
+        finally:
+            moe.route = real
+    lc, gc = grads("card", card, {k: v.to(dev) for k, v in data.items()})
+    lh, gh = grads("cpu", host, data)
+    row = dict(arch=spec.arch_id, layers=layers,
+               param_count=sum(p.numel() for p in tree_leaves(card)))
+    if cfg.is_moe:
+        flips = sum(int((a.cpu() != b).sum()) + int((k.cpu() != m).sum())
+                    for (a, k), (b, m) in zip(routes["card"], routes["cpu"]))
+        row["routing_flips"] = flips
+        check(len(routes["card"]) == len(routes["cpu"]) > 0 and flips == 0,
+              f"[{tag}] MoE routing equal on card and CPU: every pair's "
+              f"slot and kept mask ({flips} differ; a difference is a "
+              f"routing flip, after which the sums are not comparable)")
+    ok, _ = close_nan(torch, lc, lh, 1e-5, 0.0)
+    worst = 0.0
+    for x, y in zip(gc, gh):
+        good, err = close_nan(torch, x, y.to(dev), 1e-4, 1e-5)
+        ok &= good
+        worst = max(worst, err)
+    check(ok, f"[{tag}] == the CPU: loss {float(lc):.6f} vs "
+          f"{float(lh):.6f} (rtol 1e-5), {len(gc)} gradients rtol 1e-4 / "
+          f"atol 1e-5·max (max abs err {worst:.3e})")
+    # one AdamW update from each side's gradients (lr at its peak).  The
+    # first update moves an element by lr·g / (|g| + eps), ~lr·sign(g):
+    # where the two gradients differ by more than rtol 1e-4 (held above
+    # only by the bound's atol: near 0, the key bias's gradient being one
+    # near-cancellation) the update is not determined to rtol 1e-4 and
+    # those elements are counted, not held
+    states = []
+    for p, g in ((card, gc), (host, gh)):
+        opt = init_adamw(p)
+        lr = warmup_cosine(opt.step, peak_lr=3e-4, warmup_steps=0,
+                           total_steps=10_000)
+        states.append(adamw_update_(p, g, opt, lr=lr))
+    ok, p_err, loose = True, 0.0, 0
+    for x, y, g, h in zip(tree_leaves(card), tree_leaves(host), gc, gh):
+        h = h.to(dev)
+        sure = (g - h).abs() <= 1e-4 * h.abs()
+        loose += int((~sure).sum())
+        good, err = close_nan(torch, x.detach()[sure], y.detach().to(dev)[
+            sure], 1e-4, 1e-5)
+        ok &= good
+        p_err = max(p_err, err)
+    for x, y in zip(states[0].m + states[0].v, states[1].m + states[1].v):
+        good, err = close_nan(torch, x, y.to(dev), 1e-4, 1e-5)
+        ok &= good
+        p_err = max(p_err, err)
+    del gc, gh
+    row.update(loss_card=float(lc), loss_cpu=float(lh), grad_max_abs_err=worst,
+               param_max_abs_err=p_err, params_not_held=loose,
+               seconds=time.perf_counter() - t0)
+    check(ok, f"[{tag}] after one AdamW update: parameters and moments == "
+          f"the CPU's within rtol 1e-4 / atol 1e-5·max (max abs err "
+          f"{p_err:.3e}; {loose:,} parameters whose two gradients differ "
+          f"by more than rtol 1e-4 not held); "
+          f"{row['param_count'] / 1e9:.3f} B parameters, "
+          f"{row['seconds']:.1f} s")
+    del host, states
+    return row, card, cfg
+
+
+def lm_decode_matches_prefill(torch, dev, cfg, params):
+    """Decode token by token from an empty cache against prefill's
+    last-position logits, f32 at full width (the reference's
+    test_decode_matches_prefill_logits: rtol / atol 2e-3)."""
+    import numpy as np
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as TS
+    n = 16
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (2, n)).astype(np.int32)).to(dev)
+    want = TS.make_lm_prefill(cfg)(params, toks)
+    cache = T.init_cache(cfg, 2, 2 * n, device=dev)
+    decode = TS.make_lm_decode_step(cfg)
+    for t in range(n):
+        got, cache = decode(params, cache, toks[:, t:t + 1])
+    err = float((got[:, 0] - want).abs().max())
+    ok = bool(torch.allclose(got[:, 0], want, rtol=2e-3, atol=2e-3))
+    check(ok, f"[{cfg.name} f32 x {cfg.n_layers} layers] decode of {n} "
+          f"tokens == prefill's last-position logits within rtol / atol "
+          f"2e-3 (max abs err {err:.3e})")
+    return err
+
+
+def attention_yardstick(torch, dev, b=2, s=32768):
+    """One qwen2.5-3b layer's attention at 2 x 32,768 (16 query heads over
+    2 kv heads, head dim 128, bf16): chunked_causal_attention beside
+    F.scaled_dot_product_attention(is_causal=True), their max abs
+    difference, and the causal FLOP bound at the bf16 peak.  Printed, not
+    gated: the fused call is no part of the port."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    h, kvh, d = 16, 2, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+    with torch.no_grad():
+        ours = L.chunked_causal_attention(q, k, v, chunk=512)
+        ms = time_ms(torch, lambda: L.chunked_causal_attention(
+            q, k, v, chunk=512), reps=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=5, warmup=1)
+        diff = float((ours.float() - lib.transpose(1, 2).float()).abs()
+                     .max())
+    flops = 4 * b * h * d * s * (s + 1) / 2     # QK^T and PV, causal half
+    bound_ms = flops / H100_BF16_FLOPS * 1e3
+    print(f"  attention yardstick, one qwen2.5-3b layer at {b} x {s:,} "
+          f"(bf16): chunked_causal_attention {ms:.2f} ms, "
+          f"F.scaled_dot_product_attention(is_causal=True) {lib_ms:.2f} ms, "
+          f"max abs difference {diff:.3e}, bound {bound_ms:.2f} ms "
+          f"({flops / 1e12:.2f} TFLOP at 989 TFLOP/s bf16)", flush=True)
+    del q, k, v, ours, lib
+    return dict(ms=ms, library_ms=lib_ms, max_abs_diff=diff,
+                bound_ms=bound_ms, flops=flops)
+
+
+def lm_checks(args, torch, dev):
+    """Phase 13: every LM cell at full width (LM_CELLS' cuts), the card
+    against the CPU, decode against prefill, the attention yardstick."""
+    phase("13. LM family (train, prefill, decode at full width)")
+    from repro_torch.configs.registry import REGISTRY
+    t_phase = time.perf_counter()
+    rows = []
+    for arch, cells in LM_CELLS.items():
+        spec = REGISTRY[arch]
+        params = None
+        if "train_4k" in cells:
+            cfg, cell = lm_cut(spec, "train_4k", *cells["train_4k"])
+            row, params = lm_train_cell(torch, dev, spec, cfg, cell,
+                                        twice=arch == "qwen2.5-3b")
+            rows.append(row)
+            if cfg.n_layers != (cells["prefill_32k"][0]
+                                or spec.config.n_layers):
+                params = None
+        else:
+            big, why = lm_train_bytes(torch, spec, 1)
+            rows.append(dict(arch=arch, cell="train_4k", kind="train",
+                             not_run=big, why=why))
+            print(f"  not run: {arch} train_4k: {big / 1e9:.1f} GB before "
+                  f"any activation ({why}) > one 80 GB card", flush=True)
+        torch.cuda.empty_cache()
+        for name in ("prefill_32k", "decode_32k", "long_500k"):
+            if name not in cells:
+                continue
+            cfg, cell = lm_cut(spec, name, *cells[name])
+            if params is None:
+                params = lm_init(torch, dev, spec, cfg)
+            if cell.kind == "prefill":
+                rows.append(lm_prefill_cell(torch, dev, spec, cfg, cell,
+                                            params))
+            else:
+                rows.append(lm_decode_cell(torch, dev, spec, cfg, cell,
+                                           params))
+        del params
+        torch.cuda.empty_cache()
+    skipped = [f"{s.arch_id} {c.name}" for s in REGISTRY.values()
+               if s.family == "lm" for c in s.shapes.values() if c.skip]
+    print(f"  skipped as in the reference (full attention at 500k): "
+          f"{', '.join(skipped)}")
+    cpu = []
+    for arch, layers in LM_CPU_LAYERS.items():
+        row, params, cfg = lm_cpu_case(torch, dev, REGISTRY[arch], layers)
+        if not cfg.is_moe:
+            row["decode_vs_prefill_err"] = lm_decode_matches_prefill(
+                torch, dev, cfg, params)
+        cpu.append(row)
+        del params
+        torch.cuda.empty_cache()
+    yardstick = attention_yardstick(torch, dev)
+    out = dict(cells=rows, cpu=cpu, yardstick=yardstick,
+               launches=sum(r.get("launches", 0) for r in rows),
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  phase {out['phase_s']:.1f} s; pull_rows launched "
+          f"{out['launches']} times on the LM cells", flush=True)
+    return out
+
+
 def peak_memory(torch, name: str) -> None:
     """Print the phase's peak of allocated device memory, then reset it."""
     print(f"  phase {name} peak memory allocated "
@@ -4326,6 +4903,10 @@ def main(argv=None) -> int:
                     help="run only the set-up and phase 12 (GNN "
                          "training); prints its launches last and no "
                          "summary")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run only the build, the device and phase 13 (the "
+                         "LM family; no R-MAT set-up); prints its launches "
+                         "last and no summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
                     help="run only the set-up, phase 3's frontier_spmv and "
                          "phase 3b's pull_contrib and edge-slot count "
@@ -4344,6 +4925,7 @@ def main(argv=None) -> int:
               "the card", file=sys.stderr)
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     # the kernel engine tunes its geometry at bootstrap: its cache lives
@@ -4364,6 +4946,14 @@ def run(args, torch, dev, t_start) -> int:
     """Every phase (or the one that ``args`` asks for) on the card."""
     builds = build_kernels()
     name, smi = device_info(torch)
+    if args.lm_only:
+        only = lm_checks(args, torch, dev)
+        peak_memory(torch, "13")
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             lm=only))
+        print(json.dumps({"lm_launches": only["launches"]}))
+        return 0
     phase("setup: graph")
     edges, n, graph = make_graph(torch, dev)
     if args.gnn_kernels_only:
@@ -4448,9 +5038,13 @@ def run(args, torch, dev, t_start) -> int:
     torch.cuda.empty_cache()
     train = train_checks(args, torch, dev, edges, n, graph)
     peak_memory(torch, "12")
+    del edges, graph
+    torch.cuda.empty_cache()
+    lm = lm_checks(args, torch, dev)
+    peak_memory(torch, "13")
     extra = replicas["launches"]           # phase 9's launches
 
-    phase("13. summary")
+    phase("14. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -4536,8 +5130,9 @@ def run(args, torch, dev, t_start) -> int:
         replaces="none: the port's own kernel, the f32 index_add_ of "
                  "src/repro_torch/models/gnn.py neighbor_sum, and the "
                  "train step's segment sums and gather backwards "
-                 "(src/repro_torch/models/message.py)",
-        launches=gnn["row_launches"] + train["launches"],
+                 "(src/repro_torch/models/message.py), with the LM's "
+                 "embedding backward and MoE combine",
+        launches=gnn["row_launches"] + train["launches"] + lm["launches"],
         max_abs_err=gnn["row_sum"]["max_abs_err"], ms=row_case["ms"],
         plain_ms=row_case["plain_ms"], bound_ms=row_case["bound_ms"],
         bound_by=row_case["bound_by"], library_ms=row_case["library_ms"]))
@@ -4552,7 +5147,7 @@ def run(args, torch, dev, t_start) -> int:
                                 if k != "final_ranks"},
                          ppr=ppr, gnn=gnn, paper=paper, obs=observ,
                          replicas=replicas, mesh=mesh, ppr_mesh=ppr_mesh,
-                         train=train, kernels=kernels, wall_s=wall))
+                         train=train, lm=lm, kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

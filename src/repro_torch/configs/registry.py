@@ -1,19 +1,29 @@
 """--arch <id> resolution (twin of ``repro.configs.registry``).
 
-The port holds the reference's four GNN architectures and its own
-``df-pagerank``.  The LM and recsys architectures are not ported yet
-(ROADMAP queue 1, item 6): ``get_arch`` names them as such instead of
-failing as an unknown id.
+The port holds the reference's five LM and four GNN architectures and its
+own ``df-pagerank``, in the reference's order.  ``deepfm`` (the recsys
+family) is not ported yet (ROADMAP queue 1, item 2): ``get_arch`` names
+it as such instead of failing as an unknown id.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import (graphcast, graphsage_reddit, nequip,
-                                 pagerank_graphs, pna)
-from repro_torch.configs.common import ArchSpec
+from repro_torch.configs import (arctic_480b, gemma3_12b, glm4_9b,
+                                 graphcast, graphsage_reddit, nequip,
+                                 pagerank_graphs, pna, qwen2_5_3b,
+                                 qwen3_moe_30b_a3b)
+from repro_torch.configs.common import ArchSpec, not_ported
+
+__all__ = ["ASSIGNED_ARCHS", "NOT_PORTED", "REGISTRY", "all_cells",
+           "get_arch", "not_ported"]
 
 _SPECS = [
+    gemma3_12b.SPEC,
+    qwen2_5_3b.SPEC,
+    glm4_9b.SPEC,
+    qwen3_moe_30b_a3b.SPEC,
+    arctic_480b.SPEC,
     graphcast.SPEC,
     graphsage_reddit.SPEC,
     nequip.SPEC,
@@ -26,18 +36,7 @@ REGISTRY: Dict[str, ArchSpec] = {s.arch_id: s for s in _SPECS}
 ASSIGNED_ARCHS = [s.arch_id for s in _SPECS if s.family != "pagerank"]
 
 # the reference's architectures the port does not hold yet, by family
-NOT_PORTED = {
-    "gemma3-12b": "lm", "qwen2.5-3b": "lm", "glm4-9b": "lm",
-    "qwen3-moe-30b-a3b": "lm", "arctic-480b": "lm", "deepfm": "recsys",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a part of the reference the port does not hold
-    yet."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item 6: the LM "
-        f"family and recsys.py come in later slices)")
+NOT_PORTED = {"deepfm": "recsys"}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

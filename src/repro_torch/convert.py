@@ -2,10 +2,13 @@
 
 The rank service has no weights; its state is the graph, the packed
 structure, the update batch, the ranks and the PPR walk index.  The GNN
-refresh adds GraphSAGE parameters, and training every GNN's parameters
-and an AdamW state (``gnn_params_from_numpy``, ``adamw_state_from_numpy``;
-``*_to_numpy`` hand them back, so the two packages can be compared after
-k steps).  These functions build each of them from
+refresh adds GraphSAGE parameters, and training every GNN's and LM's
+parameters and an AdamW state (``gnn_params_from_numpy``,
+``lm_params_from_numpy``, ``adamw_state_from_numpy``; ``*_to_numpy`` hand
+them back, so the two packages can be compared after k steps).  bf16
+leaves travel as their 16-bit words (``ml_dtypes``' bfloat16 in, 2-byte
+``V2`` words out, as a bf16 checkpoint leaf reads back), not through
+``ml_dtypes``.  These functions build each of them from
 plain NumPy arrays and ints (for example arrays read out of the JAX
 package with ``np.asarray``), so two implementations can be handed the
 same state.  Arrays are copied to ``device`` with their dtypes fixed to
@@ -17,10 +20,14 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.ft.checkpoint import flatten_up_to, host_array, \
+    tensor_from_host
 from repro_torch.graph.dynamic import BatchUpdate
 from repro_torch.graph.structure import CSRView, EdgeListGraph
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import PackedGraph
+from repro_torch.models import transformer as T
 from repro_torch.models.gnn import SAGE
+from repro_torch.models.moe import MoEParams
 from repro_torch.models.tree import ParamTree, tree_map
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.ppr.walks import WalkIndex
@@ -122,20 +129,6 @@ def gnn_params_to_numpy(params: ParamTree):
     return tree_map(lambda p: p.detach().cpu().numpy(), params.tree)
 
 
-def _flatten_up_to(like, tree) -> list:
-    """``tree``'s subtrees at the leaves of ``like`` (the reference's
-    ``treedef.flatten_up_to``): a factored second moment's (row, col)
-    pair stays one entry."""
-    if like is None:
-        return []
-    if isinstance(like, dict):
-        return [x for k in sorted(like)
-                for x in _flatten_up_to(like[k], tree[k])]
-    if isinstance(like, (list, tuple)):
-        return [x for a, b in zip(like, tree) for x in _flatten_up_to(a, b)]
-    return [tree]
-
-
 def adamw_state_from_numpy(params, step, m, v,
                            device: DeviceLike = None) -> AdamWState:
     """An ``AdamWState`` from the reference's (``step``, ``m``, ``v``)
@@ -145,20 +138,45 @@ def adamw_state_from_numpy(params, step, m, v,
     device = resolve_device(device)
 
     def put(a):
-        a = np.asarray(a)
-        return torch.from_numpy(np.array(a)).to(device)
+        return tensor_from_host(a).to(device)
 
     return AdamWState(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=device),
-        m=[put(a) for a in _flatten_up_to(params, m)],
+        m=[put(a) for a in flatten_up_to(params, m)],
         v=[tuple(put(x) for x in a) if isinstance(a, tuple) else put(a)
-           for a in _flatten_up_to(params, v)])
+           for a in flatten_up_to(params, v)])
 
 
 def adamw_state_to_numpy(state: AdamWState):
-    """(step, m, v) of a state as host NumPy: lists in flatten order."""
-    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    return (int(state.step), [host(t) for t in state.m],
-            [tuple(host(x) for x in t) if isinstance(t, tuple) else host(t)
-             for t in state.v])
+    """(step, m, v) of a state as host NumPy: lists in flatten order (bf16
+    moments as 2-byte words)."""
+    return (int(state.step), [host_array(t) for t in state.m],
+            [tuple(host_array(x) for x in t) if isinstance(t, tuple)
+             else host_array(t) for t in state.v])
+
+
+def lm_params_from_numpy(params, device: DeviceLike = None) -> T.LMParams:
+    """An LM's parameters from the reference's ``init_lm`` pytree of
+    arrays (its ``LMParams`` / ``LayerParams`` / ``MoEParams``, read by
+    field name), each leaf keeping its dtype, trainable."""
+    device = resolve_device(device)
+
+    def put(a):
+        return tensor_from_host(a).to(device)
+
+    def fields(cls, obj):
+        return cls(*(put(getattr(obj, f)) for f in cls._fields))
+
+    src = params.layers
+    moe = None if src.moe is None else fields(MoEParams, src.moe)
+    layers = T.LayerParams(*(put(getattr(src, f))
+                             for f in T.LayerParams._fields[:-1]), moe=moe)
+    return T.trainable(T.LMParams(embed=put(params.embed), layers=layers,
+                                  ln_f=put(params.ln_f)))
+
+
+def lm_params_to_numpy(params: T.LMParams) -> T.LMParams:
+    """An LM's parameters as host NumPy in the port's ``LMParams`` nesting
+    (the reference's fields and order); bf16 leaves as 2-byte words."""
+    return tree_map(host_array, params)

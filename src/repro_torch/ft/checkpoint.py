@@ -1,13 +1,19 @@
-"""Checkpoints of nested dicts of tensors (twin of ``repro.ft.checkpoint``),
-in the reference's on-disk format, so that a checkpoint written by either
+"""Checkpoints of pytrees of tensors (twin of ``repro.ft.checkpoint``), in
+the reference's on-disk format, so that a checkpoint written by either
 package restores in the other:
 
   * one ``.npy`` per leaf under ``<dir>/step_<N>.tmp/``, atomically renamed
     to ``step_<N>/`` after an fsync'd ``manifest.json`` that lists each
     leaf's key, file, shape, dtype and crc32 of its raw bytes: a torn
     write never looks like a checkpoint;
-  * leaves in the reference's order and under its key strings: dict keys
-    sorted, ``"['ranks']"``, ``"['b'][0]"`` (``jax.tree_util.keystr``);
+  * leaves in the reference's order and under its key strings
+    (``jax.tree_util.keystr``): dict keys sorted, ``"['ranks']"``,
+    ``"['b'][0]"``; a NamedTuple's fields by name, ``"[0].embed"``; a
+    ``None`` subtree holds no leaf;
+  * a bf16 leaf as the reference writes one: a ``.npy`` of 2-byte words
+    (``descr '<V2'``), manifest dtype ``"bfloat16"``, crc32 of the raw
+    bytes; read back by viewing the words as ``torch.bfloat16`` (no
+    ``ml_dtypes`` needed);
   * ``restore`` verifies every digest and raises a structured
     ``CheckpointCorruptError`` for a torn or bit-flipped leaf or an
     unreadable manifest; ``restore_latest_valid`` falls back past corrupt
@@ -50,9 +56,14 @@ class CheckpointCorruptError(RuntimeError):
 
 def _flatten(tree, path: str = "") -> List[Tuple[str, Any]]:
     """(key string, leaf) pairs in the reference's leaf order."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [kv for f, x in zip(tree._fields, tree)
+                for kv in _flatten(x, f"{path}.{f}")]
     if isinstance(tree, (list, tuple)):
         return [kv for i, x in enumerate(tree)
                 for kv in _flatten(x, f"{path}[{i}]")]
@@ -62,19 +73,78 @@ def _flatten(tree, path: str = "") -> List[Tuple[str, Any]]:
 def _unflatten(tree, leaves) -> Any:
     """``tree``'s structure with its leaves taken from the iterator
     ``leaves`` in ``_flatten``'s order."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         out = {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
         return {k: out[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_unflatten(x, leaves) for x in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(x, leaves) for x in tree)
     return next(leaves)
 
 
+def flatten_up_to(target, tree) -> list:
+    """``tree``'s subtrees at the leaves of ``target``, in ``_flatten``'s
+    order (the reference's ``treedef.flatten_up_to``: a None in ``tree``,
+    or a factored moment's (row, col) pair, stands for one leaf)."""
+    if target is None:
+        return []
+    if isinstance(target, dict):
+        return [x for k in sorted(target)
+                for x in flatten_up_to(target[k], tree[k])]
+    if isinstance(target, (list, tuple)):
+        return [x for a, b in zip(target, tree) for x in flatten_up_to(a, b)]
+    return [tree]
+
+
+def _bf16_words(arr: np.ndarray) -> bool:
+    """A bf16 array on the host: ``ml_dtypes``' bfloat16, or the 2-byte
+    void words ``np.load`` gives for a bf16 ``.npy``."""
+    return arr.dtype.itemsize == 2 and (arr.dtype.kind == "V"
+                                        or arr.dtype.name == "bfloat16")
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as host NumPy; bf16 as its 2-byte words (dtype ``V2``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def tensor_from_host(a) -> torch.Tensor:
+    """A host array as a CPU tensor (a copy); bf16 words (``V2``, or
+    ``ml_dtypes``' bfloat16) as ``torch.bfloat16``."""
+    a = np.asarray(a)
+    if _bf16_words(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16).copy()).view(
+                torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         note_host_syncs()                  # a read of a device value
-        return leaf.detach().cpu().numpy()
+        return host_array(leaf)
     return np.asarray(leaf)
+
+
+def _write_leaf(path: str, arr: np.ndarray) -> str:
+    """``arr`` as a ``.npy`` at ``path``; returns the manifest dtype.  bf16
+    words get the header the reference's ``np.save`` of a bfloat16 array
+    writes (``descr '<V2'``)."""
+    if not _bf16_words(arr):
+        np.save(path, arr)
+        return str(arr.dtype)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(arr.shape)})
+        f.write(np.ascontiguousarray(arr).tobytes())
+    return "bfloat16"
 
 
 def save(directory: str, step: int, state: Any, keep_last: int = 3) -> str:
@@ -88,10 +158,9 @@ def save(directory: str, step: int, state: Any, keep_last: int = 3) -> str:
     for i, (name, leaf) in enumerate(_flatten(state)):
         arr = _host(leaf)
         fname = f"leaf_{i:05d}.npy"
-        np.save(os.path.join(tmp, fname), arr)
+        dtype = _write_leaf(os.path.join(tmp, fname), arr)
         manifest["leaves"].append(
-            dict(key=name, file=fname, shape=list(arr.shape),
-                 dtype=str(arr.dtype),
+            dict(key=name, file=fname, shape=list(arr.shape), dtype=dtype,
                  crc32=zlib.crc32(np.ascontiguousarray(arr).tobytes())))
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
         json.dump(manifest, f)
@@ -144,7 +213,7 @@ def restore(directory: str, step: int, target: Any,
     from repro_torch.launch.mesh import NamedSharding
     shard_leaves = None
     if shardings is not None:
-        shard_leaves = [sh for _, sh in _flatten(shardings)]
+        shard_leaves = flatten_up_to(target, shardings)
         bad = [sh for sh in shard_leaves
                if sh is not None and not isinstance(sh, NamedSharding)]
         if bad:
@@ -195,11 +264,10 @@ def restore(directory: str, step: int, target: Any,
     for i, (leaf, arr) in enumerate(zip(leaves, arrays)):
         sh = shard_leaves[i] if shard_leaves is not None else None
         if sh is not None:
-            out.append(sh.place(torch.from_numpy(arr).to(leaf.dtype)))
+            out.append(sh.place(tensor_from_host(arr).to(leaf.dtype)))
             continue
         note_host_syncs()                  # an upload from pageable memory
-        out.append(torch.from_numpy(arr).to(device=device,
-                                            dtype=leaf.dtype))
+        out.append(tensor_from_host(arr).to(device=device, dtype=leaf.dtype))
     return _unflatten(target, iter(out))
 
 

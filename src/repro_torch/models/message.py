@@ -22,6 +22,10 @@ bit for bit from run to run:
                               ``pull_rows`` each way (GraphSAGE's full
                               graph): no [E, D] message tensor.
 
+Rows of a 16-bit type (bf16 LM parameters and activations) are summed in
+f32 and the sums rounded to that type (``_sum_rows``), where the reference
+adds a bf16 scatter in bf16.
+
 A slot order holds **every** slot whose index is in [0, n), masked or not:
 the reference sums masked slots too (as zeros, ``where``), and a masked
 slot's gradient is not always zero (GAT's ``mx[seg]``).  Orders are built
@@ -62,8 +66,13 @@ def slot_order(idx: torch.Tensor, n: int) -> Tuple[PullOrder, torch.Tensor]:
 
 
 def _sum_rows(order: PullOrder, rows: torch.Tensor) -> torch.Tensor:
-    """``pull_rows`` of [E, D] slot rows (any float shape flattened)."""
-    return pull_rows(order, rows.contiguous(), hot_bytes=0)
+    """``pull_rows`` of [E, D] slot rows (any float shape flattened).
+    ``pull_rows`` sums f32 (f64 rows stay f64 on the CPU): rows of another
+    type (bf16) are summed in f32 and the sums rounded to their type."""
+    if rows.dtype in (torch.float32, torch.float64):
+        return pull_rows(order, rows.contiguous(), hot_bytes=0)
+    return pull_rows(order, rows.to(torch.float32).contiguous(),
+                     hot_bytes=0).to(rows.dtype)
 
 
 class _SegSum(torch.autograd.Function):
@@ -100,9 +109,9 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
 
 
 def seg_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """out[v] = Σ vals[e] over the slots e with idx[e] == v, f32[n, ...]
-    (slots out of [0, n) are dropped, as ``jax.ops.segment_sum`` drops
-    them)."""
+    """out[v] = Σ vals[e] over the slots e with idx[e] == v, [n, ...] in
+    ``vals``' dtype (slots out of [0, n) are dropped, as
+    ``jax.ops.segment_sum`` drops them; bf16 rows are summed in f32)."""
     out = _SegSum.apply(_flat(vals), idx, n)
     return out.reshape((n,) + tuple(vals.shape[1:]))
 

@@ -1,12 +1,13 @@
-"""Inputs for every GNN (architecture × shape) cell (twin of
-``repro.train.inputs``, GNN family).
+"""Inputs for every LM and GNN (architecture × shape) cell (twin of
+``repro.train.inputs``).
 
 ``concrete=True`` draws bounded random arrays from NumPy's
 ``default_rng(seed)`` in the reference's order, so one seed gives the
 reference's inputs bit for bit, and puts them on ``device``.
 ``concrete=False`` returns tensors on the ``meta`` device (shape and dtype
-only, no allocation: the reference's ``ShapeDtypeStruct``s).  The LM and
-recsys families are not ported yet and raise.
+only, no allocation: the reference's ``ShapeDtypeStruct``s).  The recsys
+family is not ported yet and raises; ``abstract_state`` and
+``abstract_cache`` come with the dry-run (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.common import ArchSpec, ShapeCell
-from repro_torch.configs.registry import not_ported
+from repro_torch.configs.common import not_ported
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as T
 from repro_torch.models.gnn import (PNAConfig, SAGEConfig, init_graphcast,
                                     init_nequip, init_pna, init_sage)
 
@@ -177,18 +179,66 @@ def gnn_inputs(spec: ArchSpec, cell: ShapeCell, *, concrete=False,
         labels=b.ints((n,), cfg.n_classes))
 
 
+def lm_inputs(spec: ArchSpec, cell: ShapeCell, *, concrete=False,
+              smoke=False, seed=0, device: DeviceLike = None
+              ) -> Dict[str, Any]:
+    b = _Builder(concrete, seed, device)
+    cfg = spec.smoke_config if smoke else spec.config
+    d = cell.dims
+    if cell.kind == "train":
+        bs, s = (2, 64) if smoke else (d["batch"], d["seq"])
+        return dict(tokens=b.ints((bs, s), cfg.vocab),
+                    labels=b.ints((bs, s), cfg.vocab))
+    if cell.kind == "prefill":
+        bs, s = (2, 64) if smoke else (d["batch"], d["seq"])
+        return dict(tokens=b.ints((bs, s), cfg.vocab))
+    # decode
+    bs, ctx = (2, 64) if smoke else (d["batch"], d["ctx"])
+    return dict(tokens=b.ints((bs, 1), cfg.vocab), ctx=ctx, batch=bs)
+
+
 def build_inputs(spec: ArchSpec, cell: ShapeCell, **kw) -> Dict[str, Any]:
+    if spec.family == "lm":
+        return lm_inputs(spec, cell, **kw)
     if spec.family != "gnn":
         raise not_ported(f"build_inputs of the {spec.family} family")
     return gnn_inputs(spec, cell, **kw)
 
 
+# ---------------------------------------------------------------------------
+# model/optimizer state per arch
+# ---------------------------------------------------------------------------
+
+MOMENT_DTYPE = {
+    # bf16 moments keep the two MoE giants' optimizer state small
+    "arctic-480b": torch.bfloat16,
+    "qwen3-moe-30b-a3b": torch.bfloat16,
+}
+
+# gradient-accumulation microbatches for train_4k (global_batch=256)
+MICROBATCHES = {
+    "gemma3-12b": 4,
+    "qwen2.5-3b": 2,
+    "glm4-9b": 4,
+    "qwen3-moe-30b-a3b": 4,
+    "arctic-480b": 16,
+}
+
+# Adafactor-style factored second moments (O(n+m) vs O(nm)) — arctic only
+FACTORED_V = {"arctic-480b": True}
+
+# bf16 gradient accumulator for the 480B model
+ACCUM_DTYPE = {"arctic-480b": torch.bfloat16}
+
+
 def init_fn(spec: ArchSpec, smoke: bool = False):
-    """``fn(generator) -> ParamTree``: random parameters by the
+    """``fn(generator) -> parameters``: random parameters by the
     reference's scheme, drawn from a ``torch.Generator`` on its device
     (another stream than ``jax.random``: carry the reference's own with
-    ``convert.gnn_params_from_numpy``)."""
+    ``convert.lm_params_from_numpy`` / ``gnn_params_from_numpy``)."""
     cfg = spec.smoke_config if smoke else spec.config
+    if spec.family == "lm":
+        return partial(T.init_lm, cfg)
     if spec.family != "gnn":
         raise not_ported(f"init_fn of the {spec.family} family")
     return {

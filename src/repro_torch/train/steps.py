@@ -1,17 +1,24 @@
-"""Train steps, GNN family (twin of ``repro.train.steps``).
+"""Train, prefill and decode steps, LM and GNN families (twin of
+``repro.train.steps``).
 
-``make_gnn_train_step(arch_id, cfg)`` returns ``train_step(params,
-opt_state, batch) -> (params, opt_state, loss)``: the loss and its
-gradients (``torch.autograd.grad`` over the ``ParamTree``'s leaves in
-flatten order), a ``warmup_cosine`` learning rate and an AdamW update,
-written into the parameters in place.  Every message sum of the forward
-and the backward goes through ``pull_rows`` in a fixed order
+``make_lm_train_step(cfg)`` and ``make_gnn_train_step(arch_id, cfg)``
+return ``train_step(params, opt_state, batch) -> (params, opt_state,
+loss)``: the loss and its gradients (``torch.autograd.grad`` over the
+parameters' leaves in ``jax.tree_util`` flatten order), a
+``warmup_cosine`` learning rate and an AdamW update that runs leaf by
+leaf in place (``optim.adamw_update_``, bitwise the functional
+``adamw_update``): the parameters and moments are overwritten, and no
+second optimizer state is ever alive.  Every row sum of the forward and
+the backward goes through ``pull_rows`` in a fixed order
 (``models.message``), so a step is the same bit for bit from run to run
 on the card; nothing in it reads the device back.
 
 ``_accumulate_grads`` splits the batch's leading dim into microbatches and
-averages their gradients, as the reference's ``lax.scan`` does.  The LM
-and recsys steps are not ported yet and raise.
+averages their gradients, as the reference's ``lax.scan`` does, adding
+each microbatch's gradients into one accumulator in place.
+``make_lm_prefill`` projects only the last position's logits;
+``make_lm_decode_step`` is ``models.transformer.decode_step``.  The recsys
+steps are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -19,20 +26,24 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from repro_torch.configs.registry import not_ported
+from repro_torch.configs.common import not_ported
 from repro_torch.models import gnn as G
-from repro_torch.models.tree import ParamTree, tree_map
-from repro_torch.optim.adamw import AdamWState, adamw_update
+from repro_torch.models import transformer as T
+from repro_torch.models.tree import ParamTree, tree_leaves, tree_map
+from repro_torch.optim.adamw import AdamWState, adamw_update_
+from repro_torch.optim.compression import compress_tree
 from repro_torch.optim.schedules import warmup_cosine
 
 F32 = torch.float32
 
 
-def value_and_grad(loss_fn: Callable, params: ParamTree, batch
+def value_and_grad(loss_fn: Callable, params, batch
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """(loss, gradients in ``params.leaves()`` order); a leaf the loss
-    does not reach gets zeros, as ``jax.grad`` gives it."""
-    leaves = params.leaves()
+    """(loss, gradients in the leaves' flatten order) of a ``ParamTree``
+    or a pytree of parameters (``LMParams``); a leaf the loss does not
+    reach gets zeros, as ``jax.grad`` gives it."""
+    leaves = params.leaves() if isinstance(params, ParamTree) \
+        else tree_leaves(params)
     with torch.enable_grad():
         loss = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -43,22 +54,73 @@ def value_and_grad(loss_fn: Callable, params: ParamTree, batch
 def _accumulate_grads(loss_fn, params, batch, n_micro: int,
                       accum_dtype=F32):
     """Split the batch's leading dim into ``n_micro`` slices and average
-    the gradients (``accum_dtype`` is the accumulator's)."""
+    the gradients (``accum_dtype`` is the accumulator's; each slice's
+    gradients are added into it in place, then scaled in place where it
+    is f32)."""
     if n_micro <= 1:
         return value_and_grad(loss_fn, params, batch)
     reshaped = tree_map(
         lambda x: x.reshape((n_micro, x.shape[0] // n_micro)
                             + tuple(x.shape[1:])), batch)
     loss_acc = None
-    grad_acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-                for p in params.leaves()]
+    grad_acc = None
     for i in range(n_micro):
         loss, grads = value_and_grad(loss_fn, params,
                                      tree_map(lambda x: x[i], reshaped))
-        grad_acc = [a + g.to(accum_dtype) for a, g in zip(grad_acc, grads)]
+        if grad_acc is None:
+            grad_acc = [torch.zeros(g.shape, dtype=accum_dtype,
+                                    device=g.device) for g in grads]
+        for a, g in zip(grad_acc, grads):
+            a.add_(g.to(accum_dtype))
+        del grads
         loss_acc = loss if loss_acc is None else loss_acc + loss
     scale = 1.0 / n_micro
-    return loss_acc * scale, [g.to(F32) * scale for g in grad_acc]
+    return loss_acc * scale, [g.mul_(scale) if g.dtype == F32
+                              else g.to(F32) * scale for g in grad_acc]
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+def make_lm_train_step(cfg, *, peak_lr=3e-4, warmup=100, total=10_000,
+                       n_microbatches: int = 1,
+                       grad_compression: str = "none",
+                       factored: bool = False,
+                       accum_dtype=F32) -> Callable:
+    def loss_fn(params, batch):
+        return T.lm_loss(cfg, params, batch["tokens"], batch["labels"])
+
+    def train_step(params, opt_state: AdamWState, batch):
+        loss, grads = _accumulate_grads(loss_fn, params, batch,
+                                        n_microbatches, accum_dtype)
+        grads = compress_tree(grads, grad_compression)
+        lr = warmup_cosine(opt_state.step, peak_lr=peak_lr,
+                           warmup_steps=warmup, total_steps=total)
+        opt_state = adamw_update_(params, grads, opt_state, lr=lr,
+                                  factored=factored)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_lm_prefill(cfg) -> Callable:
+    @torch.no_grad()
+    def prefill(params, tokens):
+        # only the LAST position's logits start decoding: the full f32
+        # [B, S, V] logits of prefill_32k (32 x 32,768 x 151,936) would
+        # be 637 GB
+        x, _ = T.backbone(cfg, params, tokens)
+        return T.logits_of(params, x[:, -1, :])
+
+    return prefill
+
+
+def make_lm_decode_step(cfg) -> Callable:
+    def serve_step(params, cache: T.KVCache, tokens):
+        return T.decode_step(cfg, params, cache, tokens)
+
+    return serve_step
 
 
 # ---------------------------------------------------------------------------
@@ -139,18 +201,11 @@ def make_gnn_train_step(arch_id: str, cfg, *, peak_lr=1e-3) -> Callable:
         loss, grads = value_and_grad(loss_fn, params, batch)
         lr = warmup_cosine(opt_state.step, peak_lr=peak_lr,
                            warmup_steps=10, total_steps=1000)
-        new, opt_state = adamw_update(params, grads, opt_state, lr=lr,
-                                      weight_decay=0.0)
-        with torch.no_grad():
-            for p, q in zip(params.leaves(), new):
-                p.copy_(q)
+        opt_state = adamw_update_(params, grads, opt_state, lr=lr,
+                                  weight_decay=0.0)
         return params, opt_state, loss
 
     return train_step
-
-
-def make_lm_train_step(*args, **kwargs):
-    raise not_ported("the LM train step")
 
 
 def make_recsys_train_step(*args, **kwargs):

@@ -114,6 +114,10 @@ def _entry_points():
     from repro_torch.ft.checkpoint import restore
     from repro_torch.launch.pagerank import main as pagerank_main
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.data.lm import Prefetcher, batches
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.configs.registry import REGISTRY
     from repro_torch.serve import IngestQueue
     e = np.asarray([[0, 1], [1, 2]], np.int32)
     return {
@@ -131,6 +135,11 @@ def _entry_points():
         "launch.serve": lambda: serve_main(["--events", "10"]),
         "launch.pagerank": lambda: pagerank_main(["--batches", "1"]),
         "checkpoint.restore": lambda: restore("no_such_dir", 0, {}),
+        "launch.train": lambda: train_main(["--smoke", "--steps", "1"]),
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(None),
+        "Prefetcher": lambda: Prefetcher(batches(8, 1, 4)),
+        "init_cache": lambda: init_cache(
+            REGISTRY["qwen2.5-3b"].smoke_config, 1, 4),
         "sage_params_from_numpy": lambda: convert.sage_params_from_numpy(
             [dict(w_self=(np.ones((2, 2)), np.zeros(2)),
                   w_neigh=(np.ones((2, 2)), np.zeros(2)))]),

@@ -33,7 +33,12 @@ is held bit for bit to its plain version on the CPU as the unweighted one
 is, and the row sum of GraphSAGE (``pull_rows``: chunks of K slots, then
 the chunks in order) bit for bit to its plain version on the CPU, and
 within atol 1e-5 times its largest magnitude to the plain version on the
-card.
+card.  The LM: a smoke config's gradients and train steps, dense
+and MoE, f32 and bf16, bitwise run to run, and in f32 its loss and
+gradients within the CPU tests' tolerance of the CPU's; chunked attention against a naive softmax in f32
+(rtol 2e-4 / atol 2e-5, the reference's test) and bf16 (atol 2e-2: bf16
+operands and probabilities); ``seg_sum`` on bf16 rows bitwise its plain
+version on the CPU (the same f32 order, then one rounding).
 """
 import dataclasses
 
@@ -1838,3 +1843,99 @@ def test_four_shard_walk_index_on_card(cuda):
         torch.testing.assert_close(ppr_estimate(got, seeds),
                                    ppr_estimate(want, seeds), rtol=0,
                                    atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the LM family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_train_step_bitwise_on_card(cuda, arch, dtype):
+    """A microbatch's loss and gradients, then two AdamW steps (2
+    microbatches) of an LM smoke config, twice from the same state: all
+    bitwise; in f32 the loss within rtol 1e-5 and the gradients within
+    rtol 1e-4 / atol 1e-5·max of the CPU's."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    spec = REGISTRY[arch]
+    cfg = dataclasses.replace(spec.smoke_config, dtype=dtype)
+    results = {}
+    for dev, tag in ((cuda, "a"), (cuda, "b"), ("cpu", "cpu")):
+        batch = TI.build_inputs(spec, spec.shapes["train_4k"],
+                                concrete=True, smoke=True, seed=1,
+                                device=dev)
+        params = T.init_lm(cfg, torch.Generator(device="cpu").manual_seed(0))
+        params = T.trainable(tree_map(lambda p: p.detach().to(dev), params))
+        loss, grads = TS.value_and_grad(
+            lambda p, b: T.lm_loss(cfg, p, b["tokens"], b["labels"]),
+            params, batch)
+        step = TS.make_lm_train_step(cfg, n_microbatches=2)
+        opt = init_adamw(params)
+        losses = []
+        for _ in range(2):
+            params, opt, l2 = step(params, opt, batch)
+            losses.append(l2)
+        results[tag] = ([loss] + grads, losses
+                        + [p.detach() for p in tree_leaves(params)])
+    for i, (a, b) in enumerate(zip(sum(results["a"], []),
+                                   sum(results["b"], []))):
+        assert torch.equal(a, b), i
+    if dtype == "float32":
+        for a, c in zip(results["a"][0], results["cpu"][0]):
+            if c.numel():
+                torch.testing.assert_close(
+                    a.cpu().double(), c.double(), rtol=1e-4,
+                    atol=1e-5 * float(c.abs().max()) + 1e-30)
+        torch.testing.assert_close(results["a"][1][1].cpu(),
+                                   results["cpu"][1][1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,window", [(64, 16, None), (97, 32, 20),
+                                            (256, 64, 100)])
+def test_chunked_attention_matches_naive_on_card(cuda, dtype, s, chunk,
+                                                 window):
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cpu").manual_seed(s)
+    q = torch.randn(2, s, 4, 32, generator=g)
+    k, v = torch.randn(2, s, 2, 32, generator=g), \
+        torch.randn(2, s, 2, 32, generator=g)
+    out = L.chunked_causal_attention(*(t.to(cuda, dtype) for t in (q, k, v)),
+                                     window=window, chunk=chunk)
+    assert out.dtype == dtype
+    qf, kf, vf = (t.to(dtype).double() for t in (q, L._expand_kv(k, 4),
+                                                  L._expand_kv(v, 4)))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / 32 ** 0.5
+    pos = torch.arange(s)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    p = torch.softmax(torch.where(mask, logits, -1e30), -1)
+    ref = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32 else \
+        dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.cpu().double(), ref, **tol)
+
+
+def test_seg_sum_bf16_rows_on_card(cuda):
+    """bf16 rows summed in f32 through pull_rows, then rounded: bitwise
+    the plain version on the CPU; the backward (a gather) exact."""
+    from repro_torch.models import message
+    g = torch.Generator(device="cpu").manual_seed(5)
+    idx = torch.randint(0, 97, (4000,), generator=g, dtype=torch.int32)
+    vals = torch.randn(4000, 48, generator=g).to(torch.bfloat16)
+    before = pc.LAUNCH_COUNTS["pull_rows"]
+    got = message.seg_sum(vals.to(cuda), idx.to(cuda), 97)
+    assert pc.LAUNCH_COUNTS["pull_rows"] == before + 1
+    want = message.seg_sum(vals, idx, 97)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
+    exact = torch.zeros(97, 48, dtype=torch.float64).index_add_(
+        0, idx.long(), vals.double())
+    torch.testing.assert_close(got.cpu().double(), exact, rtol=1e-2,
+                               atol=1e-2)
