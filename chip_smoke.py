@@ -11,6 +11,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --ppr-mesh-only [--out FILE]
     python3 chip_smoke.py --train-only [--out FILE]
     python3 chip_smoke.py --lm-only [--out FILE]
+    python3 chip_smoke.py --recsys-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
 frontier_spmv and phase 3b's pull_contrib, slot_count, segment_bounds
@@ -19,8 +20,9 @@ the third only the set-up and phase 6's kernel cases: pull_rows's on the
 set-up graph, gated_spmm's on the first batch's packed graph; the fourth
 only the set-up and phase 9, the fifth only the set-up and phase 10, the
 sixth phase 11 and the seventh phase 12; the eighth runs the build, the
-device and phase 13 alone, with no R-MAT set-up.  None prints a summary:
-they are the quick loops for work on one kernel or phase.
+device and phase 13 alone, with no R-MAT set-up, and the ninth phase 14
+so.  None prints a summary: they are the quick loops for work on one
+kernel or phase.
 
 The kernel engine tunes its pack geometry at bootstrap
 (``kernels/pagerank_spmv/tune.py``); the run keeps the tuner's cache in
@@ -325,9 +327,34 @@ It exits non-zero on the first failed check; no failure is passed over.
              ``chunked_causal_attention`` at 2 x 32,768 beside
              ``F.scaled_dot_product_attention(is_causal=True)`` (printed,
              no part of the port) and the FLOP bound.
-14. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
-             launches on its paths (phases 9's, 10's, 11's, 12's and
-             13's added), max error (frontier_spmv's over phases 3 and 10) and
+14. RecSys — DeepFM at its full config (39 fields of 10^6 rows,
+             embed_dim 10, MLP 400-400-400; 1.72 GB of parameters drawn
+             from the seed), inputs from the ported ``build_inputs(
+             concrete=True, seed=1)``, the four ``recsys_shapes`` cells
+             through the ported step makers: train_batch (65,536)
+             RECSYS_STEPS AdamW steps, its loss and gradients twice and
+             its first step again from the seed, bitwise, 0 host syncs,
+             and every ``pull_rows`` call of the gradients (the tables'
+             d = 10 and d = 1) within GNN_RTOL / GNN_ATOL of
+             ``pull_rows_ref`` on the card; serve_p99 (512)
+             RECSYS_SERVE_CALLS calls, p50 and p99 ms (host clock, each
+             ending in a sync); serve_bulk (262,144) and retrieval_cand
+             (1 query, 10^6 candidates) in ms.  Each cell beside its
+             bound from the ported roofline (``roofline/analysis.py``:
+             FLOPs at f32's rate, bytes at HBM's).  The step's split:
+             gradients, the order and plan, each ``pull_rows``, the rest
+             AdamW.  Then the card against the CPU at full widths on
+             RECSYS_CPU_VOCAB rows a field: loss rtol 1e-5, gradients and
+             (after one AdamW update) parameters and moments rtol 1e-4 /
+             atol 1e-5·max (parameters whose two gradients differ by more
+             than rtol 1e-4 counted, not held), serve and retrieval rtol
+             1e-5 / atol 1e-6·max.  Last, ``pull_rows`` at d = 10 and 1
+             on the train step's slot order beside its plain version and
+             ``index_add_``, with its bound.
+15. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+             launches on its paths (phases 9's to 14's added; pull_rows at
+             d = 10 and d = 1 also on lines of their own, phase 14's),
+             max error (frontier_spmv's over phases 3 and 10) and
              times; then, last, ``{"ok": true, "device": {...}}``.
              Each phase prints its peak of allocated device memory.
 
@@ -4378,7 +4405,7 @@ def held_pull_rows(torch):
     from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
     from repro_torch.models import message
     real = message.pull_rows
-    errs = dict(calls=0, bad=0, max_abs_err=0.0)
+    errs = dict(calls=0, bad=0, max_abs_err=0.0, by_width={})
 
     def held(order, x, **kw):
         res = real(order, x, **kw)
@@ -4386,6 +4413,8 @@ def held_pull_rows(torch):
         errs["calls"] += 1
         errs["bad"] += bad
         errs["max_abs_err"] = max(errs["max_abs_err"], err)
+        d = x.shape[1]
+        errs["by_width"][d] = max(errs["by_width"].get(d, 0.0), err)
         return res
     message.pull_rows = held
     try:
@@ -4858,6 +4887,415 @@ def lm_checks(args, torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recsys family (DeepFM) at its full config
+# ---------------------------------------------------------------------------
+
+RECSYS_STEPS = 3                 # AdamW steps of train_batch
+RECSYS_SERVE_CALLS = 200         # serve_p99 calls timed (after 5 warm-up)
+# the card against the CPU: full widths, this many rows a field, a batch
+RECSYS_CPU_VOCAB, RECSYS_CPU_BATCH = 10_000, 1_024
+
+
+def recsys_bound(spec, cell) -> dict:
+    """The ported roofline's terms for a DeepFM cell on one card: its
+    FLOPs (``model_flops``) at f32's rate and its bytes
+    (``recsys_model_bytes``) at HBM's; the bound is the larger."""
+    from repro_torch.roofline import analysis as RA
+    flops = RA.model_flops(spec, cell)
+    nbytes = RA.recsys_model_bytes(spec, cell)
+    b = RA.analytic_bound(flops, nbytes)
+    return dict(flops=flops, bytes=nbytes, flop_ms=b["compute_s"] * 1e3,
+                bytes_ms=b["memory_s"] * 1e3, bound_ms=b["bound_s"] * 1e3,
+                bound_by=b["bound_by"])
+
+
+def bound_text(b) -> str:
+    """A cell's bound and both its terms, for a line of the phase."""
+    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['flops']:.3e} FLOP = {b['flop_ms']:.4f} ms at 67 TFLOP/s "
+            f"f32; {b['bytes'] / 1e9:.4f} GB = {b['bytes_ms']:.4f} ms at "
+            f"3.35 TB/s)")
+
+
+def recsys_init(torch, dev, cfg):
+    """DeepFM's parameters of ``cfg`` on ``dev``, drawn from the seed."""
+    from repro_torch.models.recsys import init_deepfm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    return init_deepfm(cfg, gen)
+
+
+def recsys_loss_fn(cfg):
+    from repro_torch.models import recsys as R
+    return lambda p, b: R.deepfm_loss(cfg, p, b["sparse_ids"], b["labels"])
+
+
+def recsys_grad_checks(torch, dev, spec, batch) -> dict:
+    """train_batch's loss and gradients from the seed's parameters: every
+    pull_rows call held to pull_rows_ref on the card (the two tables'
+    gradients, d = embed_dim and 1), then again, bitwise."""
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.train import steps as TS
+    cfg = spec.config
+    tag = "deepfm train_batch"
+    params = recsys_init(torch, dev, cfg)
+    n = sum(p.numel() for p in tree_leaves(params))
+    check(n == cfg.param_count() + 1,
+          f"[{tag}] {n:,} parameters on the card == the config's "
+          f"param_count + the scalar bias it leaves out (the reference's "
+          f"count; {cfg.total_rows:,} table rows)")
+    loss_fn = recsys_loss_fn(cfg)
+    with held_pull_rows(torch) as errs:
+        la, ga = TS.value_and_grad(loss_fn, params, batch)
+    check(errs["calls"] == 2 and errs["bad"] == 0
+          and sorted(errs["by_width"]) == [1, cfg.embed_dim],
+          f"[{tag}] the gradients' {errs['calls']} pull_rows calls (d = "
+          f"{sorted(errs['by_width'])}) == pull_rows_ref on the card within "
+          f"rtol {GNN_RTOL} / atol {GNN_ATOL}·max (max abs err "
+          f"{errs['max_abs_err']:.3e})")
+    lb, gb = TS.value_and_grad(loss_fn, params, batch)
+    check(bits_equal(torch, la, lb)
+          and all(bits_equal(torch, x, y) for x, y in zip(ga, gb)),
+          f"[{tag}] loss {float(la):.6f} and {len(ga)} gradients bitwise "
+          f"run to run")
+    return errs
+
+
+def recsys_steps(torch, dev, spec, batch):
+    """RECSYS_STEPS AdamW steps of train_batch from the seed's parameters,
+    each timed with CUDA events, its syncs recorded; returns (parameters,
+    optimizer state, one row a step)."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train import steps as TS
+    cfg = spec.config
+    b = batch["sparse_ids"].shape[0]
+    step = TS.make_recsys_train_step(cfg)
+    params = recsys_init(torch, dev, cfg)
+    opt = init_adamw(params)
+    rows = []
+    for i in range(RECSYS_STEPS):
+        launches = pc.LAUNCH_COUNTS["pull_rows"]
+        start, stop = cuda_events(torch)
+        t = time.perf_counter()
+        with recording_syncs(torch) as syncs:
+            start.record()
+            params, opt, loss = step(params, opt, batch)
+            stop.record()
+        stop.synchronize()
+        ms = start.elapsed_time(stop)
+        rows.append(dict(step=i, ms=ms,
+                         wall_ms=(time.perf_counter() - t) * 1e3,
+                         host_syncs=len(syncs), sync_sites=sync_sites(syncs),
+                         pull_rows=pc.LAUNCH_COUNTS["pull_rows"] - launches,
+                         loss=float(loss), samples_per_s=b / (ms / 1e3)))
+    return params, opt, rows
+
+
+def recsys_serve_cells(torch, dev, spec, params) -> dict:
+    """serve_p99 (RECSYS_SERVE_CALLS calls, host clock to a sync),
+    serve_bulk and retrieval_cand (CUDA events) on ``params``; each
+    output checked for its shape and range."""
+    import statistics
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    cfg = spec.config
+    serve = TS.make_recsys_serve(cfg)
+    retrieve = TS.make_recsys_retrieval(cfg)
+    out = {}
+    sb = TI.build_inputs(spec, spec.shapes["serve_p99"], concrete=True,
+                         seed=1, device=dev)
+    for _ in range(5):
+        serve(params, sb)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(RECSYS_SERVE_CALLS):
+        t = time.perf_counter()
+        probs = serve(params, sb)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    lat.sort()
+    out["serve_p99"] = dict(batch=sb["sparse_ids"].shape[0],
+                            calls=len(lat), p50_ms=statistics.median(lat),
+                            p99_ms=lat[math.ceil(0.99 * len(lat)) - 1],
+                            max_ms=lat[-1])
+    for name in ("serve_bulk", "retrieval_cand"):
+        cell = spec.shapes[name]
+        inp = TI.build_inputs(spec, cell, concrete=True, seed=1, device=dev)
+        fn = serve if cell.kind == "recsys_serve" else retrieve
+        res = fn(params, inp)
+        ms = time_ms(torch, lambda: fn(params, inp), reps=5, warmup=1)
+        n = (inp["sparse_ids"].shape[0] if cell.kind == "recsys_serve"
+             else inp["cand_ids"].shape[0])
+        out[name] = dict(rows=n, ms=ms, per_s=n / (ms / 1e3),
+                         finite=bool(torch.isfinite(res).all()),
+                         shape=list(res.shape))
+        if cell.kind == "recsys_serve":
+            out[name]["in_range"] = bool(((res >= 0) & (res <= 1)).all())
+    out["serve_p99"].update(finite=bool(torch.isfinite(probs).all()),
+                            in_range=bool(((probs >= 0) & (probs <= 1))
+                                          .all()),
+                            shape=list(probs.shape))
+    return out
+
+
+def recsys_split(torch, dev, spec, params, batch, steps) -> dict:
+    """Where a train step's time goes: its gradients (forward and
+    backward), within them the slot order and chunk plan and each
+    pull_rows, and the rest of the step (AdamW); each pull_rows beside
+    its plain version, ``index_add_`` and its bound."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.kernels.pull_contrib.ref import ROW_CHUNK, \
+        pull_rows_ref
+    from repro_torch.kernels.segment_ops.plan import cached_plan
+    from repro_torch.models import message
+    from repro_torch.models.recsys import _field_ids
+    from repro_torch.train import steps as TS
+    cfg = spec.config
+    loss_fn = recsys_loss_fn(cfg)
+    grad_ms = time_ms(torch, lambda: TS.value_and_grad(loss_fn, params,
+                                                       batch),
+                      reps=3, warmup=1)
+    ids = _field_ids(cfg, batch["sparse_ids"]).reshape(-1)
+    n = cfg.total_rows
+
+    def order_and_plan():
+        order, _ = message.slot_order(ids.clone(), n)
+        cached_plan(order.ptr, ids.shape[0], ROW_CHUNK)
+    order_ms = time_ms(torch, order_and_plan, reps=3, warmup=1)
+    order, _ = message.slot_order(ids, n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    kernels = {}
+    for d in (cfg.embed_dim, 1):
+        g = torch.randn(ids.shape[0], d, generator=gen, device=dev)
+        out = pc.pull_rows(order, g, hot_bytes=0)
+        err, big, bad = compare_rows(out, pull_rows_ref(order, g))
+        check(bad == 0 and bits_equal(torch, out, pc.pull_rows(
+                  order, g, hot_bytes=0)),
+              f"[deepfm pull_rows d = {d}] the train step's order "
+              f"({ids.shape[0]:,} slots into {n:,} rows, row path "
+              f"{pc.row_path(d, g.data_ptr())}) == pull_rows_ref on the "
+              f"card within rtol {GNN_RTOL} / atol {GNN_ATOL}·max (max abs "
+              f"err {err:.3e}) and bitwise run to run")
+        bound_ms, bound_by, detail = pull_rows_bound(torch, order, d)
+        idx = ids.long()
+        kernels[d] = dict(
+            d=d, max_abs_err=err, row_path=list(pc.row_path(d, g.data_ptr())),
+            ms=time_ms(torch, lambda: pc.pull_rows(order, g, hot_bytes=0),
+                       reps=5, warmup=1),
+            plain_ms=time_ms(torch, lambda: pull_rows_ref(order, g), reps=3,
+                             warmup=1),
+            library_ms=time_ms(torch, lambda: torch.zeros(
+                n, d, device=dev).index_add_(0, idx, g), reps=5, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by, bound_detail=detail)
+        del g, out
+    later = [r["ms"] for r in steps[1:]] or [steps[0]["ms"]]
+    step_ms = sorted(later)[len(later) // 2]
+    rows_ms = sum(k["ms"] for k in kernels.values())
+    return dict(step_ms=step_ms, grad_ms=grad_ms, order_plan_ms=order_ms,
+                pull_rows_ms=rows_ms, adamw_ms=step_ms - grad_ms,
+                forward_backward_rest_ms=grad_ms - order_ms - rows_ms,
+                adamw_bytes_ms=7 * 4 * (cfg.param_count() + 1)
+                / H100_BYTES_PER_S * 1e3, kernels=kernels)
+
+
+def recsys_cpu_case(torch, dev, spec) -> dict:
+    """The card against the CPU at full widths on RECSYS_CPU_VOCAB rows a
+    field: the loss (rtol 1e-5), every gradient and, after one AdamW
+    update (lr 1e-3), every parameter and moment (rtol 1e-4 / atol
+    1e-5·max; parameters whose two gradients differ by more than rtol
+    1e-4 counted, not held); serve and retrieval (rtol 1e-5 / atol
+    1e-6·max)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models.tree import trainable
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.optim.adamw import adamw_update_, init_adamw
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(spec.config, vocab_per_field=RECSYS_CPU_VOCAB)
+    tag = (f"deepfm f32 x {RECSYS_CPU_VOCAB:,} rows a field, batch "
+           f"{RECSYS_CPU_BATCH:,}")
+    t0 = time.perf_counter()
+    card = recsys_init(torch, dev, cfg)
+    host = trainable(tree_map(lambda p: p.detach().cpu(), card))
+    rng = np.random.default_rng(SEED)
+    data = dict(
+        sparse_ids=torch.from_numpy(rng.integers(
+            0, cfg.vocab_per_field, (RECSYS_CPU_BATCH, cfg.n_sparse))
+            .astype(np.int32)),
+        labels=torch.from_numpy((rng.random(RECSYS_CPU_BATCH) < 0.5)
+                                .astype(np.float32)))
+    on_card = {k: v.to(dev) for k, v in data.items()}
+    loss_fn = recsys_loss_fn(cfg)
+    lc, gc = TS.value_and_grad(loss_fn, card, on_card)
+    lh, gh = TS.value_and_grad(loss_fn, host, data)
+    ok, _ = close_nan(torch, lc, lh, 1e-5, 0.0)
+    worst = 0.0
+    for x, y in zip(gc, gh):
+        good, err = close_nan(torch, x, y.to(dev), 1e-4, 1e-5)
+        ok &= good
+        worst = max(worst, err)
+    check(ok, f"[{tag}] == the CPU: loss {float(lc):.7f} vs {float(lh):.7f} "
+              f"(rtol 1e-5), {len(gc)} gradients rtol 1e-4 / atol 1e-5·max "
+              f"(max abs err {worst:.3e})")
+    # one AdamW update from each side's gradients, lr at its peak: where
+    # the two gradients differ by more than rtol 1e-4 the first update
+    # (~lr·sign(g)) is not determined to rtol 1e-4: counted, not held
+    states = []
+    for p, g in ((card, gc), (host, gh)):
+        opt = init_adamw(p)
+        lr = warmup_cosine(opt.step, peak_lr=1e-3, warmup_steps=0,
+                           total_steps=10_000)
+        states.append(adamw_update_(p, g, opt, lr=lr, weight_decay=0.0))
+    ok, p_err, loose = True, 0.0, 0
+    for x, y, g, h in zip(tree_leaves(card), tree_leaves(host), gc, gh):
+        h = h.to(dev)
+        sure = (g - h).abs() <= 1e-4 * h.abs()
+        loose += int((~sure).sum())
+        good, err = close_nan(torch, x.detach()[sure],
+                              y.detach().to(dev)[sure], 1e-4, 1e-5)
+        ok &= good
+        p_err = max(p_err, err)
+    for x, y in zip(states[0].m + states[0].v, states[1].m + states[1].v):
+        good, err = close_nan(torch, x, y.to(dev), 1e-4, 1e-5)
+        ok &= good
+        p_err = max(p_err, err)
+    check(ok, f"[{tag}] after one AdamW update: parameters and moments == "
+              f"the CPU's within rtol 1e-4 / atol 1e-5·max (max abs err "
+              f"{p_err:.3e}; {loose:,} of {cfg.param_count():,} parameters "
+              f"whose two gradients differ by more than rtol 1e-4 not held)")
+    serve = TS.make_recsys_serve(cfg)
+    retrieve = TS.make_recsys_retrieval(cfg)
+    query = dict(query_ids=data["sparse_ids"][:1],
+                 cand_ids=torch.from_numpy(rng.integers(
+                     0, cfg.vocab_per_field, 100_000).astype(np.int32)))
+    outs = {}
+    for name, fn, inp in (("serve", serve, data), ("retrieval", retrieve,
+                                                   query)):
+        got = fn(card, {k: v.to(dev) for k, v in inp.items()})
+        want = fn(host, inp)
+        good, err = close_nan(torch, got, want.to(dev), 1e-5, 1e-6)
+        outs[name] = err
+        check(good, f"[{tag}] {name} on the card == the CPU within rtol "
+                    f"1e-5 / atol 1e-6·max (max abs err {err:.3e}, "
+                    f"{tuple(got.shape)})")
+    return dict(loss_card=float(lc), loss_cpu=float(lh),
+                grad_max_abs_err=worst, param_max_abs_err=p_err,
+                params_not_held=loose, serve_max_abs_err=outs["serve"],
+                retrieval_max_abs_err=outs["retrieval"],
+                seconds=time.perf_counter() - t0)
+
+
+def recsys_checks(args, torch, dev):
+    """Phase 14: DeepFM's four cells at the full config through the
+    ported step makers, each beside its roofline bound; the step's split;
+    the card against the CPU; pull_rows at d = 10 and 1."""
+    phase("14. RecSys family (DeepFM train, serve, retrieval at full "
+          "config)")
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.train import inputs as TI
+    t_phase = time.perf_counter()
+    spec = get_arch("deepfm")
+    cfg = spec.config
+    tag = "deepfm train_batch"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = TI.build_inputs(spec, spec.shapes["train_batch"], concrete=True,
+                            seed=1, device=dev)
+    b = batch["sparse_ids"].shape[0]
+    held = recsys_grad_checks(torch, dev, spec, batch)
+    torch.cuda.empty_cache()
+    # the main path: every count set to 0 just before, read just after
+    pc.LAUNCH_COUNTS["pull_rows"] = 0
+    pc.ROW_WIDTH_LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, steps = recsys_steps(torch, dev, spec, batch)
+    peak_train = torch.cuda.max_memory_allocated()   # one run's
+    again_params, again_opt, again = recsys_steps(torch, dev, spec, batch)
+    same = (all(a["loss"] == c["loss"] for a, c in zip(steps, again))
+            and all(bits_equal(torch, x.detach(), y.detach()) for x, y in
+                    zip(tree_leaves(params) + opt.m + opt.v,
+                        tree_leaves(again_params) + again_opt.m
+                        + again_opt.v)))
+    del again_params, again_opt, opt
+    torch.cuda.empty_cache()
+    serving = recsys_serve_cells(torch, dev, spec, params)
+    launches = pc.LAUNCH_COUNTS["pull_rows"]
+    by_width = dict(pc.ROW_WIDTH_LAUNCHES)
+    # the main path's checks
+    ms = ", ".join(f"{r['ms']:.2f}" for r in steps)
+    check(all(math.isfinite(r["loss"]) for r in steps) and same,
+          f"[{tag}] {RECSYS_STEPS} AdamW steps (losses "
+          f"{[round(r['loss'], 6) for r in steps]}) run twice from the "
+          f"seed: losses, {len(tree_leaves(params))} parameters and their "
+          f"moments bitwise")
+    check(all(r["host_syncs"] == 0 for r in steps + again),
+          f"[{tag}] host syncs a step {[r['host_syncs'] for r in steps]} "
+          f"(set_sync_debug_mode): none")
+    n_steps = len(steps) + len(again)
+    check(launches == 2 * n_steps
+          and by_width == {cfg.embed_dim: n_steps, 1: n_steps},
+          f"[{tag}] pull_rows launched {launches} times in {n_steps} steps "
+          f"(by width {by_width}): the table's and table_w's gradients, "
+          f"one each a step; none in serve or retrieval")
+    train_bound = recsys_bound(spec, spec.shapes["train_batch"])
+    print(f"  [{tag}] batch {b:,}, {cfg.param_count():,} parameters: a "
+          f"step {ms} ms (first, later; {steps[-1]['samples_per_s']:,.0f} "
+          f"samples/s after the first); peak {peak_train / 2**30:.2f} GiB; "
+          f"{bound_text(train_bound)}", flush=True)
+    for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        r = serving[name]
+        r["bound"] = recsys_bound(spec, spec.shapes[name])
+        check(r["finite"] and r.get("in_range", True),
+              f"[deepfm {name}] output {r['shape']} finite"
+              + (" and in [0, 1]" if "in_range" in r else ""))
+    s99, bulk, ret = (serving[k] for k in ("serve_p99", "serve_bulk",
+                                           "retrieval_cand"))
+    print(f"  [deepfm serve_p99] batch {s99['batch']}: p50 "
+          f"{s99['p50_ms']:.4f} ms, p99 {s99['p99_ms']:.4f} ms, max "
+          f"{s99['max_ms']:.4f} over {s99['calls']} calls (host clock to a "
+          f"sync); {bound_text(s99['bound'])}", flush=True)
+    print(f"  [deepfm serve_bulk] batch {bulk['rows']:,}: {bulk['ms']:.4f} "
+          f"ms ({bulk['per_s']:,.0f} samples/s); "
+          f"{bound_text(bulk['bound'])}", flush=True)
+    print(f"  [deepfm retrieval_cand] 1 query x {ret['rows']:,} "
+          f"candidates: {ret['ms']:.4f} ms; {bound_text(ret['bound'])}",
+          flush=True)
+    split = recsys_split(torch, dev, spec, params, batch, steps)
+    print(f"  [{tag}] where a step's {split['step_ms']:.2f} ms go: "
+          f"gradients {split['grad_ms']:.2f} (slot order and plan "
+          f"{split['order_plan_ms']:.2f}, pull_rows "
+          f"{split['pull_rows_ms']:.2f}, the rest of the forward and backward "
+          f"{split['forward_backward_rest_ms']:.2f}), AdamW "
+          f"{split['adamw_ms']:.2f} (its 7 passes' bytes bound "
+          f"{split['adamw_bytes_ms']:.2f})", flush=True)
+    for d, k in split["kernels"].items():
+        print(f"  [deepfm pull_rows d = {d}] {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f}, index_add_ {k['library_ms']:.4f}, bound "
+              f"{k['bound_ms']:.4f} ({k['bound_by']}), row path "
+              f"{k['row_path']}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    cpu = recsys_cpu_case(torch, dev, spec)
+    for d, err in held["by_width"].items():
+        k = split["kernels"][d]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        k["launches"] = by_width.get(d, 0)
+    out = dict(train=dict(steps=steps, again=again, peak_bytes=peak_train,
+                          bound=train_bound, pull_rows_check=held),
+               serving=serving, split=split, cpu=cpu, launches=launches,
+               kernels=split["kernels"],
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  phase {out['phase_s']:.1f} s; pull_rows launched {launches} "
+          f"times on the DeepFM steps", flush=True)
+    return out
+
+
 def peak_memory(torch, name: str) -> None:
     """Print the phase's peak of allocated device memory, then reset it."""
     print(f"  phase {name} peak memory allocated "
@@ -4907,6 +5345,10 @@ def main(argv=None) -> int:
                     help="run only the build, the device and phase 13 (the "
                          "LM family; no R-MAT set-up); prints its launches "
                          "last and no summary")
+    ap.add_argument("--recsys-only", action="store_true",
+                    help="run only the build, the device and phase 14 (the "
+                         "recsys family; no R-MAT set-up); prints its "
+                         "launches last and no summary")
     ap.add_argument("--spmv-kernels-only", action="store_true",
                     help="run only the set-up, phase 3's frontier_spmv and "
                          "phase 3b's pull_contrib and edge-slot count "
@@ -4953,6 +5395,14 @@ def run(args, torch, dev, t_start) -> int:
         write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
                              lm=only))
         print(json.dumps({"lm_launches": only["launches"]}))
+        return 0
+    if args.recsys_only:
+        only = recsys_checks(args, torch, dev)
+        peak_memory(torch, "14")
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             recsys=only))
+        print(json.dumps({"recsys_launches": only["launches"]}))
         return 0
     phase("setup: graph")
     edges, n, graph = make_graph(torch, dev)
@@ -5042,9 +5492,12 @@ def run(args, torch, dev, t_start) -> int:
     torch.cuda.empty_cache()
     lm = lm_checks(args, torch, dev)
     peak_memory(torch, "13")
+    torch.cuda.empty_cache()
+    recsys = recsys_checks(args, torch, dev)
+    peak_memory(torch, "14")
     extra = replicas["launches"]           # phase 9's launches
 
-    phase("14. summary")
+    phase("15. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -5131,11 +5584,25 @@ def run(args, torch, dev, t_start) -> int:
                  "src/repro_torch/models/gnn.py neighbor_sum, and the "
                  "train step's segment sums and gather backwards "
                  "(src/repro_torch/models/message.py), with the LM's "
-                 "embedding backward and MoE combine",
-        launches=gnn["row_launches"] + train["launches"] + lm["launches"],
+                 "embedding backward and MoE combine and DeepFM's table "
+                 "gradients",
+        launches=gnn["row_launches"] + train["launches"] + lm["launches"]
+        + recsys["launches"],
         max_abs_err=gnn["row_sum"]["max_abs_err"], ms=row_case["ms"],
         plain_ms=row_case["plain_ms"], bound_ms=row_case["bound_ms"],
         bound_by=row_case["bound_by"], library_ms=row_case["library_ms"]))
+    for d, k in sorted(recsys["kernels"].items(), reverse=True):
+        kernels.append(dict(
+            name=f"pull_rows d={d}", route="cuda",
+            source="src/repro_torch/kernels/pull_contrib/csrc/"
+                   "pull_contrib.cu",
+            replaces="none: the port's own kernel at DeepFM's table width "
+                     f"d = {d}, the gather backward of "
+                     "src/repro_torch/models/recsys.py (phase 14's launches; "
+                     "also counted on the pull_rows line)",
+            launches=k["launches"], max_abs_err=k["max_abs_err"],
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
     wall = time.perf_counter() - t_start
     print(f"  wall {wall:.1f} s; card: {smi}")
     write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
@@ -5147,7 +5614,8 @@ def run(args, torch, dev, t_start) -> int:
                                 if k != "final_ranks"},
                          ppr=ppr, gnn=gnn, paper=paper, obs=observ,
                          replicas=replicas, mesh=mesh, ppr_mesh=ppr_mesh,
-                         train=train, lm=lm, kernels=kernels, wall_s=wall))
+                         train=train, lm=lm, recsys=recsys,
+                         kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,11 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 # what is left of ROADMAP.md queue 1 (modules still to port), by item
-_QUEUE_1 = {2: "models/recsys.py comes in a later slice",
-            3: "the dry-run, roofline and sharding rules come in a later "
+_QUEUE_1 = {3: "the dry-run and the sharding rules come in a later "
                "slice"}
 
 
-def not_ported(what: str, item: int = 2) -> NotImplementedError:
+def not_ported(what: str, item: int = 3) -> NotImplementedError:
     """The error for a part of the reference the port does not hold yet,
     naming its item of ROADMAP.md queue 1."""
     return NotImplementedError(

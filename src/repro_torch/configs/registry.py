@@ -1,17 +1,18 @@
 """--arch <id> resolution (twin of ``repro.configs.registry``).
 
-The port holds the reference's five LM and four GNN architectures and its
-own ``df-pagerank``, in the reference's order.  ``deepfm`` (the recsys
-family) is not ported yet (ROADMAP queue 1, item 2): ``get_arch`` names
-it as such instead of failing as an unknown id.
+The port holds every architecture of the reference (five LM, four GNN and
+the recsys family's ``deepfm``) and its own ``df-pagerank``, in the
+reference's order.  ``NOT_PORTED`` names the reference's architectures
+the port does not hold (none is left); ``get_arch`` would name such an
+arch as not ported instead of failing as an unknown id.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import (arctic_480b, gemma3_12b, glm4_9b,
-                                 graphcast, graphsage_reddit, nequip,
-                                 pagerank_graphs, pna, qwen2_5_3b,
+from repro_torch.configs import (arctic_480b, deepfm, gemma3_12b,
+                                 glm4_9b, graphcast, graphsage_reddit,
+                                 nequip, pagerank_graphs, pna, qwen2_5_3b,
                                  qwen3_moe_30b_a3b)
 from repro_torch.configs.common import ArchSpec, not_ported
 
@@ -28,6 +29,7 @@ _SPECS = [
     graphsage_reddit.SPEC,
     nequip.SPEC,
     pna.SPEC,
+    deepfm.SPEC,
     pagerank_graphs.SPEC,
 ]
 
@@ -36,7 +38,7 @@ REGISTRY: Dict[str, ArchSpec] = {s.arch_id: s for s in _SPECS}
 ASSIGNED_ARCHS = [s.arch_id for s in _SPECS if s.family != "pagerank"]
 
 # the reference's architectures the port does not hold yet, by family
-NOT_PORTED = {"deepfm": "recsys"}
+NOT_PORTED: Dict[str, str] = {}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -50,7 +52,7 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 
 def all_cells(include_pagerank: bool = False):
-    """Every (arch, shape) pair of the ported architectures."""
+    """Every (arch, shape) pair: the dry-run/roofline cell list."""
     for spec in _SPECS:
         if spec.family == "pagerank" and not include_pagerank:
             continue

@@ -2,9 +2,10 @@
 
 The rank service has no weights; its state is the graph, the packed
 structure, the update batch, the ranks and the PPR walk index.  The GNN
-refresh adds GraphSAGE parameters, and training every GNN's and LM's
-parameters and an AdamW state (``gnn_params_from_numpy``,
-``lm_params_from_numpy``, ``adamw_state_from_numpy``; ``*_to_numpy`` hand
+refresh adds GraphSAGE parameters, and training every GNN's, LM's and
+DeepFM's parameters and an AdamW state (``gnn_params_from_numpy``,
+``lm_params_from_numpy``, ``deepfm_params_from_numpy``,
+``adamw_state_from_numpy``; ``*_to_numpy`` hand
 them back, so the two packages can be compared after k steps).  bf16
 leaves travel as their 16-bit words (``ml_dtypes``' bfloat16 in, 2-byte
 ``V2`` words out, as a bf16 checkpoint leaf reads back), not through
@@ -28,7 +29,8 @@ from repro_torch.kernels.pagerank_spmv.pagerank_spmv import PackedGraph
 from repro_torch.models import transformer as T
 from repro_torch.models.gnn import SAGE
 from repro_torch.models.moe import MoEParams
-from repro_torch.models.tree import ParamTree, tree_map
+from repro_torch.models.recsys import DeepFMParams
+from repro_torch.models.tree import ParamTree, trainable, tree_map
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.ppr.walks import WalkIndex
 
@@ -179,4 +181,26 @@ def lm_params_from_numpy(params, device: DeviceLike = None) -> T.LMParams:
 def lm_params_to_numpy(params: T.LMParams) -> T.LMParams:
     """An LM's parameters as host NumPy in the port's ``LMParams`` nesting
     (the reference's fields and order); bf16 leaves as 2-byte words."""
+    return tree_map(host_array, params)
+
+
+def deepfm_params_from_numpy(params, device: DeviceLike = None
+                             ) -> DeepFMParams:
+    """DeepFM's parameters from the reference's ``init_deepfm`` pytree of
+    arrays (its ``DeepFMParams``, read by field name), each leaf f32,
+    trainable."""
+    device = resolve_device(device)
+
+    def put(a):
+        return _t(a, np.float32, device)
+
+    return trainable(DeepFMParams(
+        table=put(params.table), table_w=put(params.table_w),
+        mlp_ws=tuple(put(w) for w in params.mlp_ws),
+        mlp_bs=tuple(put(b) for b in params.mlp_bs),
+        bias=put(params.bias)))
+
+
+def deepfm_params_to_numpy(params: DeepFMParams) -> DeepFMParams:
+    """DeepFM's parameters as host NumPy in the reference's nesting."""
     return tree_map(host_array, params)

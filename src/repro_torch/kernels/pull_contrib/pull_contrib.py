@@ -21,7 +21,8 @@ the rows of the sources with the most live slots (``HOT_BYTES`` of them,
 ``tag_slots``) in the card's L2 and reads each row
 in one pass of float2 or float4 loads where d and x's address allow
 (``row_path``).  A failed build or launch raises.  ``LAUNCH_COUNTS``
-counts calls that launch each kernel.
+counts calls that launch each kernel, ``ROW_WIDTH_LAUNCHES`` the
+``pull_rows`` launches by row width.
 """
 from __future__ import annotations
 
@@ -40,12 +41,14 @@ from repro_torch.kernels.slot_count.slot_count import segment_bounds, \
     slot_count
 
 __all__ = ["HOT_BYTES", "HOT_TAG", "HotSet", "LAUNCH_COUNTS", "PULL_CHUNK",
-           "PullOrder", "ROW_CHUNK", "ROW_PATHS", "cached_hot_set",
-           "hot_set", "kernel_info", "pull_contrib", "pull_order",
-           "pull_rows", "pull_values", "row_path", "segment_sum",
-           "sorted_slots", "source_ranking", "tag_slots"]
+           "PullOrder", "ROW_CHUNK", "ROW_PATHS", "ROW_WIDTH_LAUNCHES",
+           "cached_hot_set", "hot_set", "kernel_info", "pull_contrib",
+           "pull_order", "pull_rows", "pull_values", "row_path",
+           "segment_sum", "sorted_slots", "source_ranking", "tag_slots"]
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+# pull_rows launches by row width d
+ROW_WIDTH_LAUNCHES: collections.Counter = collections.Counter()
 
 _check = functools.partial(check_arg, "pull_contrib")
 _check_rows = functools.partial(check_arg, "pull_rows")
@@ -343,6 +346,7 @@ def _launch_rows(order: PullOrder, x: torch.Tensor, chunk_slots: int,
         raise RuntimeError(f"pull_rows kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCH_COUNTS["pull_rows"] += 1
+    ROW_WIDTH_LAUNCHES[d] += 1
     return out
 
 

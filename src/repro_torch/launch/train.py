@@ -71,7 +71,7 @@ def main(argv=None):
     spec = get_arch(args.arch)
     if spec.family != "lm":
         raise SystemExit("launch.train drives LM archs; use launch.pagerank "
-                         "or examples/ for graph workloads")
+                         "or examples/ for graph/recsys workloads")
     cfg = spec.smoke_config if args.smoke else spec.config
     print(f"arch={args.arch} params≈{cfg.param_count()/1e6:.1f}M "
           f"(active {cfg.active_param_count()/1e6:.1f}M)")

@@ -38,7 +38,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.message import edge_gather
 from repro_torch.models.moe import MoEParams, init_moe, moe_ffn
-from repro_torch.models.tree import tree_leaves, tree_unflatten
+from repro_torch.models.tree import trainable, tree_leaves, tree_unflatten
 
 F32 = torch.float32
 
@@ -125,13 +125,6 @@ class LMParams(NamedTuple):
     embed: torch.Tensor        # [V, D]
     layers: LayerParams        # stacked [L, ...]
     ln_f: torch.Tensor         # [D]
-
-
-def trainable(params: LMParams) -> LMParams:
-    """Every leaf of ``params`` as a trainable ``nn.Parameter``."""
-    leaves = [p if isinstance(p, torch.nn.Parameter)
-              else torch.nn.Parameter(p) for p in tree_leaves(params)]
-    return tree_unflatten(params, leaves)
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator) -> LMParams:
@@ -256,7 +249,7 @@ def backbone(cfg: LMConfig, params: LMParams, tokens: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: int32[B, S] -> (hidden [B, S, D], aux_loss f32[])."""
     if cfg.counting:
-        raise not_ported("the LM's counting mode (the dry-run)", item=3)
+        raise not_ported("the LM's counting mode (the dry-run)")
     b, s_len = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s_len, dtype=torch.int32,
@@ -352,7 +345,7 @@ def decode_step(cfg: LMConfig, params: LMParams, cache: KVCache,
     cache).  The new K/V are written into ``cache``'s tensors in place;
     the returned cache holds the same tensors and ``length + 1``."""
     if cfg.counting:
-        raise not_ported("the LM's counting mode (the dry-run)", item=3)
+        raise not_ported("the LM's counting mode (the dry-run)")
     b = tokens.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     smax = cache.k.shape[2]

@@ -7,7 +7,9 @@ nesting with each array an ``nn.Parameter`` (trainable), registered in
 that flatten order, so ``leaves()`` pairs leaf for leaf with the
 reference's ``tree_leaves`` and an ``AdamWState`` carries across.
 ``tree_leaves`` / ``tree_map`` / ``tree_unflatten`` are the few pytree
-functions the port needs, over the same containers.
+functions the port needs, over the same containers; ``trainable`` makes
+every leaf of a pytree of tensors (the LM's and DeepFM's NamedTuples) an
+``nn.Parameter``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Any, Callable, List
 import torch
 from torch import nn
 
-__all__ = ["ParamTree", "tree_leaves", "tree_map", "tree_unflatten"]
+__all__ = ["ParamTree", "tree_leaves", "tree_map", "tree_unflatten",
+           "trainable"]
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -56,6 +59,14 @@ def tree_unflatten(like, leaves) -> Any:
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def trainable(tree):
+    """``tree`` with every leaf a trainable ``nn.Parameter`` (a leaf that
+    already is one is kept)."""
+    leaves = [p if isinstance(p, nn.Parameter) else nn.Parameter(p)
+              for p in tree_leaves(tree)]
+    return tree_unflatten(tree, leaves)
 
 
 class ParamTree(nn.Module):

@@ -1,13 +1,13 @@
-"""Inputs for every LM and GNN (architecture × shape) cell (twin of
-``repro.train.inputs``).
+"""Inputs for every LM, GNN and recsys (architecture × shape) cell (twin
+of ``repro.train.inputs``).
 
 ``concrete=True`` draws bounded random arrays from NumPy's
 ``default_rng(seed)`` in the reference's order, so one seed gives the
 reference's inputs bit for bit, and puts them on ``device``.
 ``concrete=False`` returns tensors on the ``meta`` device (shape and dtype
-only, no allocation: the reference's ``ShapeDtypeStruct``s).  The recsys
-family is not ported yet and raises; ``abstract_state`` and
-``abstract_cache`` come with the dry-run (ROADMAP queue 1, item 3).
+only, no allocation: the reference's ``ShapeDtypeStruct``s).
+``abstract_state`` and ``abstract_cache`` come with the dry-run (ROADMAP
+queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -19,11 +19,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.common import ArchSpec, ShapeCell
-from repro_torch.configs.common import not_ported
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.gnn import (PNAConfig, SAGEConfig, init_graphcast,
                                     init_nequip, init_pna, init_sage)
+from repro_torch.models.recsys import init_deepfm
 
 F32 = torch.float32
 I32 = torch.int32
@@ -197,12 +197,28 @@ def lm_inputs(spec: ArchSpec, cell: ShapeCell, *, concrete=False,
     return dict(tokens=b.ints((bs, 1), cfg.vocab), ctx=ctx, batch=bs)
 
 
+def recsys_inputs(spec: ArchSpec, cell: ShapeCell, *, concrete=False,
+                  smoke=False, seed=0, device: DeviceLike = None
+                  ) -> Dict[str, Any]:
+    b = _Builder(concrete, seed, device)
+    cfg = spec.smoke_config if smoke else spec.config
+    d = cell.dims
+    if cell.kind == "recsys_retrieval":
+        nc = 256 if smoke else d["n_candidates"]
+        return dict(query_ids=b.ints((1, cfg.n_sparse), cfg.vocab_per_field),
+                    cand_ids=b.ints((nc,), cfg.vocab_per_field))
+    bs = 16 if smoke else d["batch"]
+    out = dict(sparse_ids=b.ints((bs, cfg.n_sparse), cfg.vocab_per_field))
+    if cell.kind == "recsys_train":
+        # the reference draws the labels from a fresh generator of the seed
+        out["labels"] = b._put(np.random.default_rng(seed).random(bs) < 0.5,
+                               F32) if concrete else b._meta((bs,), F32)
+    return out
+
+
 def build_inputs(spec: ArchSpec, cell: ShapeCell, **kw) -> Dict[str, Any]:
-    if spec.family == "lm":
-        return lm_inputs(spec, cell, **kw)
-    if spec.family != "gnn":
-        raise not_ported(f"build_inputs of the {spec.family} family")
-    return gnn_inputs(spec, cell, **kw)
+    return {"lm": lm_inputs, "gnn": gnn_inputs,
+            "recsys": recsys_inputs}[spec.family](spec, cell, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +251,13 @@ def init_fn(spec: ArchSpec, smoke: bool = False):
     """``fn(generator) -> parameters``: random parameters by the
     reference's scheme, drawn from a ``torch.Generator`` on its device
     (another stream than ``jax.random``: carry the reference's own with
-    ``convert.lm_params_from_numpy`` / ``gnn_params_from_numpy``)."""
+    ``convert.lm_params_from_numpy`` / ``gnn_params_from_numpy`` /
+    ``deepfm_params_from_numpy``)."""
     cfg = spec.smoke_config if smoke else spec.config
     if spec.family == "lm":
         return partial(T.init_lm, cfg)
-    if spec.family != "gnn":
-        raise not_ported(f"init_fn of the {spec.family} family")
+    if spec.family == "recsys":
+        return partial(init_deepfm, cfg)
     return {
         "graphsage-reddit": partial(init_sage, cfg),
         "pna": partial(init_pna, cfg),

@@ -1,10 +1,11 @@
-"""Train, prefill and decode steps, LM and GNN families (twin of
-``repro.train.steps``).
+"""Train, prefill, decode and serve steps, LM, GNN and recsys families
+(twin of ``repro.train.steps``).
 
-``make_lm_train_step(cfg)`` and ``make_gnn_train_step(arch_id, cfg)``
-return ``train_step(params, opt_state, batch) -> (params, opt_state,
-loss)``: the loss and its gradients (``torch.autograd.grad`` over the
-parameters' leaves in ``jax.tree_util`` flatten order), a
+``make_lm_train_step(cfg)``, ``make_gnn_train_step(arch_id, cfg)`` and
+``make_recsys_train_step(cfg)`` return ``train_step(params, opt_state,
+batch) -> (params, opt_state, loss)``: the loss and its gradients
+(``torch.autograd.grad`` over the parameters' leaves in ``jax.tree_util``
+flatten order), a
 ``warmup_cosine`` learning rate and an AdamW update that runs leaf by
 leaf in place (``optim.adamw_update_``, bitwise the functional
 ``adamw_update``): the parameters and moments are overwritten, and no
@@ -17,8 +18,11 @@ on the card; nothing in it reads the device back.
 averages their gradients, as the reference's ``lax.scan`` does, adding
 each microbatch's gradients into one accumulator in place.
 ``make_lm_prefill`` projects only the last position's logits;
-``make_lm_decode_step`` is ``models.transformer.decode_step``.  The recsys
-steps are not ported yet and raise.
+``make_lm_decode_step`` is ``models.transformer.decode_step``.
+``make_recsys_serve`` and ``make_recsys_retrieval`` score without
+gradients.  The recsys step updates every table row (the dense AdamW
+update of the reference, whose gradient is dense): its table gradient is
+one ``pull_rows`` over the batch's ids.
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from repro_torch.configs.common import not_ported
 from repro_torch.models import gnn as G
+from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.models.tree import ParamTree, tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWState, adamw_update_
@@ -208,5 +212,39 @@ def make_gnn_train_step(arch_id: str, cfg, *, peak_lr=1e-3) -> Callable:
     return train_step
 
 
-def make_recsys_train_step(*args, **kwargs):
-    raise not_ported("the recsys train step")
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+def make_recsys_train_step(cfg, *, peak_lr=1e-3) -> Callable:
+    def loss_fn(params, batch):
+        return R.deepfm_loss(cfg, params, batch["sparse_ids"],
+                             batch["labels"])
+
+    def train_step(params: R.DeepFMParams, opt_state: AdamWState, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        lr = warmup_cosine(opt_state.step, peak_lr=peak_lr,
+                           warmup_steps=10, total_steps=10_000)
+        opt_state = adamw_update_(params, grads, opt_state, lr=lr,
+                                  weight_decay=0.0)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_recsys_serve(cfg) -> Callable:
+    @torch.no_grad()
+    def serve(params, batch):
+        return torch.sigmoid(
+            R.deepfm_forward(cfg, params, batch["sparse_ids"]))
+
+    return serve
+
+
+def make_recsys_retrieval(cfg) -> Callable:
+    @torch.no_grad()
+    def retrieve(params, batch):
+        return R.retrieval_score(cfg, params, batch["query_ids"],
+                                 batch["cand_ids"])
+
+    return retrieve

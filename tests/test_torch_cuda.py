@@ -38,7 +38,10 @@ and MoE, f32 and bf16, bitwise run to run, and in f32 its loss and
 gradients within the CPU tests' tolerance of the CPU's; chunked attention against a naive softmax in f32
 (rtol 2e-4 / atol 2e-5, the reference's test) and bf16 (atol 2e-2: bf16
 operands and probabilities); ``seg_sum`` on bf16 rows bitwise its plain
-version on the CPU (the same f32 order, then one rounding).
+version on the CPU (the same f32 order, then one rounding).  DeepFM: a
+train step at full widths on a cut vocabulary bitwise run to run and
+within the CPU tests' tolerance of the CPU's, and ``pull_rows`` at its
+table widths (d = 10 and 1) against its plain version.
 """
 import dataclasses
 
@@ -1939,3 +1942,87 @@ def test_seg_sum_bf16_rows_on_card(cuda):
         0, idx.long(), vals.double())
     torch.testing.assert_close(got.cpu().double(), exact, rtol=1e-2,
                                atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the recsys family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,path", [(10, 2), (1, 1)])
+def test_pull_rows_table_gradient_widths_on_card(cuda, d, path):
+    """pull_rows at DeepFM's table widths (embed_dim 10: the float2 path;
+    table_w's 1: the scalar path), over a slot order of ids into a table
+    with many rows and no slot: bitwise the plain version on the CPU, run
+    to run, and within atol 1e-5·max of the plain version on the card."""
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    from repro_torch.models.message import slot_order
+    rng = np.random.default_rng(d)
+    n, e = 200_000, 60_000
+    ids = torch.from_numpy(np.concatenate([
+        rng.integers(0, n, e - 2_000), np.full(2_000, 17)]).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32))
+    order, _ = slot_order(ids.to(cuda), n)
+    gc = g.to(cuda)
+    assert pc.row_path(d, gc.data_ptr())[0] == path
+    before = pc.LAUNCH_COUNTS["pull_rows"]
+    out = pc.pull_rows(order, gc, hot_bytes=0)
+    torch.cuda.synchronize()
+    assert pc.LAUNCH_COUNTS["pull_rows"] == before + 1
+    assert pc.ROW_WIDTH_LAUNCHES[d] >= 1
+    cpu_order, _ = slot_order(ids, n)
+    assert torch.equal(out.cpu(), pull_rows_ref(cpu_order, g))
+    assert torch.equal(pc.pull_rows(order, gc, hot_bytes=0), out)
+    plain = pull_rows_ref(order, gc)
+    scale = float(plain.abs().max())
+    assert float((out - plain).abs().max()) <= 1e-5 * scale
+
+
+def test_deepfm_train_step_bitwise_on_card(cuda):
+    """DeepFM's loss and gradients, then three train steps, at the full
+    config's widths on a cut vocabulary, twice from the same state: all
+    bitwise; the loss within rtol 1e-5 and the gradients within rtol 1e-4
+    / atol 1e-5·max of the CPU's; two pull_rows launches a step (the
+    table's and table_w's gradients), none in serve or retrieval."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.models import recsys as R
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train import steps as TS
+    spec = REGISTRY["deepfm"]
+    cfg = dataclasses.replace(spec.config, vocab_per_field=2_000)
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(0, 2_000, (512, 39)).astype(
+        np.int32))
+    labels = torch.from_numpy((rng.random(512) < 0.5).astype(np.float32))
+    base = R.init_deepfm(cfg, torch.Generator().manual_seed(0))
+    results = {}
+    for dev, tag in ((cuda, "a"), (cuda, "b"), ("cpu", "cpu")):
+        params = R.trainable(tree_map(lambda p: p.detach().to(dev), base))
+        batch = dict(sparse_ids=ids.to(dev), labels=labels.to(dev))
+        loss, grads = TS.value_and_grad(
+            lambda p, b: R.deepfm_loss(cfg, p, b["sparse_ids"],
+                                       b["labels"]), params, batch)
+        step = TS.make_recsys_train_step(cfg)
+        opt = init_adamw(params)
+        losses = []
+        launches = pc.LAUNCH_COUNTS["pull_rows"]
+        for _ in range(3):
+            params, opt, l3 = step(params, opt, batch)
+            losses.append(l3)
+        if dev != "cpu":
+            assert pc.LAUNCH_COUNTS["pull_rows"] - launches == 6
+            launches = pc.LAUNCH_COUNTS["pull_rows"]
+            probs = TS.make_recsys_serve(cfg)(params, batch)
+            assert bool(((probs >= 0) & (probs <= 1)).all())
+            TS.make_recsys_retrieval(cfg)(params, dict(
+                query_ids=ids[:1].to(dev), cand_ids=ids[:, 0].to(dev)))
+            assert pc.LAUNCH_COUNTS["pull_rows"] == launches
+        results[tag] = ([loss] + grads, losses
+                        + [p.detach() for p in tree_leaves(params)])
+    for a, b in zip(sum(results["a"], []), sum(results["b"], [])):
+        assert torch.equal(a, b)
+    for a, c in zip(results["a"][0], results["cpu"][0]):
+        torch.testing.assert_close(a.cpu().double(), c.double(), rtol=1e-4,
+                                   atol=1e-5 * float(c.abs().max()) + 1e-30)
+    torch.testing.assert_close(results["a"][0][0].cpu(),
+                               results["cpu"][0][0], rtol=1e-5, atol=0)

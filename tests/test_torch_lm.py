@@ -163,8 +163,10 @@ def test_registry_resolves_the_lm_family():
         c, jc = spec.config, JREG[arch_id].config
         assert c.param_count() == jc.param_count()
         assert c.active_param_count() == jc.active_param_count()
-    assert list(TREG)[:5] == list(JREG)[:5]
-    assert NOT_PORTED == {"deepfm": "recsys"}
+    assert list(TREG) == list(JREG)
+    assert NOT_PORTED == {}
+    assert get_arch("deepfm").config.__dict__ == \
+        JREG["deepfm"].config.__dict__
 
 
 def test_meta_lm_inputs_match_reference_shapes():
