@@ -12,6 +12,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --train-only [--out FILE]
     python3 chip_smoke.py --lm-only [--out FILE]
     python3 chip_smoke.py --recsys-only [--out FILE]
+    python3 chip_smoke.py --dryrun-only [--out FILE]
 
 The second form runs only the set-up (build, device, graph) and phase 3's
 frontier_spmv and phase 3b's pull_contrib, slot_count, segment_bounds
@@ -20,8 +21,8 @@ the third only the set-up and phase 6's kernel cases: pull_rows's on the
 set-up graph, gated_spmm's on the first batch's packed graph; the fourth
 only the set-up and phase 9, the fifth only the set-up and phase 10, the
 sixth phase 11 and the seventh phase 12; the eighth runs the build, the
-device and phase 13 alone, with no R-MAT set-up, and the ninth phase 14
-so.  None prints a summary: they are the quick loops for work on one
+device and phase 13 alone, with no R-MAT set-up, the ninth phase 14 so,
+and the tenth phase 15 so.  None prints a summary: they are the quick loops for work on one
 kernel or phase.
 
 The kernel engine tunes its pack geometry at bootstrap
@@ -351,8 +352,30 @@ It exits non-zero on the first failed check; no failure is passed over.
              1e-5 / atol 1e-6·max.  Last, ``pull_rows`` at d = 10 and 1
              on the train step's slot order beside its plain version and
              ``index_add_``, with its bound.
-15. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
-             launches on its paths (phases 9's to 14's added; pull_rows at
+15. Dry-run — (a) ``launch.dryrun`` over all 44 cells of
+             ``all_cells(include_pagerank=True)`` on the production (16, 16)
+             mesh and the reference test's four cells
+             (DRYRUN_MULTI_CELLS) on (2, 16, 16), all of ``meta``
+             positions (no device touched), in ``launch.dryrun.MAX_JOBS``
+             worker processes: every cell OK, or SKIP where its ``skip`` says,
+             none FAIL; ``roofline.build_table`` reads the records and its
+             table is printed (MODEL/HLO a cell, the collective term n/a);
+             the sweep's seconds.  (b) The LM's counting mode against its
+             production mode on the card, full width in f32
+             (COUNTING_LAYERS: qwen2.5-3b at 2 layers, qwen3-moe at 1; 1 x
+             1,024 tokens): loss rtol 1e-5, gradients rtol 1e-4 / atol
+             1e-5·max, prefill logits and 4 decode steps rtol 1e-4 / atol
+             1e-5·max; the embedding's backward a ``pull_rows`` launch in
+             both modes.  (c) The dry-run on a (1, 1) meta mesh against
+             one step on the card (DRYRUN_PEAK_BOUNDS): DeepFM
+             train_batch and serve_bulk at the full config, predicted peak
+             over ``max_memory_allocated`` (over what was allocated before
+             the step's arguments) within [0.95, 1.05]; qwen2.5-3b
+             train_4k at phase 13's cut within the same; the predicted
+             FLOPs over the step's time as TFLOP/s; each beside
+             ``nvidia-smi``'s name and power limit.
+16. Summary — one JSON line ``{"kernels": [...]}`` with each kernel's
+             launches on its paths (phases 9's to 15's added; pull_rows at
              d = 10 and d = 1 also on lines of their own, phase 14's),
              max error (frontier_spmv's over phases 3 and 10) and
              times; then, last, ``{"ok": true, "device": {...}}``.
@@ -394,10 +417,6 @@ H100_F64_FLOPS = 34e12           # f64 outside the tensor cores (data sheet)
 # INT32 operations a second: 132 SMs x 64 INT32 lanes (Hopper architecture
 # white paper) x 1.98 GHz, the H100 SXM's highest SM clock
 H100_INT32_OPS = 132 * 64 * 1.98e9
-# integer operations of one threefry2x32 call and the draw made from it:
-# 20 rounds of add, rotate, xor, 5 two-add key injections, the two key
-# adds and the parity word (74), then xor, shift, or and subtract
-THREEFRY_OPS = 80
 # pull_contrib against its plain version on the card, which adds with
 # atomics in another order: f64 summation-order error
 PULL_RTOL = 1e-12
@@ -497,12 +516,9 @@ def spmv_bound(torch, packed, rsc, awin):
     live = (packed.valid > 0) & entry_active[:, None]
     n_live = int(live.sum())
     n_src = int(torch.unique(packed.src[live]).numel()) if n_live else 0
-    nbytes = (4 * be * n_act             # valid of every active-entry lane
-              + 8 * n_live               # src, dst_rel of live lanes only
-              + 4 * ne + nw              # window, active_window
-              + rsc.element_size() * n_src   # rsc entries gathered
-              + 4 * nw * vb)             # output
-    flops = 2 * n_live
+    from repro_torch.kernels import work
+    flops, nbytes = work.frontier_spmv_work(ne, be, nw, vb, n_act, n_live,
+                                            n_src, rsc.element_size())
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -720,9 +736,8 @@ def pull_contrib_bound(torch, order, ranks, weighted=False):
     V = ranks.shape[0]
     n_live = int(order.ptr[-1])
     n_src = int(torch.unique(order.src[:n_live]).numel()) if n_live else 0
-    nbytes = (4 * (V + 1) + (12 if weighted else 4) * n_live + 16 * n_src
-              + 8 * V)
-    flops = (3 if weighted else 2) * n_live
+    from repro_torch.kernels import work
+    flops, nbytes = work.pull_contrib_work(V, n_live, n_src, weighted)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F64_FLOPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -883,9 +898,11 @@ def slot_count_bound(torch, live, counted, gathered, n):
     n_live, n_counted = int(live.sum()), int(counted.sum())
     index_bytes = 32 * int32_sectors(torch, counted)
     gather_bytes = 32 * int32_sectors(torch, live) if gathered else 0
-    nbytes = E + index_bytes + gather_bytes + (n if gathered else 0) + 4 * n
+    from repro_torch.kernels import work
+    ops, nbytes = work.slot_count_work(E, n, n_counted, index_bytes,
+                                       gather_bytes, gathered)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_counted / H100_INT32_OPS * 1e3
+    t_ops = ops / H100_INT32_OPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, dict(bytes=nbytes, slots=E,
                                          live_slots=n_live,
@@ -897,9 +914,10 @@ def segment_bounds_bound(torch, n_live, n):
     """(bound_ms, bound_by, detail) for one segment_bounds call: the live
     sorted int32 keys read once and the int32 ptr[n + 1] written once; a
     compare a live key."""
-    nbytes = 4 * n_live + 4 * (n + 1)
+    from repro_torch.kernels import work
+    ops, nbytes = work.segment_bounds_work(n_live, n)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_live / H100_INT32_OPS * 1e3
+    t_ops = ops / H100_INT32_OPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, dict(bytes=nbytes, live_slots=n_live)
 
@@ -921,9 +939,10 @@ def segment_or_bound(torch, order, flags, n):
     dst_bytes = 32 * int32_sectors(torch, hit)
     dst_route = src_bytes + dst_bytes + 2 * n
     ptr_only = src_bytes + 4 * (n + 1) + 2 * n
-    nbytes = min(dst_route, ptr_only)
+    from repro_torch.kernels import work
+    ops, nbytes = work.segment_or_work(n_live, n, src_bytes, dst_bytes)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_live / H100_INT32_OPS * 1e3
+    t_ops = ops / H100_INT32_OPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, dict(
         bytes=nbytes, live_slots=n_live, set_slots=int(hit.sum()),
@@ -1451,7 +1470,8 @@ def walk_repair_bound(torch, csr, rows, t0, key, ids, out):
     walk key for each walk with a hop to draw, a hop key and a continue
     draw for every hop from an occupied slot, and a choice draw for every
     hop taken past t0 (a slot is -1 exactly when the walk has stopped,
-    as in an index's rows); THREEFRY_OPS integer operations each."""
+    as in an index's rows); ``kernels.work.THREEFRY_OPS`` integer operations
+    each."""
     from repro_torch.kernels.walk_repair.threefry import walk_uniforms
     C, L = rows.shape
     E = csr.indices.shape[0]
@@ -1472,12 +1492,10 @@ def walk_repair_bound(torch, csr, rows, t0, key, ids, out):
     n_taken = int(cur.numel())
     n_cur = int(torch.unique(cur).numel())
     n_idx = int(torch.unique(idx).numel())
-    nbytes = (4 * int((t0.long() + 1).sum())    # kept prefix of rows
-              + 4 * C + 8 * C                    # t0, ids
-              + 8 * n_cur + 4 * n_idx            # deg + indptr, indices
-              + 4 * C * L)                       # output
     calls = n_keys + 2 * n_cont + n_taken
-    int_ops = THREEFRY_OPS * calls
+    from repro_torch.kernels import work
+    int_ops, nbytes = work.walk_repair_work(C, L, int((t0.long() + 1).sum()),
+                                            n_cur, n_idx, calls)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = int_ops / H100_INT32_OPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1810,9 +1828,8 @@ def spmm_bound(torch, packed, awin, d):
     live = (packed.valid > 0) & entry_active[:, None]
     n_live = int(live.sum())
     n_src = int(torch.unique(packed.src[live]).numel()) if n_live else 0
-    nbytes = (8 * n_live + 4 * be * n_act + 4 * d * n_src
-              + 4 * (nw + 1) + nw + 4 * d * n)
-    flops = 2 * d * n_live                       # scale by valid, add
+    from repro_torch.kernels import work
+    flops, nbytes = work.gated_spmm_work(be, nw, n, d, n_act, n_live, n_src)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1944,8 +1961,8 @@ def pull_rows_bound(torch, order, d):
     V = order.ptr.shape[0] - 1
     n_live = int(order.ptr[-1])
     n_src = int(torch.unique(order.src[:n_live]).numel()) if n_live else 0
-    nbytes = 4 * (V + 1) + 4 * n_live + 4 * d * n_src + 4 * d * V
-    flops = d * n_live
+    from repro_torch.kernels import work
+    flops, nbytes = work.pull_rows_work(V, n_live, n_src, d)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -5296,6 +5313,273 @@ def recsys_checks(args, torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry-run
+# ---------------------------------------------------------------------------
+
+# the reference's dry-run test's four cells (one a family, and pagerank on
+# the multi-pod mesh), run on the production multi mesh
+DRYRUN_MULTI_CELLS = (("qwen2.5-3b", "decode_32k"),
+                      ("graphsage-reddit", "minibatch_lg"),
+                      ("deepfm", "train_batch"),
+                      ("df-pagerank", "temporal_so"))
+# the counting mode against the production mode on the card: full width
+# in f32 at these depths, a batch of COUNTING_BATCH x COUNTING_SEQ tokens
+COUNTING_LAYERS = {"qwen2.5-3b": 2, "qwen3-moe-30b-a3b": 1}
+COUNTING_BATCH, COUNTING_SEQ, COUNTING_DECODE_STEPS = 1, 1024, 4
+# the dry-run's peak a device over one step's on the card ((1, 1) mesh)
+# (set from runs on an H100 80GB HBM3 at 700 W, which read 0.999-1.000 in
+# all three)
+DRYRUN_PEAK_BOUNDS = {("deepfm", "train_batch"): (0.95, 1.05),
+                      ("deepfm", "serve_bulk"): (0.95, 1.05),
+                      ("qwen2.5-3b", "train_4k"): (0.95, 1.05)}
+
+
+def dryrun_sweep():
+    """Phase 15 (a): the dry-run of every cell on the single mesh and of
+    DRYRUN_MULTI_CELLS on the multi mesh, on ``meta`` positions (no device
+    touched), in worker processes; every cell OK, or SKIP where its
+    ``skip`` says, none FAIL; the roofline table of the records."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import REGISTRY, all_cells
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as RA
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    jobs = max(1, min(D.MAX_JOBS, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    pool = D.worker_pool(jobs)
+    try:
+        import concurrent.futures
+        cells = dict(single=list(all_cells(include_pagerank=True)),
+                     multi=[(REGISTRY[a], REGISTRY[a].shapes[c])
+                            for a, c in DRYRUN_MULTI_CELLS])
+        # both meshes' cells share the pool: the multi sweep's on a thread
+        with concurrent.futures.ThreadPoolExecutor(1) as side:
+            multi = side.submit(D.sweep, cells["multi"], "multi", out,
+                                pool=pool)
+            records = dict(single=D.sweep(cells["single"], "single", out,
+                                          pool=pool),
+                           multi=multi.result())
+        for mesh_name, wanted in cells.items():
+            recs = records[mesh_name]
+            bad = [f"{spec.arch_id}/{cell.name}: {r['status']} "
+                   f"{r.get('error', '')[:300]}"
+                   for (spec, cell), r in zip(wanted, recs)
+                   if r["status"] != ("SKIP" if cell.skip else "OK")
+                   or (r["status"] == "OK" and not r["cost"]["flops"] > 0)]
+            ok = sum(r["status"] == "OK" for r in recs)
+            skip = sum(r["status"] == "SKIP" for r in recs)
+            check(not bad and ok + skip == len(recs) == len(wanted),
+                  f"[dry-run {mesh_name}] {ok} OK, {skip} SKIP (each where "
+                  f"its cell says), 0 FAIL, FLOPs counted on every OK cell"
+                  + "".join(f"; {b}" for b in bad))
+        rows = RA.build_table(out)
+        check(len(rows) == sum(len(c) for c in cells.values())
+              and all(r.collective_s is None for r in rows
+                      if r.status == "OK"),
+              f"roofline.build_table reads the {len(rows)} records "
+              f"(collective term n/a)")
+        print(RA.to_markdown(rows), flush=True)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(out, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  dry-run: {len(records['single'])} cells on (16, 16), "
+          f"{len(records['multi'])} on (2, 16, 16), {jobs} worker "
+          f"processes, {seconds:.1f} s", flush=True)
+    return dict(records=records, seconds=seconds, jobs=jobs,
+                table=[dict(arch=r.arch, shape=r.shape, mesh=r.mesh,
+                            status=r.status, dominant=r.dominant,
+                            model_over_hlo=r.useful_ratio,
+                            peak_gib=r.peak_gib) for r in rows])
+
+
+def counting_checks(torch, dev):
+    """Phase 15 (b): the LM's counting mode against its production mode on
+    the card, full width in f32 (COUNTING_LAYERS), a batch of
+    COUNTING_BATCH x COUNTING_SEQ: the loss (rtol 1e-5) and every gradient
+    (rtol 1e-4 / atol 1e-5·max), prefill logits and COUNTING_DECODE_STEPS
+    decode steps (rtol 1e-4 / atol 1e-5·max); the embedding's backward a
+    ``pull_rows`` kernel in both modes."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as TS
+    rows = []
+    for arch, layers in COUNTING_LAYERS.items():
+        spec = REGISTRY[arch]
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(spec.config, n_layers=layers,
+                                  dtype="float32")
+        counted = dataclasses.replace(cfg, counting=True)
+        tag = f"{arch} f32 x {layers} layer(s), counting mode"
+        params = lm_init(torch, dev, spec, cfg)
+        toks = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (COUNTING_BATCH, COUNTING_SEQ + 1))
+        data = {k: torch.from_numpy(v.astype(np.int32)).to(dev) for k, v in
+                (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+        launches = {}
+        got = {}
+        for mode, c in (("production", cfg), ("counting", counted)):
+            before = pc.LAUNCH_COUNTS["pull_rows"]
+            got[mode] = TS.value_and_grad(
+                lambda p, b, c=c: T.lm_loss(c, p, b["tokens"], b["labels"]),
+                params, data)
+            launches[mode] = pc.LAUNCH_COUNTS["pull_rows"] - before
+        (lp, gp), (lc, gc) = got["production"], got["counting"]
+        ok, _ = close_nan(torch, lc, lp, 1e-5, 0.0)
+        worst = 0.0
+        for x, y in zip(gc, gp):
+            good, err = close_nan(torch, x, y, 1e-4, 1e-5)
+            ok &= good
+            worst = max(worst, err)
+        del got, gp, gc
+        check(ok and launches["counting"] > 0 and launches["production"] > 0,
+              f"[{tag}] == the production mode on the card: loss "
+              f"{float(lc):.6f} vs {float(lp):.6f} (rtol 1e-5), gradients "
+              f"rtol 1e-4 / atol 1e-5·max (max abs err {worst:.3e}); "
+              f"pull_rows launched {launches['counting']} (counting) and "
+              f"{launches['production']} (production) times")
+        before = pc.LAUNCH_COUNTS["pull_rows"]
+        tokens = data["tokens"]
+        pre = [TS.make_lm_prefill(c)(params, tokens) for c in (cfg, counted)]
+        ok, pre_err = close_nan(torch, pre[1], pre[0], 1e-4, 1e-5)
+        caches = [T.init_cache(c, COUNTING_BATCH, 2 * COUNTING_DECODE_STEPS,
+                               device=dev) for c in (cfg, counted)]
+        dec_err = 0.0
+        for t in range(COUNTING_DECODE_STEPS):
+            outs = []
+            for i, c in enumerate((cfg, counted)):
+                logits, caches[i] = TS.make_lm_decode_step(c)(
+                    params, caches[i], tokens[:, t:t + 1])
+                outs.append(logits)
+            good, err = close_nan(torch, outs[1], outs[0], 1e-4, 1e-5)
+            ok &= good
+            dec_err = max(dec_err, err)
+        row = dict(arch=arch, layers=layers, loss_counting=float(lc),
+                   loss_production=float(lp), grad_max_abs_err=worst,
+                   prefill_max_abs_err=pre_err, decode_max_abs_err=dec_err,
+                   launches=sum(launches.values())
+                   + pc.LAUNCH_COUNTS["pull_rows"] - before,
+                   seconds=time.perf_counter() - t0)
+        check(ok, f"[{tag}] prefill logits and {COUNTING_DECODE_STEPS} "
+              f"decode steps == the production mode's within rtol 1e-4 / "
+              f"atol 1e-5·max (max abs err {pre_err:.3e}, {dec_err:.3e}); "
+              f"{row['seconds']:.1f} s")
+        rows.append(row)
+        del params, caches, pre, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def card_step(torch, dev, spec, cell):
+    """One step of ``cell`` on the card from the seed: (peak bytes over
+    what was allocated before its arguments, step ms, pull_rows
+    launches).  The arguments are made first; the step's peak counts
+    them."""
+    from repro_torch.kernels.pull_contrib import pull_contrib as pc
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    arch, cfg = spec.arch_id, spec.config
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    batch = TI.build_inputs(spec, cell, concrete=True, seed=1, device=dev)
+    if spec.family == "recsys":
+        params = recsys_init(torch, dev, cfg)
+        if cell.kind == "recsys_train":
+            opt = init_adamw(params)
+            step = TS.make_recsys_train_step(cfg)
+            run = lambda: step(params, opt, batch)        # noqa: E731
+        else:
+            serve = TS.make_recsys_serve(cfg)
+            run = lambda: serve(params, batch)            # noqa: E731
+    else:
+        params = lm_init(torch, dev, spec, cfg)
+        opt = init_adamw(params,
+                         moment_dtype=TI.MOMENT_DTYPE.get(arch, torch.float32),
+                         factored=TI.FACTORED_V.get(arch, False))
+        step = TS.make_lm_train_step(
+            cfg, n_microbatches=TI.MICROBATCHES[arch],
+            factored=TI.FACTORED_V.get(arch, False),
+            accum_dtype=TI.ACCUM_DTYPE.get(arch, torch.float32))
+        run = lambda: step(params, opt, batch)            # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = pc.LAUNCH_COUNTS["pull_rows"]
+    start, stop = cuda_events(torch)
+    start.record()
+    out = run()
+    stop.record()
+    stop.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, params, batch
+    return peak, start.elapsed_time(stop), \
+        pc.LAUNCH_COUNTS["pull_rows"] - before
+
+
+def dryrun_vs_card(torch, dev, smi):
+    """Phase 15 (c): each DRYRUN_PEAK_BOUNDS cell's dry-run on a (1, 1)
+    mesh of ``meta`` positions against one step on the card: the predicted
+    peak a device over ``max_memory_allocated`` within its bounds, and
+    the predicted FLOPs over the step's time as TFLOP/s."""
+    import dataclasses
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_meta_mesh
+    mesh = make_meta_mesh((1, 1))
+    rows = []
+    for (arch, name), (lo, hi) in DRYRUN_PEAK_BOUNDS.items():
+        spec = REGISTRY[arch]
+        cell = spec.shapes[name]
+        cut = ""
+        if arch in LM_CELLS:                   # phase 13's cut
+            cfg, cell = lm_cut(spec, name, *LM_CELLS[arch][name])
+            spec = dataclasses.replace(spec, config=cfg)
+            cut = f" ({lm_cut_text(REGISTRY[arch], cfg, cell)})"
+        rec = D.run_cell(spec, cell, mesh, "card", verbose=False)
+        check(rec["status"] == "OK", f"[dry-run {arch} {name}] on a (1, 1) "
+              f"mesh: {rec['status']} {rec.get('error', '')[:300]}")
+        predicted = rec["memory"]["peak_per_device_bytes"]
+        flops = rec["cost"]["flops"]       # the production step's
+        peak, ms, launches = card_step(torch, dev, spec, cell)
+        ratio = predicted / peak
+        row = dict(arch=arch, cell=name, cut=cut, predicted_peak=predicted,
+                   card_peak=peak, ratio=ratio, flops=flops, step_ms=ms,
+                   tflops=flops / (ms / 1e3) / 1e12, launches=launches,
+                   bounds=(lo, hi), card=smi)
+        check(lo <= ratio <= hi,
+              f"[dry-run vs card] {arch} {name}{cut}: predicted peak "
+              f"{predicted / 2**30:.2f} GiB, the card's "
+              f"{peak / 2**30:.2f} GiB, ratio {ratio:.3f} within "
+              f"[{lo}, {hi}]; predicted {flops:.4g} FLOP in a "
+              f"{ms:.2f} ms step: {row['tflops']:.2f} TFLOP/s; card: {smi}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dryrun_checks(args, torch, dev, smi):
+    """Phase 15: the dry-run (a), the counting mode on the card (b), the
+    dry-run against the card (c)."""
+    phase("15. dry-run (meta device), counting mode, dry-run vs card")
+    t_phase = time.perf_counter()
+    sweep = dryrun_sweep()
+    counting = counting_checks(torch, dev)
+    versus = dryrun_vs_card(torch, dev, smi)
+    out = dict(sweep=sweep, counting=counting, versus=versus,
+               launches=sum(r["launches"] for r in counting + versus),
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  phase {out['phase_s']:.1f} s (the sweep {sweep['seconds']:.1f}"
+          f" s); pull_rows launched {out['launches']} times; card: {smi}",
+          flush=True)
+    return out
+
+
 def peak_memory(torch, name: str) -> None:
     """Print the phase's peak of allocated device memory, then reset it."""
     print(f"  phase {name} peak memory allocated "
@@ -5344,6 +5628,11 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="run only the build, the device and phase 13 (the "
                          "LM family; no R-MAT set-up); prints its launches "
+                         "last and no summary")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run only the build, the device and phase 15 (the "
+                         "dry-run, the counting mode, the dry-run against "
+                         "the card; no R-MAT set-up); prints its launches "
                          "last and no summary")
     ap.add_argument("--recsys-only", action="store_true",
                     help="run only the build, the device and phase 14 (the "
@@ -5395,6 +5684,14 @@ def run(args, torch, dev, t_start) -> int:
         write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
                              lm=only))
         print(json.dumps({"lm_launches": only["launches"]}))
+        return 0
+    if args.dryrun_only:
+        only = dryrun_checks(args, torch, dev, smi)
+        peak_memory(torch, "15")
+        print(f"  wall {time.perf_counter() - t_start:.1f} s; card: {smi}")
+        write_out(args, dict(device=name, nvidia_smi=smi, args=vars(args),
+                             dryrun=only))
+        print(json.dumps({"dryrun_launches": only["launches"]}))
         return 0
     if args.recsys_only:
         only = recsys_checks(args, torch, dev)
@@ -5495,9 +5792,12 @@ def run(args, torch, dev, t_start) -> int:
     torch.cuda.empty_cache()
     recsys = recsys_checks(args, torch, dev)
     peak_memory(torch, "14")
+    torch.cuda.empty_cache()
+    dry = dryrun_checks(args, torch, dev, smi)
+    peak_memory(torch, "15")
     extra = replicas["launches"]           # phase 9's launches
 
-    phase("15. summary")
+    phase("16. summary")
     main_case = next(c for c in cases
                      if c["frac"] == 0.05 and c["dtype"] == "float32")
     kernels = [dict(
@@ -5587,7 +5887,7 @@ def run(args, torch, dev, t_start) -> int:
                  "embedding backward and MoE combine and DeepFM's table "
                  "gradients",
         launches=gnn["row_launches"] + train["launches"] + lm["launches"]
-        + recsys["launches"],
+        + recsys["launches"] + dry["launches"],
         max_abs_err=gnn["row_sum"]["max_abs_err"], ms=row_case["ms"],
         plain_ms=row_case["plain_ms"], bound_ms=row_case["bound_ms"],
         bound_by=row_case["bound_by"], library_ms=row_case["library_ms"]))
@@ -5614,7 +5914,7 @@ def run(args, torch, dev, t_start) -> int:
                                 if k != "final_ranks"},
                          ppr=ppr, gnn=gnn, paper=paper, obs=observ,
                          replicas=replicas, mesh=mesh, ppr_mesh=ppr_mesh,
-                         train=train, lm=lm, recsys=recsys,
+                         train=train, lm=lm, recsys=recsys, dryrun=dry,
                          kernels=kernels, wall_s=wall))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

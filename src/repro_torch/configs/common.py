@@ -1,22 +1,9 @@
 """Config-system spine: ArchSpec, ShapeCell, per-family shape tables (twin
-of ``repro.configs.common``, copied as it is, with the port's
-``not_ported`` error)."""
+of ``repro.configs.common``, copied as it is)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
-
-# what is left of ROADMAP.md queue 1 (modules still to port), by item
-_QUEUE_1 = {3: "the dry-run and the sharding rules come in a later "
-               "slice"}
-
-
-def not_ported(what: str, item: int = 3) -> NotImplementedError:
-    """The error for a part of the reference the port does not hold yet,
-    naming its item of ROADMAP.md queue 1."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item}: "
-        f"{_QUEUE_1[item]})")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,8 +3,7 @@
 The port holds every architecture of the reference (five LM, four GNN and
 the recsys family's ``deepfm``) and its own ``df-pagerank``, in the
 reference's order.  ``NOT_PORTED`` names the reference's architectures
-the port does not hold (none is left); ``get_arch`` would name such an
-arch as not ported instead of failing as an unknown id.
+the port does not hold: none is left.
 """
 from __future__ import annotations
 
@@ -14,10 +13,10 @@ from repro_torch.configs import (arctic_480b, deepfm, gemma3_12b,
                                  glm4_9b, graphcast, graphsage_reddit,
                                  nequip, pagerank_graphs, pna, qwen2_5_3b,
                                  qwen3_moe_30b_a3b)
-from repro_torch.configs.common import ArchSpec, not_ported
+from repro_torch.configs.common import ArchSpec
 
 __all__ = ["ASSIGNED_ARCHS", "NOT_PORTED", "REGISTRY", "all_cells",
-           "get_arch", "not_ported"]
+           "get_arch"]
 
 _SPECS = [
     gemma3_12b.SPEC,
@@ -37,14 +36,11 @@ REGISTRY: Dict[str, ArchSpec] = {s.arch_id: s for s in _SPECS}
 
 ASSIGNED_ARCHS = [s.arch_id for s in _SPECS if s.family != "pagerank"]
 
-# the reference's architectures the port does not hold yet, by family
+# the reference's architectures the port does not hold, by family: none
 NOT_PORTED: Dict[str, str] = {}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in NOT_PORTED:
-        raise not_ported(f"arch {arch_id!r} ({NOT_PORTED[arch_id]} "
-                         f"family)")
     if arch_id not in REGISTRY:
         raise KeyError(
             f"unknown arch {arch_id!r}; available: {sorted(REGISTRY)}")

@@ -54,7 +54,9 @@ from repro_torch.core.pagerank import (ALPHA, FRONTIER_TOL, MAX_ITER,
                                        PRUNE_TOL, TOL)
 from repro_torch.device import note_host_syncs
 from repro_torch.dist.collectives import bool_or_psum, pmax, psum
-from repro_torch.graph.partition import partition_graph, vertices_per_shard
+from repro_torch.dist.sharding import ShardSpec
+from repro_torch.graph.partition import (edges_per_device, partition_graph,
+                                         vertices_per_shard)
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import \
     frontier_spmv_padded
 from repro_torch.kernels.pull_contrib.pull_contrib import (pull_order,
@@ -67,6 +69,7 @@ from repro_torch.obs import trace as obs_trace
 F32, F64 = torch.float32, torch.float64
 
 __all__ = ["build_distributed_step", "DistributedEngine",
+           "distributed_in_shardings", "distributed_input_specs",
            "sharded_hybrid_pagerank", "sharded_kernel_pagerank",
            "ShardedKernelEngine", "halo_comm_bytes"]
 
@@ -82,6 +85,38 @@ def _mesh_dims(mesh):
     m = sizes["model"]
     p = int(math.prod(sizes[a] for a in dax) or 1)
     return m, p, dax
+
+
+def _edge_spec(dax) -> tuple:
+    return ("model", dax[0] if len(dax) == 1 else dax, None)
+
+
+def distributed_in_shardings(mesh):
+    """``ShardSpec``s of the step's 6 arguments (src, dst_local, valid,
+    ranks, inv_out_deg, affected): the edge tensors [M, P, E_dev] split
+    over ``model`` and the data axes, the vertex vectors over
+    ``model``."""
+    es = ShardSpec(mesh, _edge_spec(data_axes(mesh)))
+    vs = ShardSpec(mesh, ("model",))
+    return (es, es, es, vs, vs, vs)
+
+
+def distributed_input_specs(mesh, n_vertices: int, edge_capacity: int,
+                            dtype=F32):
+    """The step's 6 arguments as ``meta`` tensors (shapes and dtypes, no
+    allocation): ``partition_graph``'s balanced-stripe shapes on this
+    mesh, for the dry-run."""
+    m, p, _ = _mesh_dims(mesh)
+    v_pad = vertices_per_shard(n_vertices, m) * m
+    e_dev = edges_per_device(edge_capacity, m, p)
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    return (meta((m, p, e_dev), torch.int32),
+            meta((m, p, e_dev), torch.int32),
+            meta((m, p, e_dev), torch.bool),
+            meta((v_pad,), dtype), meta((v_pad,), dtype),
+            meta((v_pad,), torch.bool))
 
 
 def _stripe_devices(mesh) -> np.ndarray:

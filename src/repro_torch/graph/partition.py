@@ -53,6 +53,15 @@ def vertices_per_shard(num_vertices: int, model_shards: int,
     return -(-v_per // window) * window
 
 
+def edges_per_device(edge_capacity: int, model_shards: int,
+                     edge_shards: int, lane: int = 128) -> int:
+    """Balanced per-device edge slots, rounded up to ``lane``: the dry-run's
+    input shapes (``dist.pagerank_dist.distributed_input_specs``).  A
+    skewed graph's ``partition_graph`` grows past this floor."""
+    e_dev = -(-edge_capacity // max(1, model_shards * edge_shards))
+    return max(lane, -(-e_dev // lane) * lane)
+
+
 def partition_graph(graph: EdgeListGraph, model_shards: int,
                     edge_shards: int, balance_by_active: np.ndarray = None,
                     window: int = 512,

@@ -17,7 +17,8 @@ whole dst *windows*:
 
 ``frontier_spmv_padded`` dispatches on where its tensors lie: on the CPU
 it runs the plain version (``ref.py``); on a CUDA device it launches the
-kernel, and a failed build or launch raises.  ``LAUNCH_COUNTS`` counts
+kernel, and a failed build or launch raises; on a ``meta`` device it runs
+the launch path with no launch (``kernels.work``).  ``LAUNCH_COUNTS`` counts
 calls that launched the kernel, one per call whatever its device
 launches, so a run can show that it went through the kernel.
 """
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.device import DeviceLike, note_host_syncs, \
     resolve_device
+from repro_torch.kernels import work
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pagerank_spmv.ref import frontier_spmv_ref_padded
 from repro_torch.kernels.segment_ops.plan import cached_plan, plan_sizes
@@ -285,6 +287,12 @@ def _launch_kernel(packed: PackedGraph, rsc: torch.Tensor,
     buf = torch.empty(nw * vb + _scratch_floats(parts, vb),
                       dtype=torch.float32, device=dev)
     out = buf[:nw * vb]
+    if dev.type == "meta":                 # the dry-run: no launch
+        n_live = ne * be
+        work.record("frontier_spmv", *work.frontier_spmv_work(
+            ne, be, nw, vb, ne, n_live, min(rsc.shape[0], n_live),
+            rsc.element_size()))
+        return out
     partial = out.data_ptr() + 4 * nw * vb
     # the C entry point selects the device itself; the stream is the raw
     # handle of torch.cuda.current_stream(dev), read without building a
@@ -338,7 +346,7 @@ def frontier_spmv_padded(packed: PackedGraph, rsc: torch.Tensor,
         return frontier_spmv_ref_padded(packed.src, packed.dst_rel,
                                         packed.valid, packed.window, rsc,
                                         active_window, packed.vb)
-    if rsc.device.type != "cuda":
+    if rsc.device.type not in ("cuda", "meta"):
         raise ValueError(f"frontier_spmv: no kernel for device {rsc.device}")
     return _launch_kernel(packed, rsc, active_window, chunk_entries)
 

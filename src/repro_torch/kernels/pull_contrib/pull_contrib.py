@@ -20,7 +20,8 @@ the rows of the sources with the most live slots (``HOT_BYTES`` of them,
 ``hot_set``, cached with the plan; the kernel tags their slots,
 ``tag_slots``) in the card's L2 and reads each row
 in one pass of float2 or float4 loads where d and x's address allow
-(``row_path``).  A failed build or launch raises.  ``LAUNCH_COUNTS``
+(``row_path``).  On a ``meta`` tensor they run the launch path with
+no launch (``kernels.work``).  A failed build or launch raises.  ``LAUNCH_COUNTS``
 counts calls that launch each kernel, ``ROW_WIDTH_LAUNCHES`` the
 ``pull_rows`` launches by row width.
 """
@@ -33,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pull_contrib.ref import PULL_CHUNK, ROW_CHUNK, \
     PullOrder, pull_contrib_ref, pull_rows_ref
@@ -145,6 +147,10 @@ def _launch_kernel(order: PullOrder, ranks: torch.Tensor,
                           device=dev)
     terms = torch.empty(N if weight is None else 2 * N,
                         dtype=torch.float64, device=dev)
+    if dev.type == "meta":                 # the dry-run: no launch
+        work.record("pull_contrib", *work.pull_contrib_work(
+            V, E, min(N, E), weight is not None))
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().pull_contrib_launch(
@@ -169,7 +175,7 @@ def _dispatch(order: PullOrder, ranks: torch.Tensor, inv_deg: torch.Tensor,
                          f"{chunk_slots}")
     if ranks.device.type == "cpu":
         return pull_contrib_ref(order, ranks, inv_deg, weight, chunk_slots)
-    if ranks.device.type != "cuda":
+    if ranks.device.type not in ("cuda", "meta"):
         raise ValueError(f"pull_contrib: no kernel for device {ranks.device}")
     return _launch_kernel(order, ranks, inv_deg, weight, V, chunk_slots)
 
@@ -331,6 +337,9 @@ def _launch_rows(order: PullOrder, x: torch.Tensor, chunk_slots: int,
     vec, loads = row_path(d, x.data_ptr())
     partial = torch.empty(plan.num_partials * d, dtype=torch.float32,
                           device=dev)
+    if dev.type == "meta":                 # the dry-run: no launch
+        work.record("pull_rows", *work.pull_rows_work(V, E, min(n, E), d))
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().pull_rows_launch(
@@ -364,6 +373,6 @@ def pull_rows(order: PullOrder, x: torch.Tensor, *,
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return pull_rows_ref(order, x, chunk_slots)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"pull_rows: no kernel for device {x.device}")
     return _launch_rows(order, x, chunk_slots, hot_bytes)

@@ -15,10 +15,11 @@ hand-written kernel ``csrc/gated_spmm.cu``: one block per (chunk of at
 most ``chunk_entries`` entries, column block) of the chunk plan
 (``plan.py``, built once per packed structure), then a second pass that
 adds a split window's partial tiles in chunk order.  No atomics, so its
-result is the same bit for bit from run to run.  There is no fallback: a
-failed build or launch raises.  ``LAUNCH_COUNTS`` counts calls that
-launched the kernel, one per call whatever its device launches
-(plain-version calls are not counted).
+result is the same bit for bit from run to run.  A ``meta`` ``feats``
+runs the launch path with no launch (``kernels.work``).  There is no
+fallback: a failed build or launch raises.  ``LAUNCH_COUNTS`` counts
+calls that launched the kernel, one per call whatever its device
+launches (plain-version calls are not counted).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pagerank_spmv.pagerank_spmv import PackedGraph
 from repro_torch.kernels.segment_ops.plan import cached_plan, plan_sizes
@@ -123,6 +125,11 @@ def _launch_kernel(packed: PackedGraph, feats: torch.Tensor,
     plan = cached_plan(packed.entry_start, ne, chunk_entries)
     partial = torch.empty(plan.num_partials * vb * d, dtype=torch.float32,
                           device=dev)
+    if dev.type == "meta":                 # the dry-run: no launch
+        n_live = ne * be
+        work.record("gated_spmm", *work.gated_spmm_work(
+            be, nw, n, d, ne, n_live, min(feats.shape[0], n_live)))
+        return out
     fn = _lib().gated_spmm_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -156,6 +163,6 @@ def gated_spmm(packed: PackedGraph, feats: torch.Tensor,
         return gated_spmm_ref(packed.src, packed.dst_rel, packed.valid,
                               packed.window, feats, active_window,
                               packed.num_vertices, packed.vb)
-    if feats.device.type != "cuda":
+    if feats.device.type not in ("cuda", "meta"):
         raise ValueError(f"gated_spmm: no kernel for device {feats.device}")
     return _launch_kernel(packed, feats, active_window, chunk_entries)

@@ -13,7 +13,9 @@ segment_bounds_ref``, a ``searchsorted``; ``ref.segment_or_ref``); on a
 CUDA device it launches its hand-written kernel in ``csrc/slot_count.cu``:
 ``slot_count`` issues no atomic for a slot whose weight is 0 and one
 warp-aggregated atomic for the set slots of a warp that share an index;
-the other two issue none.  A failed build or launch raises.
+the other two issue none.  On a ``meta`` tensor each runs its launch
+path with no launch (``kernels.work``).  A failed build or launch
+raises.
 ``LAUNCH_COUNTS`` counts launches of each kernel.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.slot_count.ref import segment_bounds_ref, \
     segment_or_ref, slot_count_ref
@@ -55,10 +58,11 @@ def _lib() -> ctypes.CDLL:
 
 def _device(t: torch.Tensor, kernel: str) -> bool:
     """True for a CPU tensor (run the plain version), False for a CUDA one
-    (launch the kernel); raise for any other device."""
+    (launch the kernel) or a meta one (the launch path, no launch); raise
+    for any other device."""
     if t.device.type == "cpu":
         return True
-    if t.device.type != "cuda":
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{kernel}: no kernel for device {t.device}")
     return False
 
@@ -101,6 +105,11 @@ def slot_count(index: torch.Tensor, weight: torch.Tensor, n: int,
     out = torch.zeros(n, dtype=torch.int32, device=dev)
     if E == 0:
         return out
+    if dev.type == "meta":                 # the dry-run: no launch
+        work.record("slot_count", *work.slot_count_work(
+            E, n, E, 4 * E, 0 if gather is None else 4 * E,
+            gather is not None), integer=True)
+        return out
     with torch.cuda.device(dev):
         _launch("slot_count", _lib().slot_count_launch, index.data_ptr(),
                 weight.data_ptr(),
@@ -121,6 +130,10 @@ def segment_bounds(keys: torch.Tensor, n: int) -> torch.Tensor:
     check_arg("segment_bounds", "keys", keys, torch.int32, (E,), dev)
     _check_slot_int32("segment_bounds", E)
     ptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    if dev.type == "meta":                 # the dry-run: no launch
+        work.record("segment_bounds", *work.segment_bounds_work(E, n),
+                    integer=True)
+        return ptr
     with torch.cuda.device(dev):
         _launch("segment_bounds", _lib().segment_bounds_launch,
                 keys.data_ptr(), E, n, ptr.data_ptr())
@@ -148,6 +161,10 @@ def segment_or(ptr: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     n = flags.shape[0]
     out = torch.empty(V, dtype=torch.bool, device=dev)  # zeroed on the card
     bits = torch.empty((n + 31) // 32, dtype=torch.int32, device=dev)
+    if dev.type == "meta":                 # the dry-run: no launch
+        work.record("segment_or", *work.segment_or_work(E, V, 4 * E, 4 * E),
+                    integer=True)
+        return out
     with torch.cuda.device(dev):
         _launch("segment_or", _lib().segment_or_launch, src.data_ptr(),
                 dst.data_ptr(), ptr[V:].data_ptr(), flags.data_ptr(), n,

@@ -7,8 +7,9 @@ walk i draws from ``fold_in(fold_in(key, i), t)`` (``threefry``).
 Dispatch is by device: a CPU ``rows`` runs the plain version
 (``ref.resample_rows_keyed_ref``, which makes every draw up front); a
 CUDA ``rows`` launches the hand-written kernel ``csrc/walk_repair.cu``,
-which makes only the draws the recurrence reads.  There is no fallback:
-a failed build or launch raises.
+which makes only the draws the recurrence reads; a ``meta`` ``rows``
+runs the launch path with no launch (``kernels.work``).  There is no
+fallback: a failed build or launch raises.
 
 The kernel has no atomics and its only float operations are exact or
 single IEEE float32 operations, so it equals the plain version bit for
@@ -24,6 +25,7 @@ import functools
 import torch
 
 from repro_torch.graph.structure import CSRView
+from repro_torch.kernels import work
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.walk_repair.ref import resample_rows_keyed_ref
 from repro_torch.kernels.walk_repair.threefry import MASK, Key
@@ -94,6 +96,12 @@ def _launch_kernel(csr: CSRView, rows: torch.Tensor, t0: torch.Tensor,
     out = torch.empty_like(rows)
     if C == 0:
         return out
+    if dev.type == "meta":                 # the dry-run: no launch
+        hops = C * (L - 1)                 # every walk redrawn from t0 = 0
+        work.record("walk_repair", *work.walk_repair_work(
+            C, L, C, min(V, hops), min(E, hops), C + 3 * hops),
+            integer=True)
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().walk_repair_launch(
@@ -119,6 +127,6 @@ def resample_rows(csr: CSRView, rows: torch.Tensor, t0: torch.Tensor,
         return rows
     if rows.device.type == "cpu":
         return resample_rows_keyed_ref(csr, rows, t0, key, ids, alpha=alpha)
-    if rows.device.type != "cuda":
+    if rows.device.type not in ("cuda", "meta"):
         raise ValueError(f"walk_repair: no kernel for device {rows.device}")
     return _launch_kernel(csr, rows, t0, key, ids, alpha)

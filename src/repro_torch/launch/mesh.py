@@ -6,7 +6,9 @@ grid of ``torch.device``s with axis names (``("data", "model")``, or
 ``("pod", "data", "model")``), and each shard's tensors live on the
 mesh's device for that shard.  No process group is started.  A device may
 appear at several positions, which is how one card (or the CPU) holds a
-test mesh of four shards.  Making a mesh touches no device.
+test mesh of four shards, and how the dry-run lays the production
+shapes over ``meta`` positions (``make_meta_mesh``).  Making a mesh
+touches no device.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = ["Mesh", "NamedSharding", "ShardedTensor", "make_test_mesh",
-           "make_production_mesh", "resolve_mesh", "data_axes"]
+           "make_production_mesh", "make_meta_mesh", "resolve_mesh",
+           "data_axes"]
 
 
 class Mesh:
@@ -180,6 +183,24 @@ def make_production_mesh(*, multi_pod: bool = False,
     grid = np.empty(shape, dtype=object)
     for i, idx in enumerate(np.ndindex(*shape)):
         grid[idx] = torch.device(dev.type, i)
+    return Mesh(grid, axes)
+
+
+def make_meta_mesh(shape: Sequence[int] = (16, 16),
+                   axes: Sequence[str] = None) -> Mesh:
+    """A mesh of ``meta`` positions: the dry-run's (``launch/dryrun.py``),
+    of any shape, the reference's production (16, 16) by default; axes
+    ``("data", "model")`` for two dims, ``("pod", "data", "model")`` for
+    three.  Nothing on it allocates."""
+    shape = tuple(int(s) for s in shape)
+    if axes is None:
+        axes = {2: ("data", "model"),
+                3: ("pod", "data", "model")}.get(len(shape))
+        if axes is None:
+            raise ValueError(f"name the axes of a {len(shape)}-d mesh")
+    grid = np.empty(shape, dtype=object)
+    for idx in np.ndindex(*shape):
+        grid[idx] = torch.device("meta")
     return Mesh(grid, axes)
 
 

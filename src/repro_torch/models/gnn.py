@@ -39,7 +39,7 @@ from repro_torch.kernels.pull_contrib.pull_contrib import PullOrder, \
 from repro_torch.models import message
 from repro_torch.models.message import degree, edge_gather, seg_max, \
     seg_min, seg_sum
-from repro_torch.models.tree import ParamTree
+from repro_torch.models.tree import ParamTree, init_device, randn
 
 
 class GraphBatch(NamedTuple):
@@ -92,11 +92,12 @@ def _mlp(params, x, act=torch.relu):
     return x
 
 
-def _init_mlp(generator: torch.Generator, dims) -> List[tuple]:
+def _init_mlp(generator: torch.Generator, dims,
+              dev: torch.device = None) -> List[tuple]:
     """[(w f32[a, b] ~ N(0, 1/a), b zeros)] a layer (the reference's
-    scheme, drawn from ``generator`` on its device)."""
-    dev = generator.device
-    return [(torch.randn(a, b, generator=generator, device=dev) * a ** -0.5,
+    scheme, drawn from ``generator`` on ``dev``, by default its device)."""
+    dev = init_device(generator, dev)
+    return [(randn((a, b), generator, dev) * a ** -0.5,
              torch.zeros(b, device=dev))
             for a, b in zip(dims[:-1], dims[1:])]
 
@@ -139,16 +140,17 @@ class SAGE(ParamTree):
         return self.tree
 
 
-def init_sage(cfg: SAGEConfig, generator: torch.Generator) -> SAGE:
+def init_sage(cfg: SAGEConfig, generator: torch.Generator,
+              device=None) -> SAGE:
     """Random parameters by the reference's scheme (weights N(0, 1/d_in),
-    biases 0), drawn from ``generator`` on its device."""
-    dev = generator.device
+    biases 0), drawn from ``generator`` on ``device`` (by default its
+    device; on ``meta`` nothing is drawn)."""
+    dev = init_device(generator, device)
     layers, d_prev = [], cfg.d_in
     for i in range(cfg.n_layers):
         d_out = cfg.d_hidden if i < cfg.n_layers - 1 else cfg.n_classes
         layers.append({k: (
-            torch.randn(d_prev, d_out, generator=generator, device=dev)
-            * d_prev ** -0.5,
+            randn((d_prev, d_out), generator, dev) * d_prev ** -0.5,
             torch.zeros(d_out, device=dev)) for k in ("w_self", "w_neigh")})
         d_prev = d_out
     return SAGE(layers)
@@ -232,14 +234,18 @@ class PNAConfig:
     avg_degree: float = 4.0
 
 
-def init_pna(cfg: PNAConfig, generator: torch.Generator) -> ParamTree:
-    params = [dict(encode=_init_mlp(generator, (cfg.d_in, cfg.d_hidden)))]
+def init_pna(cfg: PNAConfig, generator: torch.Generator,
+             device=None) -> ParamTree:
+    dev = init_device(generator, device)
+    params = [dict(encode=_init_mlp(generator, (cfg.d_in, cfg.d_hidden),
+                                    dev))]
     for _ in range(cfg.n_layers):
         params.append(dict(
-            pre=_init_mlp(generator, (2 * cfg.d_hidden, cfg.d_hidden)),
-            post=_init_mlp(generator, (13 * cfg.d_hidden, cfg.d_hidden))))
+            pre=_init_mlp(generator, (2 * cfg.d_hidden, cfg.d_hidden), dev),
+            post=_init_mlp(generator, (13 * cfg.d_hidden, cfg.d_hidden),
+                           dev)))
     params.append(dict(decode=_init_mlp(generator,
-                                        (cfg.d_hidden, cfg.n_classes))))
+                                        (cfg.d_hidden, cfg.n_classes), dev)))
     return ParamTree(params)
 
 
@@ -336,17 +342,17 @@ def _sym_traceless_pair(v, y):
     return torch.stack([xy, yz_, xz, xx_yy, zz], dim=1)
 
 
-def init_nequip(cfg: NequIPConfig, generator: torch.Generator) -> ParamTree:
-    c, dev = cfg.channels, generator.device
+def init_nequip(cfg: NequIPConfig, generator: torch.Generator,
+                device=None) -> ParamTree:
+    c, dev = cfg.channels, init_device(generator, device)
     params = dict(
-        embed=torch.randn(cfg.n_species, c, generator=generator,
-                          device=dev) * 0.5,
+        embed=randn((cfg.n_species, c), generator, dev) * 0.5,
         layers=[dict(
-            radial=_init_mlp(generator, (cfg.n_rbf, 32, 6 * c)),
-            mix_s=_init_mlp(generator, (2 * c, c)),
-            mix_v=torch.randn(2 * c, c, generator=generator, device=dev)
-            * (2 * c) ** -0.5) for _ in range(cfg.n_layers)],
-        readout=_init_mlp(generator, (c, 16, 1)))
+            radial=_init_mlp(generator, (cfg.n_rbf, 32, 6 * c), dev),
+            mix_s=_init_mlp(generator, (2 * c, c), dev),
+            mix_v=randn((2 * c, c), generator, dev) * (2 * c) ** -0.5)
+            for _ in range(cfg.n_layers)],
+        readout=_init_mlp(generator, (c, 16, 1), dev))
     return ParamTree(params)
 
 
@@ -443,17 +449,17 @@ class GraphCastConfig:
     mesh_refinement: int = 6
 
 
-def init_graphcast(cfg: GraphCastConfig,
-                   generator: torch.Generator) -> ParamTree:
-    d = cfg.d_hidden
+def init_graphcast(cfg: GraphCastConfig, generator: torch.Generator,
+                   device=None) -> ParamTree:
+    d, dev = cfg.d_hidden, init_device(generator, device)
     params = dict(
-        grid_enc=_init_mlp(generator, (cfg.n_vars, d)),
-        g2m=_init_mlp(generator, (2 * d, d)),
-        m2g=_init_mlp(generator, (2 * d, d)),
-        grid_dec=_init_mlp(generator, (2 * d, d, cfg.n_vars)),
-        mesh_enc=_init_mlp(generator, (3, d)),
-        proc=[dict(edge=_init_mlp(generator, (2 * d, d)),
-                   node=_init_mlp(generator, (2 * d, d)))
+        grid_enc=_init_mlp(generator, (cfg.n_vars, d), dev),
+        g2m=_init_mlp(generator, (2 * d, d), dev),
+        m2g=_init_mlp(generator, (2 * d, d), dev),
+        grid_dec=_init_mlp(generator, (2 * d, d, cfg.n_vars), dev),
+        mesh_enc=_init_mlp(generator, (3, d), dev),
+        proc=[dict(edge=_init_mlp(generator, (2 * d, d), dev),
+                   node=_init_mlp(generator, (2 * d, d), dev))
               for _ in range(cfg.n_layers)])
     return ParamTree(params)
 

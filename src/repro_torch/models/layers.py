@@ -24,7 +24,8 @@ Products the reference asks in f32 from bf16 operands
 (``preferred_element_type=jnp.float32``: attention logits, ``pv``, the
 LM's logits) keep an f32 result (``f32_product``): on the card cuBLAS's
 bf16 product with an f32 output (``torch.bmm(..., out_dtype=)``), its
-backward two bf16 products; on the CPU the operands in f32.  Elsewhere a
+backward two bf16 products (on ``meta`` too, so the dry-run counts the
+card's program); on the CPU the operands in f32.  Elsewhere a
 product in the parameter dtype gives that dtype, as the reference's
 einsums do.  Attention is no Pallas kernel in the reference, so these are
 plain torch (cuBLAS products), not kernels of this repository.
@@ -69,7 +70,7 @@ def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b as f32 (``a``: [M, K] or [N, M, K]; ``b`` to match)."""
     if a.dtype == F32 and b.dtype == F32:
         return a @ b
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:              # meta: the dry-run counts it
         return _ProductF32.apply(a, b)
     return a.to(F32) @ b.to(F32)
 

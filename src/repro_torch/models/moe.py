@@ -7,8 +7,10 @@ Dispatch is an inverse-permutation gather: the token ids are scattered
 (ints, each kept slot written once) into an [E·C] table whose empty slots
 name a zero sentinel row, and the rows are gathered by it.  The experts
 run as batched products over E, and the results come back by a gather of
-each kept slot and a sum by token.  As in the reference with one data
-shard (``data_shards()`` is 1 without a mesh).
+each kept slot and a sum by token.  As in the reference, the pairs are
+ranked within each data shard of the active mesh (``dist.constraints.
+data_shards()``, 1 without a mesh), each shard with its share of the
+capacity, so a mesh drops other pairs than one device does.
 
 Every float sum of rows, forward and backward, has a fixed order
 (``models.message``): the combine's sum by token is ``seg_sum`` (a
@@ -28,7 +30,9 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.constraints import data_shards
 from repro_torch.models.message import edge_gather, seg_sum
+from repro_torch.models.tree import init_device, randn
 
 F32 = torch.float32
 
@@ -53,14 +57,15 @@ class Routing(NamedTuple):
 
 
 def init_moe(generator: torch.Generator, d_model: int, d_ff: int,
-             n_experts: int, dtype=torch.bfloat16) -> MoEParams:
+             n_experts: int, dtype=torch.bfloat16,
+             device=None) -> MoEParams:
     """Random parameters by the reference's scheme (normal · fan-in^-1/2),
-    drawn from ``generator`` on its device."""
-    dev = generator.device
+    drawn from ``generator`` on ``device`` (by default its device; on
+    ``meta`` nothing is drawn)."""
+    dev = init_device(generator, device)
 
     def w(shape, scale, dt):
-        return (torch.randn(shape, generator=generator, dtype=F32,
-                            device=dev) * scale).to(dt)
+        return (randn(shape, generator, dev) * scale).to(dt)
     s_in, s_ff = d_model ** -0.5, d_ff ** -0.5
     return MoEParams(
         w_router=w((d_model, n_experts), s_in, F32),
@@ -71,7 +76,10 @@ def init_moe(generator: torch.Generator, d_model: int, d_ff: int,
 
 def route(params: MoEParams, x: torch.Tensor, top_k: int,
           capacity_factor: float = 1.25) -> Routing:
-    """Top-k routing, the load-balancing loss and each pair's slot."""
+    """Top-k routing, the load-balancing loss and each pair's slot.  The
+    pairs are ranked within each of ``data_shards()`` rows (one without a
+    mesh), each row with its own share of the capacity, as the reference
+    ranks them within each data shard; ``capacity`` is the rows' total."""
     t = x.shape[0]
     e = params.w_router.shape[1]
     c = max(1, int(t * top_k * capacity_factor / e))   # from the shapes
@@ -86,14 +94,26 @@ def route(params: MoEParams, x: torch.Tensor, top_k: int,
     hits = expert[..., None] == torch.arange(e, device=dev)
     ce = torch.mean(torch.sum(hits.to(F32), dim=1), dim=0)
     aux = e * torch.sum(me * ce)
-    # rank of each pair within its expert: a stable sort by expert
+    # rank of each pair within its expert and data shard: a stable sort
+    # by expert within each shard's row of pairs
     flat = expert.reshape(-1)
-    sorted_e, order = torch.sort(flat, stable=True)
-    start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
-    pos_sorted = torch.arange(flat.shape[0], device=dev) - start[sorted_e]
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-    keep = pos < c
-    slot = torch.where(keep, flat * c + pos, torch.full_like(pos, e * c))
+    tk = flat.shape[0]
+    ds = data_shards()
+    if tk % ds != 0:
+        ds = 1
+    tk_l, c_local = tk // ds, max(1, c // ds)
+    sorted_e, order = torch.sort(flat.reshape(ds, tk_l), dim=1, stable=True)
+    start = torch.searchsorted(
+        sorted_e, torch.arange(e, device=dev).expand(ds, e).contiguous())
+    pos_sorted = torch.arange(tk_l, device=dev)[None, :] \
+        - torch.gather(start, 1, sorted_e)
+    pos = torch.empty_like(pos_sorted).scatter_(1, order,
+                                                pos_sorted).reshape(-1)
+    shard = torch.arange(ds, device=dev).repeat_interleave(tk_l)
+    keep = pos < c_local
+    c = c_local * ds
+    slot = torch.where(keep, flat * c + shard * c_local + pos,
+                       torch.full_like(pos, e * c))
     tok = torch.arange(t, dtype=torch.int32, device=dev).repeat_interleave(
         top_k)
     return Routing(gate.reshape(-1), slot, keep, tok, c, aux)

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.models.message import edge_gather, seg_max, seg_sum
-from repro_torch.models.tree import trainable
+from repro_torch.models.tree import init_device, randn, trainable
 
 F32 = torch.float32
 
@@ -61,19 +61,19 @@ class DeepFMParams(NamedTuple):
     bias: torch.Tensor
 
 
-def init_deepfm(cfg: DeepFMConfig, generator: torch.Generator
-                ) -> DeepFMParams:
+def init_deepfm(cfg: DeepFMConfig, generator: torch.Generator,
+                device=None) -> DeepFMParams:
     """Random parameters by the reference's scheme (tables normal · 0.01,
     MLP weights normal · fan_in^-1/2, zero biases), drawn from
     ``generator`` on its device (another stream than ``jax.random``: carry
-    the reference's own with ``convert.deepfm_params_from_numpy``)."""
-    dev = generator.device
+    the reference's own with ``convert.deepfm_params_from_numpy``); on a
+    ``meta`` ``device`` nothing is drawn."""
+    dev = init_device(generator, device)
     d_in = cfg.n_sparse * cfg.embed_dim + cfg.n_dense
     dims = (d_in,) + cfg.mlp_dims + (1,)
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=generator, dtype=F32,
-                           device=dev).mul_(scale)
+        return randn(shape, generator, dev).mul_(scale)
     table = normal((cfg.total_rows, cfg.embed_dim), 0.01)
     table_w = normal((cfg.total_rows, 1), 0.01)
     ws = tuple(normal((a, b), a ** -0.5) for a, b in zip(dims[:-1], dims[1:]))

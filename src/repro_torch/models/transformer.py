@@ -21,9 +21,14 @@ for bit from run to run on the card.
 
 ``decode_step`` writes the new K/V into the cache in place (one
 ``index_copy_`` a layer at the device-held length: no host read) and
-returns the same cache tensors with the length advanced.  The
-reference's counting mode (the dry-run's unrolled FLOP count) is not
-ported yet.
+returns the same cache tensors with the length advanced.
+
+``LMConfig(counting=True)`` is the reference's counting mode, the
+dry-run's FLOP count (``launch/dryrun.py``): the same math with the
+layers unchecked (no ``torch.utils.checkpoint``, so no recompute),
+attention in one chunk of the whole sequence, and ``lm_loss`` the cross
+entropy of the full logits over every position (no remainder dropped).
+The layer loop and ``decode_step`` are Python loops in both modes.
 """
 from __future__ import annotations
 
@@ -33,12 +38,12 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.common import not_ported
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.message import edge_gather
 from repro_torch.models.moe import MoEParams, init_moe, moe_ffn
-from repro_torch.models.tree import trainable, tree_leaves, tree_unflatten
+from repro_torch.models.tree import init_device, randn, trainable, \
+    tree_leaves, tree_unflatten
 
 F32 = torch.float32
 
@@ -65,7 +70,8 @@ class LMConfig:
     moe_d_ff: int = 0
     dense_residual: bool = False   # arctic: dense MLP + MoE in parallel
     dtype: str = "bfloat16"
-    # the reference's counting mode (the dry-run's FLOP count): not ported
+    # counting mode (the dry-run's FLOP count): layers unchecked, attention
+    # in one chunk, the full-logit loss
     counting: bool = False
 
     @property
@@ -127,13 +133,15 @@ class LMParams(NamedTuple):
     ln_f: torch.Tensor         # [D]
 
 
-def init_lm(cfg: LMConfig, generator: torch.Generator) -> LMParams:
+def init_lm(cfg: LMConfig, generator: torch.Generator,
+            device=None) -> LMParams:
     """Random parameters by the reference's scheme (normal · scale, zero
-    norms and biases), drawn from ``generator`` on its device (another
-    stream than ``jax.random``: carry the reference's own with
-    ``convert.lm_params_from_numpy``).  Stacked leaves are drawn a layer
-    at a time, in f32, then cast."""
-    dt, dev = cfg.torch_dtype, generator.device
+    norms and biases), drawn from ``generator`` on ``device`` (by default
+    its device; another stream than ``jax.random``: carry the reference's
+    own with ``convert.lm_params_from_numpy``).  Stacked leaves are drawn
+    a layer at a time, in f32, then cast.  On ``meta`` nothing is
+    drawn."""
+    dt, dev = cfg.torch_dtype, init_device(generator, device)
     d, hd, h, kvh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     ldim = cfg.n_layers
     s = d ** -0.5
@@ -142,8 +150,7 @@ def init_lm(cfg: LMConfig, generator: torch.Generator) -> LMParams:
         """A stacked leaf, drawn a layer at a time."""
         out = torch.empty(shape, dtype=dt, device=dev)
         for i in range(shape[0]):
-            out[i] = torch.randn(shape[1:], generator=generator, dtype=F32,
-                                 device=dev) * scale
+            out[i] = randn(shape[1:], generator, dev) * scale
         return out
 
     def zeros(*shape):
@@ -159,7 +166,8 @@ def init_lm(cfg: LMConfig, generator: torch.Generator) -> LMParams:
               for shape in ((ldim, e, d, fm), (ldim, e, d, fm),
                             (ldim, e, fm, d))))
         for i in range(ldim):
-            for dst, src in zip(moe, init_moe(generator, d, fm, e, dt)):
+            for dst, src in zip(moe, init_moe(generator, d, fm, e, dt,
+                                              dev)):
                 dst[i] = src
     layer = LayerParams(
         ln1=zeros(ldim, d),
@@ -172,8 +180,7 @@ def init_lm(cfg: LMConfig, generator: torch.Generator) -> LMParams:
         w_gate=w((ldim, d, f), s), w_up=w((ldim, d, f), s),
         w_down=w((ldim, f, d), max(f, 1) ** -0.5),
         moe=moe)
-    embed = (torch.randn((cfg.vocab, d), generator=generator, dtype=F32,
-                         device=dev)).to(dt)
+    embed = randn((cfg.vocab, d), generator, dev).to(dt)
     return trainable(LMParams(embed=embed, layers=layer, ln_f=zeros(d)))
 
 
@@ -219,7 +226,8 @@ def _attn_block(cfg: LMConfig, p: LayerParams, x, positions, is_local):
     k = L.apply_rope(k, positions, cfg.rope_theta)
     # k, v keep their KVH heads: attention expands a chunk at a time
     out = L.chunked_causal_attention(
-        q, k, v, window=_window(cfg, is_local, s_len + 1), chunk=512)
+        q, k, v, window=_window(cfg, is_local, s_len + 1),
+        chunk=s_len if cfg.counting else 512)
     out = out.reshape(b, s_len, h * hd)
     return x + out @ p.wo
 
@@ -247,9 +255,8 @@ def _embed(cfg: LMConfig, params: LMParams, tokens: torch.Tensor):
 
 def backbone(cfg: LMConfig, params: LMParams, tokens: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: int32[B, S] -> (hidden [B, S, D], aux_loss f32[])."""
-    if cfg.counting:
-        raise not_ported("the LM's counting mode (the dry-run)")
+    """tokens: int32[B, S] -> (hidden [B, S, D], aux_loss f32[]); each
+    layer checkpointed under autograd, but in counting mode."""
     b, s_len = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s_len, dtype=torch.int32,
@@ -262,7 +269,7 @@ def backbone(cfg: LMConfig, params: LMParams, tokens: torch.Tensor
 
     auxes = []
     for i, lp in enumerate(unstack(params.layers)):
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() and not cfg.counting:
             x, aux = checkpoint(one_layer, x, lp, locality[i],
                                 use_reentrant=False,
                                 preserve_rng_state=False)
@@ -302,9 +309,13 @@ def lm_loss(cfg: LMConfig, params: LMParams, tokens: torch.Tensor,
             aux_weight: float = 0.01) -> torch.Tensor:
     """Next-token cross entropy with seq-chunked logits: each chunk's
     [B, chunk, V] logits live only inside one checkpointed call.  As in
-    the reference, ``s // seq_chunk`` chunks: a remainder is dropped."""
+    the reference, ``s // seq_chunk`` chunks: a remainder is dropped.  In
+    counting mode the full [B, S, V] logits over every position."""
     b, s_len = tokens.shape
     x, aux = backbone(cfg, params, tokens)
+    if cfg.counting:
+        total = _chunk_xent(params, x, labels)
+        return total / (b * s_len) + aux_weight * aux
     seq_chunk = min(seq_chunk, s_len)
     n_chunks = s_len // seq_chunk
     total = torch.zeros((), dtype=F32, device=x.device)
@@ -343,9 +354,8 @@ def decode_step(cfg: LMConfig, params: LMParams, cache: KVCache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
     """One decode step.  tokens: int32[B, 1] -> (logits f32[B, 1, V],
     cache).  The new K/V are written into ``cache``'s tensors in place;
-    the returned cache holds the same tensors and ``length + 1``."""
-    if cfg.counting:
-        raise not_ported("the LM's counting mode (the dry-run)")
+    the returned cache holds the same tensors and ``length + 1``.  The
+    layers run unrolled in both modes."""
     b = tokens.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     smax = cache.k.shape[2]

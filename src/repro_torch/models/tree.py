@@ -9,7 +9,8 @@ reference's ``tree_leaves`` and an ``AdamWState`` carries across.
 ``tree_leaves`` / ``tree_map`` / ``tree_unflatten`` are the few pytree
 functions the port needs, over the same containers; ``trainable`` makes
 every leaf of a pytree of tensors (the LM's and DeepFM's NamedTuples) an
-``nn.Parameter``.
+``nn.Parameter``.  ``randn`` is the inits' draw: on the ``meta`` device
+it draws nothing (``train.inputs.abstract_state``).
 """
 from __future__ import annotations
 
@@ -18,8 +19,23 @@ from typing import Any, Callable, List
 import torch
 from torch import nn
 
-__all__ = ["ParamTree", "tree_leaves", "tree_map", "tree_unflatten",
-           "trainable"]
+__all__ = ["ParamTree", "init_device", "randn", "tree_leaves", "tree_map",
+           "tree_unflatten", "trainable"]
+
+
+def init_device(generator: torch.Generator, device=None) -> torch.device:
+    """Where an init builds its leaves: ``device``, else the generator's."""
+    return generator.device if device is None else torch.device(device)
+
+
+def randn(shape, generator: torch.Generator, device: torch.device,
+          dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1) draws of ``shape`` from ``generator`` on ``device``; on
+    ``meta`` nothing is drawn (the shape and dtype alone)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=device)
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -8,7 +8,9 @@
 ``build_table`` reads dry-run records in the reference's schema
 (``dryrun_<mesh>.json``: ``cost`` / ``cost_counting`` with ``flops`` and
 ``bytes accessed``, ``collectives``, ``memory.peak_per_device_bytes``);
-the terms are per device, so no ÷chips is applied to them.  The dominant
+the terms are per device, so no ÷chips is applied to them.  The port's
+own dry-run (``launch/dryrun.py``) records ``collectives`` as null: its
+collective term is then n/a and never the dominant one.  The dominant
 term is the bottleneck.  MODEL_FLOPS is the analytic useful-work count
 (6·N·D dense LMs, 6·N_active·D MoE, per-family formulas below), the
 reference's own arithmetic; MODEL/HLO per device catches
@@ -30,6 +32,7 @@ import json
 import math
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 # NVIDIA H100 80GB HBM3, 700.00 W (one card)
 H100_PEAK_FLOPS_BF16 = 989e12     # dense bf16 tensor cores
@@ -52,7 +55,7 @@ class RooflineRow:
     mesh: str
     compute_s: float
     memory_s: float
-    collective_s: float
+    collective_s: Optional[float]     # None: the record has no collectives
     dominant: str
     model_flops: float
     hlo_flops: float
@@ -63,7 +66,7 @@ class RooflineRow:
 
     @property
     def bound_time(self) -> float:
-        return max(self.compute_s, self.memory_s, self.collective_s)
+        return max(self.compute_s, self.memory_s, self.collective_s or 0.0)
 
     @property
     def roofline_fraction(self) -> float:
@@ -317,15 +320,19 @@ def build_table(results_dir: str = "results") -> list[RooflineRow]:
                                           r.get("error", ""))[:90]))
                 continue
             cost = r.get("cost_counting") or r.get("cost", {})
-            coll = r.get("collectives_counting") or r.get("collectives", {})
+            coll = r.get("collectives_counting") or r.get("collectives")
             flops = float(cost.get("flops", 0.0))
             byts = float(cost.get("bytes accessed", 0.0))
-            cbytes = float(coll.get("total", 0.0))
             comp = flops / PEAK_FLOPS
             mem = byts / HBM_BW
-            col = cbytes / LINK_BW
-            dom = max((comp, "compute"), (mem, "memory"),
-                      (col, "collective"))[1]
+            # the port's dry-run records no collectives (null): n/a, and
+            # never the dominant term
+            col = None if coll is None else \
+                float(coll.get("total", 0.0)) / LINK_BW
+            terms = [(comp, "compute"), (mem, "memory")]
+            if col is not None:
+                terms.append((col, "collective"))
+            dom = max(terms)[1]
             mf = model_flops(spec, cell) / CHIPS[mesh_name]
             rows.append(RooflineRow(
                 r["arch"], r["shape"], mesh_name, comp, mem, col, dom, mf,
@@ -345,9 +352,10 @@ def to_markdown(rows: list[RooflineRow]) -> str:
             lines.append(f"| {r.arch} | {r.shape} | {r.mesh} | - | - | - | "
                          f"{r.status} | - | - | {r.note} |")
             continue
+        col = "n/a" if r.collective_s is None else f"{r.collective_s:.3e}"
         lines.append(
             f"| {r.arch} | {r.shape} | {r.mesh} | {r.compute_s:.3e} | "
-            f"{r.memory_s:.3e} | {r.collective_s:.3e} | **{r.dominant}** | "
+            f"{r.memory_s:.3e} | {col} | **{r.dominant}** | "
             f"{r.useful_ratio:.2f} | {r.peak_gib:.2f} | {r.note} |")
     return "\n".join(lines)
 

@@ -6,8 +6,10 @@ of ``repro.train.inputs``).
 reference's inputs bit for bit, and puts them on ``device``.
 ``concrete=False`` returns tensors on the ``meta`` device (shape and dtype
 only, no allocation: the reference's ``ShapeDtypeStruct``s).
-``abstract_state`` and ``abstract_cache`` come with the dry-run (ROADMAP
-queue 1, item 3).
+``abstract_state`` and ``abstract_cache`` build a cell's parameters,
+optimizer state and KV cache on ``meta`` (the reference's
+``jax.eval_shape``): nothing is drawn or allocated, so the full configs
+build with no card (the dry-run, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.gnn import (PNAConfig, SAGEConfig, init_graphcast,
                                     init_nequip, init_pna, init_sage)
 from repro_torch.models.recsys import init_deepfm
+from repro_torch.optim.adamw import init_adamw
 
 F32 = torch.float32
 I32 = torch.int32
@@ -264,6 +267,32 @@ def init_fn(spec: ArchSpec, smoke: bool = False):
         "nequip": partial(init_nequip, cfg),
         "graphcast": partial(init_graphcast, cfg),
     }[spec.arch_id]
+
+
+def abstract_state(spec: ArchSpec, cell: ShapeCell, smoke: bool = False,
+                   with_opt: bool = True):
+    """(params, opt state or None) of the cell's effective config on the
+    ``meta`` device: the shapes and dtypes of ``init_fn`` and
+    ``init_adamw`` (the arch's ``MOMENT_DTYPE`` and ``FACTORED_V``), with
+    nothing drawn or allocated."""
+    cfg = effective_config(spec, cell, smoke)
+    spec_eff = dataclasses.replace(spec, config=cfg) if not smoke else spec
+    params = init_fn(spec_eff, smoke)(torch.Generator(), device="meta")
+    if not with_opt:
+        return params, None
+    opt = init_adamw(params,
+                     moment_dtype=MOMENT_DTYPE.get(spec.arch_id, F32),
+                     factored=FACTORED_V.get(spec.arch_id, False))
+    return params, opt
+
+
+def abstract_cache(spec: ArchSpec, cell: ShapeCell,
+                   smoke: bool = False) -> T.KVCache:
+    """The decode cell's KV cache on the ``meta`` device."""
+    cfg = spec.smoke_config if smoke else spec.config
+    d = cell.dims
+    bs, ctx = (2, 64) if smoke else (d["batch"], d["ctx"])
+    return T.init_cache(cfg, bs, ctx, device="meta")
 
 
 def input_bytes(batch: Dict[str, Any]) -> int:

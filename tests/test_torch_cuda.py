@@ -2026,3 +2026,117 @@ def test_deepfm_train_step_bitwise_on_card(cuda):
                                    atol=1e-5 * float(c.abs().max()) + 1e-30)
     torch.testing.assert_close(results["a"][0][0].cpu(),
                                results["cpu"][0][0], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b"])
+def test_counting_mode_matches_production_on_card(cuda, arch):
+    """The LM's counting mode (layers unchecked, attention in one chunk,
+    the full-logit loss) against its production mode on the card at the
+    smoke config (f32, a train cell of 2 x 64): loss rtol 1e-5, gradients
+    rtol 1e-4 / atol 1e-5·max, prefill and two decode steps' logits rtol
+    1e-4 / atol 1e-5·max; the embedding's backward a pull_rows launch."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.models import transformer as T
+    from repro_torch.train import inputs as TI
+    from repro_torch.train import steps as TS
+    spec = REGISTRY[arch]
+    cfg = spec.smoke_config
+    counted = dataclasses.replace(cfg, counting=True)
+    batch = TI.build_inputs(spec, spec.shapes["train_4k"], concrete=True,
+                            smoke=True, seed=1, device=cuda)
+    params = T.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0))
+    got = {}
+    for c in (cfg, counted):
+        before = pc.LAUNCH_COUNTS["pull_rows"]
+        got[c] = TS.value_and_grad(
+            lambda p, b, c=c: T.lm_loss(c, p, b["tokens"], b["labels"]),
+            params, batch)
+        assert pc.LAUNCH_COUNTS["pull_rows"] > before
+    (lp, gp), (lc, gc) = got[cfg], got[counted]
+    torch.testing.assert_close(lc, lp, rtol=1e-5, atol=0)
+    for a, b in zip(gc, gp):
+        if b.numel():
+            torch.testing.assert_close(
+                a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()) + 1e-30)
+
+    def close(a, b):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()) + 1e-30)
+    toks = batch["tokens"]
+    close(TS.make_lm_prefill(counted)(params, toks),
+          TS.make_lm_prefill(cfg)(params, toks))
+    caches = {c: T.init_cache(c, 2, 8, device=cuda) for c in (cfg, counted)}
+    for t in range(2):
+        out = {}
+        for c in (cfg, counted):
+            out[c], caches[c] = TS.make_lm_decode_step(c)(
+                params, caches[c], toks[:, t:t + 1])
+        close(out[counted], out[cfg])
+
+
+def test_kernel_meta_branches_match_launches_on_card(cuda):
+    """Each kernel wrapper on ``meta`` tensors returns the shapes and
+    dtypes its launch on the card returns, records its work, and counts
+    no launch."""
+    from repro_torch.graph.structure import CSRView, EdgeListGraph
+    from repro_torch.kernels import work
+    from repro_torch.kernels.slot_count import slot_count as sc
+    rng = np.random.default_rng(0)
+    n, e = 300, 4000
+
+    def t(a, dev):
+        return torch.from_numpy(a).to(dev)
+    src_np = rng.integers(0, n, e).astype(np.int32)
+    dst_np = rng.integers(0, n, e).astype(np.int32)
+    ok_np = rng.random(e) < 0.8
+    x_np = rng.standard_normal((n, 6)).astype(np.float32)
+    r_np = rng.random(n)
+    rsc_np = rng.random(n).astype(np.float32)
+    rows_np = rng.integers(0, n, (7, 5)).astype(np.int32)
+    host = spmv.pack_blocks(src_np, dst_np, ok_np, n, be=8, vb=16,
+                            device="cpu")
+    out = {}
+    counts = {}
+    work.reset()
+    for dev in (cuda, torch.device("meta")):
+        launches = {k: dict(m.LAUNCH_COUNTS)
+                    for k, m in (("pc", pc), ("sc", sc), ("spmv", spmv),
+                                 ("sm", sm), ("wr", wr))}
+        src, dst, ok = t(src_np, dev), t(dst_np, dev), t(ok_np, dev)
+        x, ranks, rsc = t(x_np, dev), t(r_np, dev), t(rsc_np, dev)
+        order = pc.pull_order(src, dst, ok, n)
+        packed = type(host)(**{
+            k: (getattr(host, k).to(dev)
+                if isinstance(getattr(host, k), torch.Tensor)
+                else getattr(host, k))
+            for k in host.__dataclass_fields__})
+        awin = torch.ones(packed.num_windows, dtype=torch.bool, device=dev)
+        csr = CSRView(*(c.to(dev) for c in EdgeListGraph(
+            t(src_np, "cpu"), t(dst_np, "cpu"), t(ok_np, "cpu"),
+            n).to_device_csr()))
+        out[dev.type] = dict(
+            pull_contrib=pc.pull_contrib(order, ranks, ranks),
+            pull_rows=pc.pull_rows(order, x),
+            slot_count=sc.slot_count(src, ok, n),
+            segment_bounds=order.ptr,
+            segment_or=sc.segment_or(order.ptr, order.src, order.dst,
+                                     ok[:n]),
+            frontier_spmv=spmv.frontier_spmv_padded(packed, rsc, awin),
+            gated_spmm=sm.gated_spmm(packed, x, awin),
+            walk_repair=wr.resample_rows(
+                csr, t(rows_np, dev), torch.zeros(7, dtype=torch.int32,
+                                                  device=dev),
+                (1, 2), torch.arange(7, device=dev), alpha=0.85))
+        torch.cuda.synchronize()
+        counts[dev.type] = {k: {name: m.LAUNCH_COUNTS[name] - v.get(name, 0)
+                                for name in m.LAUNCH_COUNTS}
+                            for (k, v), m in zip(launches.items(),
+                                                 (pc, sc, spmv, sm, wr))}
+    for name, card in out["cuda"].items():
+        met = out["meta"][name]
+        assert met.device.type == "meta", name
+        assert tuple(met.shape) == tuple(card.shape), name
+        assert met.dtype == card.dtype, name
+        assert work.WORK[name] >= 1, name
+    assert sum(v for c in counts["cuda"].values() for v in c.values()) >= 8
+    assert all(v == 0 for c in counts["meta"].values() for v in c.values())

@@ -157,7 +157,9 @@ def test_gated_spmm_wrapper_dispatch():
     tp = port_packed(jp)
     awin = tp.active_windows(torch.from_numpy(aff))
     f = torch.from_numpy(feats)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    # a meta ``feats`` runs the launch path (the dry-run's device): the
+    # packed structure must lie there too
+    with pytest.raises(ValueError, match="is on cpu, expected meta"):
         tsm.gated_spmm(tp, f.to("meta"), awin)
     with pytest.raises(ValueError, match="feats must be"):
         tsm.gated_spmm(tp, f[:-1], awin)

@@ -187,10 +187,108 @@ def test_meta_lm_inputs_match_reference_shapes():
             assert str(tb[k].dtype).split(".")[-1] == str(jb[k].dtype)
 
 
-def test_counting_mode_is_not_ported():
+COUNTING = ["qwen2.5-3b", "qwen3-moe-30b-a3b"]
+
+
+def _modes(arch_id):
+    """The smoke config in the production and the counting mode (port),
+    the reference's counting config, and the train cell's inputs."""
     import dataclasses
-    cfg = dataclasses.replace(TREG["qwen2.5-3b"].smoke_config,
-                              counting=True)
-    params = TT.init_lm(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        TT.backbone(cfg, params, torch.zeros((1, 4), dtype=torch.int32))
+    jspec, tspec = JREG[arch_id], TREG[arch_id]
+    cell = jspec.shapes["train_4k"]
+    tcfg = TI.effective_config(tspec, cell, True)
+    jcount = dataclasses.replace(JI.effective_config(jspec, cell, True),
+                                 counting=True)
+    tcount = dataclasses.replace(tcfg, counting=True)
+    jb = JI.build_inputs(jspec, cell, concrete=True, smoke=True, seed=1)
+    tb = TI.build_inputs(tspec, cell, concrete=True, smoke=True, seed=1,
+                         device=CPU)
+    return tcfg, tcount, jcount, jb, tb
+
+
+@pytest.mark.parametrize("arch_id", COUNTING)
+def test_counting_loss_and_gradients_match(arch_id):
+    """The counting mode (layers unchecked, attention in one chunk, the
+    full-logit loss): loss rtol 1e-5 and gradients rtol 1e-4 / atol
+    1e-5·max against the reference's counting mode and against the port's
+    production mode."""
+    tcfg, tcount, jcount, jb, tb = _modes(arch_id)
+    jp, tp = _params(arch_id)
+    jloss, jg = jax.jit(jax.value_and_grad(lambda p: JT.lm_loss(
+        jcount, p, jb["tokens"], jb["labels"])))(jp)
+    got = {}
+    for name, cfg in (("counting", tcount), ("production", tcfg)):
+        got[name] = TS.value_and_grad(
+            lambda p, b, cfg=cfg: TT.lm_loss(cfg, p, b["tokens"],
+                                             b["labels"]), tp, tb)
+    for loss, grads in (got["counting"], got["production"]):
+        _close(loss, jloss, "loss", rtol=1e-5, atol_frac=0.0)
+        for i, (a, b) in enumerate(zip(grads,
+                                       jax.tree_util.tree_leaves(jg))):
+            _close(a, b, f"gradient leaf {i}")
+    _close(got["counting"][0], np_(got["production"][0]), "loss",
+           rtol=1e-5, atol_frac=0.0)
+    for i, (a, b) in enumerate(zip(*(g[1] for g in got.values()))):
+        _close(a, np_(b), f"gradient leaf {i}, counting vs production")
+
+
+@pytest.mark.parametrize("arch_id", COUNTING)
+def test_counting_prefill_and_decode_match(arch_id):
+    """Prefill logits and two decode steps of the counting mode against
+    the reference's counting mode and the port's production mode, rtol
+    1e-5 / atol 1e-5·max."""
+    tcfg, tcount, jcount, jb, tb = _modes(arch_id)
+    jp, tp = _params(arch_id)
+    toks = tb["tokens"]
+    want = jax.jit(JS.make_lm_prefill(jcount))(jp, jb["tokens"])
+    for cfg in (tcount, tcfg):
+        _close(TS.make_lm_prefill(cfg)(tp, toks), want, "prefill logits",
+               rtol=1e-5)
+    jc = JT.init_cache(jcount, 2, 16, length=5)
+    jstep = jax.jit(JS.make_lm_decode_step(jcount))
+    caches = {cfg: TT.init_cache(cfg, 2, 16, length=5, device=CPU)
+              for cfg in (tcount, tcfg)}
+    for t in range(2):
+        step = jb["tokens"][:, t:t + 1]
+        want, jc = jstep(jp, jc, step)
+        for cfg in (tcount, tcfg):
+            got, caches[cfg] = TS.make_lm_decode_step(cfg)(
+                tp, caches[cfg], toks[:, t:t + 1])
+            _close(got, want, f"decode logits, step {t}", rtol=1e-5)
+    for cfg in (tcount, tcfg):
+        _close(caches[cfg].k, jc.k, "cache k", rtol=1e-5)
+        assert int(caches[cfg].length) == int(jc.length) == 7
+
+
+def test_moe_ffn_ranks_within_two_data_shards(monkeypatch):
+    """Under a mesh of two data shards the MoE ranks its (token, k) pairs
+    within each shard, with half the capacity each, as the reference does:
+    the reference's ``moe_ffn`` with its ``data_shards`` patched to 2
+    against the port's under ``use_mesh`` of a (2, 1) mesh; output rtol
+    1e-4 / atol 1e-5·max, aux rtol 1e-5.  It drops other pairs than one
+    shard does, so the outputs differ from the one-shard outputs."""
+    import jax.numpy as jnp
+    from repro.models import moe as JM
+    from repro_torch.dist.constraints import data_shards, use_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as TM
+    d, f, e, top_k, t = 16, 24, 4, 2, 8
+    jp = JM.init_moe(jax.random.PRNGKey(3), d, f, e, dtype=jnp.float32)
+    tp = TM.MoEParams(*(torch.from_numpy(np.array(a)) for a in jp))
+    x = np.random.default_rng(4).standard_normal((t, d)).astype(np.float32)
+    one, _ = TM.moe_ffn(tp, torch.from_numpy(x), top_k)
+    monkeypatch.setattr(JM, "data_shards", lambda: 2)
+    want, jaux = jax.jit(JM.moe_ffn, static_argnums=2)(jp, jnp.asarray(x),
+                                                        top_k)
+    mesh = make_test_mesh(2, device=CPU, model=1)
+    with use_mesh(mesh):
+        assert data_shards() == 2
+        r = TM.route(tp, torch.from_numpy(x), top_k)
+        got, aux = TM.moe_ffn(tp, torch.from_numpy(x), top_k)
+    assert data_shards() == 1
+    assert r.capacity == 2 * max(1, int(t * top_k * 1.25 / e) // 2)
+    _close(got, want, "moe output, two data shards")
+    _close(aux, np.asarray(jaux), "aux", rtol=1e-5, atol_frac=0.0)
+    assert not np.allclose(np_(got), np_(one), rtol=1e-3, atol=1e-3)
+
+

@@ -163,9 +163,21 @@ def test_frontier_spmv_empty_graph_is_zero():
 
 
 def test_frontier_spmv_rejects_devices_without_a_kernel():
+    """A ``meta`` call runs the launch path with no launch (the dry-run's
+    device); a packed structure on another device than the ranks is
+    refused."""
     _, tp = _packed_pair(be=128, vb=128)
     v_pad = tp.num_windows * tp.vb
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        tspmv.frontier_spmv_padded(
-            tp, torch.zeros(v_pad, device="meta"),
-            torch.ones(tp.num_windows, dtype=torch.bool, device="meta"))
+    rsc = torch.zeros(v_pad, device="meta")
+    awin = torch.ones(tp.num_windows, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="is on cpu, expected meta"):
+        tspmv.frontier_spmv_padded(tp, rsc, awin)
+    meta = type(tp)(**{k: (getattr(tp, k).to("meta")
+                           if isinstance(getattr(tp, k), torch.Tensor)
+                           else getattr(tp, k))
+                       for k in tp.__dataclass_fields__})
+    before = tspmv.LAUNCH_COUNTS["frontier_spmv"]
+    out = tspmv.frontier_spmv_padded(meta, rsc, awin)
+    assert (out.device.type, tuple(out.shape), out.dtype) == \
+        ("meta", (v_pad,), torch.float32)
+    assert tspmv.LAUNCH_COUNTS["frontier_spmv"] == before

@@ -367,7 +367,16 @@ def test_resample_rows_wrapper_checks_key(indexes):
         wr._key_words((1, 2**32))
     with pytest.raises(ValueError, match="two uint32 words"):
         wr._key_words((1,))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    # meta tensors run the launch path with no launch (the dry-run); a
+    # mix of devices is refused
+    before = wr.LAUNCH_COUNTS["walk_repair"]
+    csr = type(indexes[1].csr)(*(t.to("meta") for t in indexes[1].csr))
+    out = wr.resample_rows(csr, rows.to("meta"), t0.to("meta"), (1, 2),
+                           ids.to("meta"), alpha=0.85)
+    assert (out.device.type, out.shape, out.dtype) == \
+        ("meta", rows.shape, torch.int32)
+    assert wr.LAUNCH_COUNTS["walk_repair"] == before
+    with pytest.raises(ValueError, match="expected meta"):
         wr.resample_rows(indexes[1].csr, rows.to("meta"), t0, (1, 2), ids,
                          alpha=0.85)
 

@@ -197,7 +197,14 @@ def test_wrapper_runs_plain_version_on_cpu():
     assert torch.equal(pc.pull_contrib(order, ranks, inv),
                        pull_contrib_ref(order, ranks, inv))
     assert pc.LAUNCH_COUNTS["pull_contrib"] == before
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    # meta tensors run the launch path with no launch (the dry-run); a
+    # mix of devices is refused
+    m_order = type(order)(*(t.to("meta") for t in order))
+    out = pc.pull_contrib(m_order, ranks.to("meta"), inv.to("meta"))
+    assert (out.device.type, out.shape, out.dtype) == \
+        ("meta", ranks.shape, torch.float64)
+    assert pc.LAUNCH_COUNTS["pull_contrib"] == before
+    with pytest.raises(ValueError, match="expected meta"):
         pc.pull_contrib(order, ranks.to("meta"), inv)
 
 

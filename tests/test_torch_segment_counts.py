@@ -164,9 +164,18 @@ def test_segment_kernels_edge_cases():
     ptr_dead = torch.tensor([0, 2, 2, 2, 2, 2, 2], dtype=torch.int32)
     assert_bitwise(sc.segment_or(ptr_dead, src, keys, flags),
                    np.array([True, False, False, False, False, False]))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        sc.segment_bounds(keys.to("meta"), 6)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    # meta tensors run the launch path with no launch (the dry-run); a
+    # mix of devices is refused
+    before = dict(sc.LAUNCH_COUNTS)
+    m_ptr = sc.segment_bounds(keys.to("meta"), 6)
+    assert (m_ptr.device.type, m_ptr.shape, m_ptr.dtype) == \
+        ("meta", ptr.shape, ptr.dtype)
+    m_or = sc.segment_or(m_ptr, src.to("meta"), keys.to("meta"),
+                         flags.to("meta"))
+    assert (m_or.device.type, m_or.shape, m_or.dtype) == \
+        ("meta", (6,), torch.bool)
+    assert dict(sc.LAUNCH_COUNTS) == before
+    with pytest.raises(ValueError, match="is on cpu, expected meta"):
         sc.segment_or(ptr, src.to("meta"), keys, flags)
 
 

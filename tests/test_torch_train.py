@@ -260,8 +260,9 @@ def test_registry_gnn_and_refusals():
     """The port's registry equals the reference's (the LM, GNN, recsys and
     PageRank families, in its order) and refuses no architecture:
     ``get_arch("deepfm")`` returns its spec and its cells build inputs.
-    What still raises "not ported yet" is the LM's counting mode (the
-    dry-run, ROADMAP queue 1, item 3); an unknown arch is a KeyError."""
+    Nothing raises "not ported yet": the LM's counting mode (the
+    dry-run's) runs and gives the production mode's hidden states; an
+    unknown arch is a KeyError."""
     import dataclasses
     from repro_torch.models import transformer as TT
     assert list(TREG) == list(JREG)
@@ -279,8 +280,13 @@ def test_registry_gnn_and_refusals():
     cfg = dataclasses.replace(TREG["qwen2.5-3b"].smoke_config,
                               counting=True)
     params = TT.init_lm(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        TT.backbone(cfg, params, torch.zeros((1, 4), dtype=torch.int32))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with torch.no_grad():
+        counted, _ = TT.backbone(cfg, params, toks)
+        production, _ = TT.backbone(
+            dataclasses.replace(cfg, counting=False), params, toks)
+    np.testing.assert_allclose(counted.numpy(), production.numpy(),
+                               rtol=1e-5, atol=1e-6)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("gpt-2")
 
