@@ -141,7 +141,9 @@ It exits non-zero on the first failed check; no failure is passed over.
              launched once a layer of each refresh.  Then ``pull_rows``
              at d = 602 and 128: twice, bitwise equal; within the GNN
              tolerance of its plain version; timed beside it and one
-             cuSPARSE SpMM, with its bytes bound; its row path (float2,
+             cuSPARSE SpMM, with its bytes bound and its device time by
+             launch (the fill of the rows of no in-edge, tag, rows, splits,
+             release; the graph's empty rows counted); its row path (float2,
              float4 or scalar loads), its hot set (sources, bytes, share
              of the live slots, build time apart from the call) and a
              sweep of the hot set's budget (0 to 40 MB), every budget
@@ -350,8 +352,13 @@ It exits non-zero on the first failed check; no failure is passed over.
              atol 1e-5·max (parameters whose two gradients differ by more
              than rtol 1e-4 counted, not held), serve and retrieval rtol
              1e-5 / atol 1e-6·max.  Last, ``pull_rows`` at d = 10 and 1
-             on the train step's slot order beside its plain version and
-             ``index_add_``, with its bound.
+             on the train step's slot order (its live-segment plan: a
+             chunk a live row of the 39 M, the empty rows filled; packed
+             paths of 8 and 1 lanes a chunk): within the GNN tolerance of
+             its plain version on the card, bitwise its plain version on
+             the CPU and run to run; timed beside the plain version and
+             ``index_add_``, with its bound and its device time by launch
+             (packed rows, fill, splits).
 15. Dry-run — (a) ``launch.dryrun`` over all 44 cells of
              ``all_cells(include_pagerank=True)`` on the production (16, 16)
              mesh and the reference test's four cells
@@ -2007,19 +2014,25 @@ def row_sum_cases(torch, graph, feats):
     from repro_torch.kernels.pull_contrib import pull_contrib as pc
     from repro_torch.kernels.pull_contrib.ref import ROW_CHUNK, \
         pull_rows_ref
-    from repro_torch.kernels.segment_ops.plan import plan_sizes
+    from repro_torch.kernels.segment_ops.plan import live_plan_sizes
     from repro_torch.models.gnn import neighbor_order
     n = graph.num_vertices
     order = neighbor_order(graph.src, graph.dst, graph.valid, n)
     n_live = int(order.ptr[-1])
+    n_empty = int((order.ptr[1:] == order.ptr[:-1]).sum())
     info = pc.kernel_info()
-    _, parts, splits = plan_sizes(n, order.src.shape[0], ROW_CHUNK)
+    chunks, parts, splits = live_plan_sizes(n, order.src.shape[0],
+                                            ROW_CHUNK)
     paths = ", ".join(f"{p}: {r} registers, {b} blocks a SM"
                       for p, (r, b) in info["row_paths"].items())
+    packed = ", ".join(f"{p}: {r}/{b}"
+                       for p, (r, b) in info["packed_paths"].items())
     print(f"  pull_rows: K={ROW_CHUNK} slots a chunk, blocks of 128; row "
-          f"paths (floats a load x loads a lane) {paths}; scratch bound "
-          f"{parts:,} partial rows, {splits:,} split vertices at most",
-          flush=True)
+          f"paths (floats a load x loads a lane) {paths}; packed paths "
+          f"(floats a load / lanes a chunk: registers / blocks a SM) "
+          f"{packed}; plan bound {chunks:,} chunks, scratch bound "
+          f"{parts:,} partial rows, {splits:,} split vertices at most; "
+          f"{n_empty:,} of {n:,} rows empty (the fill's)", flush=True)
     a = torch.sparse_csr_tensor(
         order.ptr.long(), order.src[:n_live].long(),
         torch.ones(n_live, dtype=torch.float32, device=feats.device),
@@ -2049,7 +2062,7 @@ def row_sum_cases(torch, graph, feats):
         call_host_ms = host_ms(torch, call, reps=5)
         call_device_ms = device_ms(torch, call, ("pull_rows",), reps=5)
         split_ms = {k: device_ms(torch, call, (f"pull_rows_{k}",), reps=5)
-                    for k in ("tag", "kernel", "split", "release")}
+                    for k in ("fill", "tag", "kernel", "split", "release")}
         plain_ms = time_ms(torch, lambda: pull_rows_ref(order, x), reps=2,
                            warmup=1)
         lib_out = torch.sparse.mm(a, x)
@@ -2064,7 +2077,7 @@ def row_sum_cases(torch, graph, feats):
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms, library_err=lerr, path=path,
                     registers=info["row_paths"][path][0], hot=hot,
-                    device_split_ms=split_ms, **detail)
+                    device_split_ms=split_ms, empty_rows=n_empty, **detail)
         cases.append(case)
         lib_txt = ("- (cuSPARSE disagrees with the plain version, max abs "
                    f"err {lerr:.3e})" if library_ms is None
@@ -5065,7 +5078,6 @@ def recsys_split(torch, dev, spec, params, batch, steps) -> dict:
     from repro_torch.kernels.pull_contrib import pull_contrib as pc
     from repro_torch.kernels.pull_contrib.ref import ROW_CHUNK, \
         pull_rows_ref
-    from repro_torch.kernels.segment_ops.plan import cached_plan
     from repro_torch.models import message
     from repro_torch.models.recsys import _field_ids
     from repro_torch.train import steps as TS
@@ -5079,9 +5091,12 @@ def recsys_split(torch, dev, spec, params, batch, steps) -> dict:
 
     def order_and_plan():
         order, _ = message.slot_order(ids.clone(), n)
-        cached_plan(order.ptr, ids.shape[0], ROW_CHUNK)
+        pc.row_plan(order, ROW_CHUNK)
     order_ms = time_ms(torch, order_and_plan, reps=3, warmup=1)
     order, _ = message.slot_order(ids, n)
+    n_empty = int((order.ptr[1:] == order.ptr[:-1]).sum())
+    plan = pc.row_plan(order, ROW_CHUNK)
+    n_chunks = int((plan.window < n).sum())
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 14)
     kernels = {}
@@ -5089,19 +5104,33 @@ def recsys_split(torch, dev, spec, params, batch, steps) -> dict:
         g = torch.randn(ids.shape[0], d, generator=gen, device=dev)
         out = pc.pull_rows(order, g, hot_bytes=0)
         err, big, bad = compare_rows(out, pull_rows_ref(order, g))
+        vec, loads = pc.row_path(d, g.data_ptr())
+        lanes = pc.row_lanes(d, vec)
         check(bad == 0 and bits_equal(torch, out, pc.pull_rows(
                   order, g, hot_bytes=0)),
               f"[deepfm pull_rows d = {d}] the train step's order "
-              f"({ids.shape[0]:,} slots into {n:,} rows, row path "
-              f"{pc.row_path(d, g.data_ptr())}) == pull_rows_ref on the "
-              f"card within rtol {GNN_RTOL} / atol {GNN_ATOL}·max (max abs "
-              f"err {err:.3e}) and bitwise run to run")
+              f"({ids.shape[0]:,} slots into {n:,} rows, {n_empty:,} of "
+              f"them empty; {n_chunks:,} chunks; row path {(vec, loads)}, "
+              f"{lanes} of 32 lanes a chunk) == pull_rows_ref on the card "
+              f"within "
+              f"rtol {GNN_RTOL} / atol {GNN_ATOL}·max (max abs err "
+              f"{err:.3e}) and bitwise run to run")
+        # and bitwise the plain version on the CPU, over the same order
+        cpu_order = type(order)(*(t.cpu() for t in order))
+        check(torch.equal(out.cpu(), pull_rows_ref(cpu_order, g.cpu())),
+              f"[deepfm pull_rows d = {d}] == pull_rows_ref on the CPU, "
+              f"bit for bit")
+        del cpu_order
         bound_ms, bound_by, detail = pull_rows_bound(torch, order, d)
         idx = ids.long()
+        call = lambda: pc.pull_rows(order, g, hot_bytes=0)  # noqa: E731
         kernels[d] = dict(
-            d=d, max_abs_err=err, row_path=list(pc.row_path(d, g.data_ptr())),
-            ms=time_ms(torch, lambda: pc.pull_rows(order, g, hot_bytes=0),
-                       reps=5, warmup=1),
+            d=d, max_abs_err=err, row_path=[vec, loads], lanes=lanes,
+            empty_rows=n_empty, chunks=n_chunks,
+            device_split_ms={k: device_ms(torch, call, (f"pull_rows_{k}",),
+                                          reps=5)
+                             for k in ("packed", "fill", "split")},
+            ms=time_ms(torch, call, reps=5, warmup=1),
             plain_ms=time_ms(torch, lambda: pull_rows_ref(order, g), reps=3,
                              warmup=1),
             library_ms=time_ms(torch, lambda: torch.zeros(
@@ -5295,7 +5324,8 @@ def recsys_checks(args, torch, dev):
         print(f"  [deepfm pull_rows d = {d}] {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f}, index_add_ {k['library_ms']:.4f}, bound "
               f"{k['bound_ms']:.4f} ({k['bound_by']}), row path "
-              f"{k['row_path']}", flush=True)
+              f"{k['row_path']}, {k['lanes']} of 32 lanes a chunk; device by "
+              f"launch {k['device_split_ms']}", flush=True)
     del params
     torch.cuda.empty_cache()
     cpu = recsys_cpu_case(torch, dev, spec)

@@ -236,21 +236,54 @@ pull_contrib_splits_kernel(const int32_t* __restrict__ split_vertex,
 // f32 `index_add_`, whose CUDA atomics added in an order that changed from
 // run to run).  Plain version: ref.py `pull_rows_ref`.
 //
-// A vertex's segment is cut into chunks of at most K slots by the chunk
-// plan of repro_torch/kernels/segment_ops/plan.py (windows = vertices,
-// entries = sorted slots), so a hub (62,458 in-edges of 602 floats at the
-// smoke's size) is walked by ~1,000 warps, not one.  One warp a chunk: it
-// walks its chunk's slots in order, R rows' loads in flight before their
-// adds, each column summed in slot order from +0.0 (__fadd_rn, no FMA).
-// Chunk 0 of a vertex writes its row of `out`; chunk j >= 1 of a split
-// vertex writes a partial row to scratch, and a second launch adds a split
-// vertex's partial rows to its row in chunk order.  No atomics: the result
-// is the same bit for bit from run to run, and equals the plain version's
-// sum on the CPU (whose index_add_ walks in order).
+// A vertex's non-empty segment is cut into chunks of at most K slots by
+// the live-segment plan of repro_torch/kernels/segment_ops/plan.py
+// (`live_chunk_plan`: the chunks of non-empty segments only, O(slots) where
+// the slots are fewer than the rows), so a hub (62,458 in-edges of 602
+// floats at the smoke's size) is walked by ~1,000 warps, not one, and a
+// vertex with no live slot by none.  Each chunk's slots are walked in
+// order, each column summed by one lane in slot order from +0.0
+// (__fadd_rn, no FMA): a wide row (more than 16 vectors) by a warp a chunk,
+// R rows' loads in flight before their adds; a narrow one by a group of G
+// lanes a chunk (its vectors rounded up to a power of two), so a warp
+// walks 32 / G chunks: at d = 1 a lane a chunk, at d = 10 (five float2) 8
+// lanes.  Chunk 0 of a vertex writes its row; chunk j >= 1 of a split
+// vertex a partial row to scratch, which the last launch adds to the row
+// in chunk order.  The rows of the empty segments come from the fill, one
+// coalesced pass over ptr (a launch of its own, not a prologue of the row
+// launch: it needs no plan and leaves the row launches' registers and
+// grids as they were).  Launches, in order:
+//   - dense regime (wide rows, or slots at least the rows): fill (the
+//     empty rows' zeros), [tag], rows into `out`, [release], splits;
+//   - sparse regime (narrow rows into more rows than slots): [tag], rows
+//     into `staged`, a row at each segment's first slot, [release], fill
+//     (every row of `out`: zeros or the staged row), splits.
+// No atomics: the result is the same bit for bit from run to run, and
+// equals the plain version's sum on the CPU (whose index_add_ walks in
+// order).
+//
+// What bounds it, by regime.  Sparse (DeepFM's table gradients: 2,555,904
+// ids into 39 M rows, 6 % of them live, d = 10 and 1): the bytes of out,
+// almost all zeros, and of ptr; the slots are few.  The first design
+// built and walked a plan of one chunk a row (39 M chunks: ~20 int64
+// passes and a searchsorted over 39 M to build, a warp and 16 bytes of
+// plan a row to walk) and kept 5 or 1 of a warp's 32 lanes busy: 14.37 and
+// 12.51 ms against index_add_'s 0.79 and 0.22.  Now the plan and the row
+// walk are O(slots), a warp walks 4 (d = 10) or 32 (d = 1) chunks, and
+// every sector of out is written whole, once: a sector that two launches
+// write in parts (the fill's zeros around a live row, the row launch's
+// row) costs the memory a read besides the write, and those two launches
+// took 1.07 + 0.37 ms at d = 10 against 0.72 + 0.18 for the staged rows
+// and the fill that places them.  What is left above index_add_'s time
+// (0.92 against 0.80 ms at d = 10; 0.21 against 0.22 at d = 1): ptr's
+// 157 MB, which an atomic add into zeros does not read, and the staged
+// rows' write and read.  Dense (the GNN, d = 602 and 128): the gathers
+// below; the fill takes the rows of no in-edge off the row launch.
 //
 // Bound.  Bytes: ptr, the live slots' src, x's rows once per distinct
 // source, out written once (chip_smoke.py pull_rows_bound).  What sets the
-// time is the bytes that reach DRAM: a row is gathered once per live slot
+// time in the dense regime is the bytes that reach DRAM: a row is gathered
+// once per live slot
 // (32.4 M gathers, 78 GB at D = 602 on the smoke's R-MAT 2^21 graph), and
 // with plain loads the 50 MB L2 kept almost none of it: the first design
 // was slower than cuSPARSE's SpMM over the same rows.  The sources are
@@ -330,6 +363,23 @@ __device__ __forceinline__ void load_vec(float (&r)[4], const float* p,
       "ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
       : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3])
       : "l"(p), "l"(pol));
+}
+
+// r = the V floats at p (4V-byte aligned), read once (streaming)
+__device__ __forceinline__ void load_once(float (&r)[1], const float* p) {
+  r[0] = __ldcs(p);
+}
+__device__ __forceinline__ void load_once(float (&r)[2], const float* p) {
+  const float2 a = __ldcs(reinterpret_cast<const float2*>(p));
+  r[0] = a.x;
+  r[1] = a.y;
+}
+__device__ __forceinline__ void load_once(float (&r)[4], const float* p) {
+  const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+  r[0] = a.x;
+  r[1] = a.y;
+  r[2] = a.z;
+  r[3] = a.w;
 }
 
 // the V floats of a written row go out with the streaming (evict-first)
@@ -420,6 +470,245 @@ pull_rows_kernel(const int32_t* __restrict__ chunk_vertex,
 // the row paths (floats a load V, loads a lane a pass N) the wrapper picks
 // from (pull_contrib.py ROW_PATHS)
 #define PULL_ROWS_PATHS(X) X(1, 8) X(2, 10) X(4, 1)
+
+// A group of G lanes a chunk, 32 / G chunks a warp, for rows of at most G
+// V-float vectors (the wrapper's choice, pull_contrib.py row_lanes): lane
+// g of a group owns vector g of the row (lanes g >= d / V have nothing to
+// do and leave).  Chunk 0 of a segment writes its row of `out`, or, with
+// `staged`, row `begin` (the segment's first slot) of the staged rows,
+// which the fill then places.  A group walks kPackedChunks chunks, the
+// block's neighbouring chunks i, i + groups, ... (so each load of the plan
+// is coalesced), and loads the plan entries, first sources and first rows
+// of all of them before its first add: a sparse sum's chunks are short
+// (DeepFM's: 1.03 slots on average).  A chunk's further slots are walked
+// in order, 8 / V slots' loads in flight before their adds.  At DeepFM's
+// d = 10 the launch took 0.40 ms with a chunk a group, 0.37 with four, and
+// 0.19 once its rows went to the staged rows, contiguous, instead of into
+// 39 M rows (PERF.md §6).  Tags and L2 policies as in
+// pull_rows_kernel.
+constexpr int kPackedChunks = 4;
+constexpr int kPackedMinBlocks = 10;      // at most 51 registers
+
+template <int V, int G>
+__global__ void __launch_bounds__(kRowThreads, kPackedMinBlocks)
+pull_rows_packed_kernel(const int32_t* __restrict__ chunk_vertex,
+                        const int32_t* __restrict__ chunk_begin,
+                        const int32_t* __restrict__ chunk_end,
+                        const int32_t* __restrict__ chunk_part,
+                        const int32_t* __restrict__ src,
+                        const float* __restrict__ x, float* __restrict__ out,
+                        float* __restrict__ partial,
+                        float* __restrict__ staged, int num_chunks,
+                        int num_vertices, int d) {
+  constexpr int R = 8 / V;                           // slots in flight
+  constexpr int M = kPackedChunks;
+  constexpr int groups = kRowThreads / G;            // groups a block
+  const int g = threadIdx.x % G;
+  if (g >= d / V) return;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * M * groups
+                     + threadIdx.x / G;
+  const uint64_t keep = l2_policy_keep(), stream = l2_policy_stream();
+  int v[M], b[M], e[M], p[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int64_t c = c0 + i * groups;
+    v[i] = c < num_chunks ? __ldg(chunk_vertex + c) : num_vertices;
+    const bool real = v[i] < num_vertices;
+    b[i] = real ? __ldg(chunk_begin + c) : 0;
+    e[i] = real ? __ldg(chunk_end + c) : 0;
+    p[i] = real ? __ldg(chunk_part + c) : 0;
+  }
+  // the first slot of every chunk (a real chunk has one), its row loaded
+  int32_t t[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) t[i] = b[i] < e[i] ? __ldcs(src + b[i]) : 0;
+  float first[M][V];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (b[i] < e[i]) {
+      load_vec(first[i], x + static_cast<int64_t>(t[i] & kIdBits) * d + g * V,
+               t[i] < 0 ? keep : stream);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) first[i][q] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (v[i] >= num_vertices) continue;              // a surplus slot
+    float acc[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) acc[q] = __fadd_rn(0.0f, first[i][q]);
+    for (int base = b[i] + 1; base < e[i]; base += R) {
+      const int n = min(R, e[i] - base);
+      int32_t s[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) s[k] = k < n ? __ldcs(src + base + k) : 0;
+      float r[R][V];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (k < n) {
+          load_vec(r[k], x + static_cast<int64_t>(s[k] & kIdBits) * d
+                             + g * V, s[k] < 0 ? keep : stream);
+        } else {
+#pragma unroll
+          for (int q = 0; q < V; ++q) r[k][q] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        if (k < n) {
+#pragma unroll
+          for (int q = 0; q < V; ++q) acc[q] = __fadd_rn(acc[q], r[k][q]);
+        }
+    }
+    float* row = p[i] >= 0 ? partial + static_cast<int64_t>(p[i]) * d
+                 : staged != nullptr ? staged + static_cast<int64_t>(b[i]) * d
+                                     : out + static_cast<int64_t>(v[i]) * d;
+    store_vec(row + g * V, acc);
+  }
+}
+
+// the packed paths (floats a load V, lanes a chunk G)
+#define PULL_ROWS_PACKED_PATHS(X) \
+  X(1, 1) X(1, 2) X(1, 4) X(1, 8) X(1, 16) \
+  X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(2, 16) \
+  X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16)
+
+// The zero rows of the empty segments and, with `staged` (the sparse
+// regime), every other row too: a live row is the staged row of its
+// segment's first slot, staged[ptr[w]], which the packed launch wrote (so
+// that each sector of `out` is written whole, once: see the header).  A
+// warp takes kFillGroups groups of 32 neighbouring vertices w at once: it
+// loads ptr[w] and ptr[w + 1] of all of them (coalesced, kFillGroups loads
+// in flight), then writes the rows with V-float stores (d % V == 0, out
+// 4V-byte aligned).  A row of fewer than 32 vectors is written with the
+// warp's lanes across the 32 rows' vectors in address order, so that a
+// store covers whole sectors; a wider one a row at a time.  Placing, a
+// lane loads the staged vectors of its next 8 / V stores before it stores
+// them (where a row is one vector, a lane a row, the 8 groups' loads
+// first): d = 1's fill took 0.23 ms with a load before each store, 0.12
+// with the loads first.  Written with the streaming store: nothing in this
+// sum reads them.
+constexpr int kFillGroups = 8;
+
+template <int V>
+__global__ void __launch_bounds__(kRowThreads)
+pull_rows_fill_kernel(const int32_t* __restrict__ ptr,
+                      const float* __restrict__ staged,
+                      float* __restrict__ out, int num_vertices, int d) {
+  constexpr int B = 8 / V;                           // stores a batch
+  const int lane = threadIdx.x & 31;
+  const int dv = d / V;                              // vectors a row
+  const float zero[V] = {};
+  const int64_t span = 32 * kFillGroups;             // vertices a warp step
+  for (int64_t w0 = span * (static_cast<int64_t>(blockIdx.x) * kRowWarps
+                            + (threadIdx.x >> 5));
+       w0 < num_vertices;
+       w0 += span * gridDim.x * kRowWarps) {          // warp-uniform
+    int32_t lo[kFillGroups], hi[kFillGroups];
+#pragma unroll
+    for (int u = 0; u < kFillGroups; ++u) {
+      const int64_t w = w0 + 32 * u + lane;
+      lo[u] = w < num_vertices ? __ldcs(ptr + w) : 0;
+      hi[u] = w < num_vertices ? __ldcs(ptr + w + 1) : 0;
+    }
+    unsigned empty[kFillGroups], live[kFillGroups];
+#pragma unroll
+    for (int u = 0; u < kFillGroups; ++u) {
+      const bool in = w0 + 32 * u + lane < num_vertices;
+      empty[u] = __ballot_sync(kAll, in && lo[u] == hi[u]);
+      live[u] = __ballot_sync(kAll, in && lo[u] != hi[u]);
+    }
+    if (staged != nullptr && dv == 1) {
+      // a row a lane: its own first slot, the 8 groups' loads at once
+      float a[kFillGroups][V];
+#pragma unroll
+      for (int u = 0; u < kFillGroups; ++u) {
+        if ((live[u] >> lane) & 1u) {
+          load_once(a[u], staged + static_cast<int64_t>(lo[u]) * d);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) a[u][e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFillGroups; ++u)
+        if (((empty[u] | live[u]) >> lane) & 1u)
+          store_vec(out + (w0 + 32 * u + lane) * d, a[u]);
+      continue;
+    }
+    if (staged != nullptr) {
+#pragma unroll
+      for (int u = 0; u < kFillGroups; ++u) {
+        const unsigned any = empty[u] | live[u];
+        if (any == 0u) continue;                     // warp-uniform
+        float* base = out + (w0 + 32 * u) * d;
+        // vector i = lane + 32 k of the 32 rows' 32 dv: row i / dv, kept
+        // as (r, col); B of them loaded before they are stored
+        const int step_r = 32 / dv, step_c = 32 % dv;
+        int r = lane / dv, col = lane % dv;
+        for (int k0 = 0; k0 < dv; k0 += B) {         // warp-uniform
+          float a[B][V];
+          bool put[B];
+#pragma unroll
+          for (int j = 0; j < B; ++j) {
+            const bool valid = k0 + j < dv;
+            const int32_t first = __shfl_sync(kAll, lo[u], r & 31);
+            put[j] = valid && ((any >> (r & 31)) & 1u);
+            if (valid && ((live[u] >> (r & 31)) & 1u)) {
+              load_once(a[j], staged + static_cast<int64_t>(first) * d
+                                  + col * V);
+            } else {
+#pragma unroll
+              for (int e = 0; e < V; ++e) a[j][e] = 0.0f;
+            }
+            r += step_r;
+            col += step_c;
+            if (col >= dv) {
+              col -= dv;
+              ++r;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < B; ++j)
+            if (put[j])
+              store_vec(base + static_cast<int64_t>(lane + 32 * (k0 + j)) * V,
+                        a[j]);
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int u = 0; u < kFillGroups; ++u) {
+      unsigned mask = empty[u];
+      if (mask == 0u) continue;                      // warp-uniform
+      float* base = out + (w0 + 32 * u) * d;
+      if (dv < 32) {
+        // vector i of the 32 rows' 32 dv: row i / dv, kept as (r, col)
+        int r = lane / dv, col = lane % dv;
+        const int step_r = 32 / dv, step_c = 32 % dv;
+        for (int i = lane; i < 32 * dv; i += 32) {
+          if ((mask >> r) & 1u)
+            store_vec(base + static_cast<int64_t>(i) * V, zero);
+          r += step_r;
+          col += step_c;
+          if (col >= dv) {
+            col -= dv;
+            ++r;
+          }
+        }
+      } else {
+        while (mask != 0u) {
+          const int r = __ffs(mask) - 1;
+          mask &= mask - 1;
+          float* row = base + static_cast<int64_t>(r) * d;
+          for (int i = lane; i < dv; i += 32) store_vec(row + i * V, zero);
+        }
+      }
+    }
+  }
+}
 
 // out[v, :] += the split vertex's partial rows, in chunk order.  The plan
 // lists the split vertices first and its surplus slots after them, so a
@@ -571,8 +860,12 @@ namespace {
 using RowKernel = void (*)(const int32_t*, const int32_t*, const int32_t*,
                            const int32_t*, const int32_t*, const float*,
                            float*, float*, int, int, int);
+using PackedKernel = void (*)(const int32_t*, const int32_t*,
+                              const int32_t*, const int32_t*,
+                              const int32_t*, const float*, float*, float*,
+                              float*, int, int, int);
 
-// the row kernel of path (vec, loads), or nullptr if there is none
+// the row kernel of path (vec, loads): a warp a chunk; nullptr if none
 RowKernel row_kernel(int vec, int loads) {
 #define PULL_ROWS_CASE(V, N) \
   if (vec == V && loads == N) return pull_rows_kernel<V, N>;
@@ -581,14 +874,41 @@ RowKernel row_kernel(int vec, int loads) {
   return nullptr;
 }
 
+// the packed kernel of (vec, group) lanes a chunk; nullptr if none
+PackedKernel packed_kernel(int vec, int group) {
+#define PULL_ROWS_PACKED_CASE(V, G) \
+  if (vec == V && group == G) return pull_rows_packed_kernel<V, G>;
+  PULL_ROWS_PACKED_PATHS(PULL_ROWS_PACKED_CASE)
+#undef PULL_ROWS_PACKED_CASE
+  return nullptr;
+}
+
+using FillKernel = void (*)(const int32_t*, const float*, float*, int, int);
+
+// the fill kernel of the widest store d allows (out and the staged rows
+// are 16-byte aligned), and its vectors a row
+FillKernel fill_kernel(int d, int* vectors) {
+  const int v = d % 4 == 0 ? 4 : d % 2 == 0 ? 2 : 1;
+  *vectors = d / v;
+  if (v == 4) return pull_rows_fill_kernel<4>;
+  if (v == 2) return pull_rows_fill_kernel<2>;
+  return pull_rows_fill_kernel<1>;
+}
+
 }  // namespace
 
-// The f32 row sum.  chunk_* and split_* are the chunk plan's arrays; `src`
-// the order's num_slots sources; (vec, loads) the row path.  With a hot
-// set (`tag` not null: tag[s] is the sign bit for a hot source s, else 0)
-// the live slots (k < *live_end) are first tagged into `tagged`, which the
-// row launch reads, and after it the lines of x's top_rows rows top[i] go
-// back to the normal L2 priority.
+// The f32 row sum.  chunk_* and split_* are the live-segment plan's arrays
+// (segment_ops/plan.py live_chunk_plan); `ptr` the order's num_vertices + 1
+// segment bounds; `src` the order's num_slots sources; (vec, loads) the row
+// path, `group` the lanes a chunk (32: a warp, the wide path).  Launches:
+// the fill (the rows of the empty segments), then the rows; or, with
+// `staged` (narrow rows, group < 32: num_slots rows of scratch), the rows
+// into `staged`, then the fill, which writes every row of `out`; then the
+// splits.  With a hot set (`tag` not
+// null: tag[s] is the sign bit for a hot source s, else 0) the live slots
+// (k < ptr[num_vertices]) are first tagged into `tagged`, which the row
+// launch reads, and after it the lines of x's top_rows rows top[i] go back
+// to the normal L2 priority.
 extern "C" int pull_rows_launch(int device, const void* chunk_vertex,
                                 const void* chunk_begin,
                                 const void* chunk_end,
@@ -596,40 +916,66 @@ extern "C" int pull_rows_launch(int device, const void* chunk_vertex,
                                 const void* split_vertex,
                                 const void* split_part,
                                 const void* split_count, const void* src,
-                                const void* tag, const void* live_end,
+                                const void* tag, const void* ptr,
                                 void* tagged, int num_slots, const void* x,
                                 const void* top, int top_rows, void* out,
-                                void* partial, int num_chunks,
+                                void* partial, void* staged, int num_chunks,
                                 int num_splits, int num_vertices, int d,
-                                int vec, int loads, void* stream) {
+                                int vec, int loads, int group, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
-  const RowKernel kernel = row_kernel(vec, loads);
-  if (kernel == nullptr || d % vec != 0)
+  const RowKernel wide = group == 32 ? row_kernel(vec, loads) : nullptr;
+  const PackedKernel packed = group < 32 ? packed_kernel(vec, group)
+                                         : nullptr;
+  int fill_vectors;
+  const FillKernel fill = fill_kernel(d, &fill_vectors);
+  if ((wide == nullptr && packed == nullptr) || d % vec != 0
+      || (packed != nullptr && d / vec > group)
+      || (staged != nullptr && (packed == nullptr || fill_vectors >= 32)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (num_vertices == 0 || d == 0) return static_cast<int>(cudaSuccess);
   auto* xs = static_cast<const float*>(x);
   auto* slots = static_cast<const int32_t*>(src);
-  if (num_chunks > 0 && d > 0) {
+  auto* bounds = static_cast<const int32_t*>(ptr);
+  auto* rows = static_cast<float*>(staged);
+  const int span = 32 * kFillGroups * kRowWarps;
+  const int fill_blocks = (num_vertices + span - 1) / span < 8192
+                              ? (num_vertices + span - 1) / span : 8192;
+  if (rows == nullptr) {
+    fill<<<fill_blocks, kRowThreads, 0, st>>>(
+        bounds, nullptr, static_cast<float*>(out), num_vertices, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (num_chunks > 0) {
     int blocks;
     if (tag != nullptr && num_slots > 0) {
       blocks = (num_slots + kRowThreads - 1) / kRowThreads;
       pull_rows_tag_kernel<<<blocks < 4096 ? blocks : 4096, kRowThreads, 0,
                              st>>>(slots, static_cast<const int32_t*>(tag),
-                                   static_cast<const int32_t*>(live_end),
+                                   bounds + num_vertices,
                                    static_cast<int32_t*>(tagged));
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       slots = static_cast<const int32_t*>(tagged);
     }
-    blocks = (num_chunks + kRowWarps - 1) / kRowWarps;
-    kernel<<<blocks, kRowThreads, 0, st>>>(
-        static_cast<const int32_t*>(chunk_vertex),
-        static_cast<const int32_t*>(chunk_begin),
-        static_cast<const int32_t*>(chunk_end),
-        static_cast<const int32_t*>(chunk_part),
-        slots, xs, static_cast<float*>(out),
-        static_cast<float*>(partial), num_chunks, num_vertices, d);
+    auto* cv = static_cast<const int32_t*>(chunk_vertex);
+    auto* cb = static_cast<const int32_t*>(chunk_begin);
+    auto* ce = static_cast<const int32_t*>(chunk_end);
+    auto* cp = static_cast<const int32_t*>(chunk_part);
+    if (packed != nullptr) {
+      const int per_block = kPackedChunks * kRowThreads / group;
+      blocks = (num_chunks + per_block - 1) / per_block;
+      packed<<<blocks, kRowThreads, 0, st>>>(
+          cv, cb, ce, cp, slots, xs, static_cast<float*>(out),
+          static_cast<float*>(partial), rows, num_chunks, num_vertices, d);
+    } else {
+      blocks = (num_chunks + kRowWarps - 1) / kRowWarps;
+      wide<<<blocks, kRowThreads, 0, st>>>(
+          cv, cb, ce, cp, slots, xs, static_cast<float*>(out),
+          static_cast<float*>(partial), num_chunks, num_vertices, d);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (top_rows > 0) {
@@ -641,7 +987,13 @@ extern "C" int pull_rows_launch(int device, const void* chunk_vertex,
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
-  if (num_splits > 0 && d > 0) {
+  if (rows != nullptr) {
+    fill<<<fill_blocks, kRowThreads, 0, st>>>(
+        bounds, rows, static_cast<float*>(out), num_vertices, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (num_splits > 0) {
     const dim3 grid(num_splits < kSplitBlocks ? num_splits : kSplitBlocks,
                     (d + kRowThreads - 1) / kRowThreads);
     pull_rows_split_kernel<<<grid, kRowThreads, 0, st>>>(
@@ -695,11 +1047,18 @@ extern "C" int pull_contrib_info(int device, int* info) {
 }
 
 // info[0..1]: registers a thread and resident blocks a SM of the row
-// kernel of path (vec, loads)
-extern "C" int pull_rows_info(int device, int vec, int loads, int* info) {
+// kernel of path (vec, loads) (group 32), or of the packed kernel of
+// (vec, group) lanes a chunk
+extern "C" int pull_rows_info(int device, int vec, int loads, int group,
+                              int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const RowKernel kernel = row_kernel(vec, loads);
+  if (group == 32) {
+    const RowKernel kernel = row_kernel(vec, loads);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(func_info(kernel, kRowThreads, info));
+  }
+  const PackedKernel kernel = packed_kernel(vec, group);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(func_info(kernel, kRowThreads, info));
 }

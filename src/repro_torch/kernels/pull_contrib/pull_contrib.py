@@ -14,16 +14,26 @@ slots is summed one term at a time from +0.0.
 Both dispatch on where their tensors lie: on the CPU they run the plain
 versions (``ref.pull_contrib_ref``, ``ref.pull_rows_ref``); on a CUDA
 device they launch the hand-written kernels of ``csrc/pull_contrib.cu``
-over the chunk plan of ``segment_ops.plan`` (built on the device at the
-first call on an ``order.ptr`` and cached with it).  ``pull_rows`` keeps
-the rows of the sources with the most live slots (``HOT_BYTES`` of them,
-``hot_set``, cached with the plan; the kernel tags their slots,
-``tag_slots``) in the card's L2 and reads each row
-in one pass of float2 or float4 loads where d and x's address allow
-(``row_path``).  On a ``meta`` tensor they run the launch path with
-no launch (``kernels.work``).  A failed build or launch raises.  ``LAUNCH_COUNTS``
-counts calls that launch each kernel, ``ROW_WIDTH_LAUNCHES`` the
-``pull_rows`` launches by row width.
+over a chunk plan of ``segment_ops.plan`` (built on the device at the
+first call on an order and cached with it).  ``pull_contrib``'s plan
+(``chunk_plan``) has a chunk for every vertex; ``pull_rows``' plan
+(``row_plan``: ``live_chunk_plan``) only the chunks of non-empty
+segments, in O(slots) where the slots are fewer than the rows, and the
+kernel writes the zero rows of the empty ones in one coalesced pass over
+``ptr``, so that a sum of few slots into many rows (DeepFM's table
+gradients: 2.6 M ids into 39 M rows) costs what its slots and its
+output's bytes cost.  ``pull_rows`` walks a chunk with a warp where a row
+is wide and with a group of ``row_lanes`` lanes where it is narrow (32
+chunks a warp at d = 1); narrow rows into more rows than slots are
+staged a row a slot and placed by the fill, so that every row of the
+output is written whole, once.  It keeps the rows of the sources with
+the most live slots (``HOT_BYTES`` of them, ``hot_set``, cached with the
+plan; the kernel tags their slots, ``tag_slots``) in the card's L2 and
+reads each row in one pass of float2 or float4 loads where d and x's
+address allow (``row_path``).  On a ``meta`` tensor they run the launch
+path with no launch (``kernels.work``).  A failed build or launch
+raises.  ``LAUNCH_COUNTS`` counts calls that launch each kernel,
+``ROW_WIDTH_LAUNCHES`` the ``pull_rows`` launches by row width.
 """
 from __future__ import annotations
 
@@ -38,14 +48,16 @@ from repro_torch.kernels import work
 from repro_torch.kernels.build import check_arg
 from repro_torch.kernels.pull_contrib.ref import PULL_CHUNK, ROW_CHUNK, \
     PullOrder, pull_contrib_ref, pull_rows_ref
-from repro_torch.kernels.segment_ops.plan import cached, cached_plan
+from repro_torch.kernels.segment_ops.plan import ChunkPlan, cached, \
+    cached_live_plan, cached_plan
 from repro_torch.kernels.slot_count.slot_count import segment_bounds, \
     slot_count
 
-__all__ = ["HOT_BYTES", "HOT_TAG", "HotSet", "LAUNCH_COUNTS", "PULL_CHUNK",
-           "PullOrder", "ROW_CHUNK", "ROW_PATHS", "ROW_WIDTH_LAUNCHES",
-           "cached_hot_set", "hot_set", "kernel_info", "pull_contrib",
-           "pull_order", "pull_rows", "pull_values", "row_path",
+__all__ = ["HOT_BYTES", "HOT_TAG", "HotSet", "LAUNCH_COUNTS",
+           "PACKED_LANES", "PULL_CHUNK", "PullOrder", "ROW_CHUNK",
+           "ROW_PATHS", "ROW_WIDTH_LAUNCHES", "cached_hot_set", "hot_set",
+           "kernel_info", "pull_contrib", "pull_order", "pull_rows",
+           "pull_values", "row_lanes", "row_path", "row_plan",
            "segment_sum", "sorted_slots", "source_ranking", "tag_slots"]
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
@@ -88,10 +100,10 @@ def _lib() -> ctypes.CDLL:
     lib.pull_contrib_launch.restype = ctypes.c_int
     lib.pull_rows_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                                      + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                                     + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.pull_rows_launch.restype = ctypes.c_int
-    lib.pull_rows_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.pull_rows_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.pull_rows_info.restype = ctypes.c_int
     lib.pull_contrib_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.pull_contrib_info.restype = ctypes.c_int
@@ -102,8 +114,10 @@ def kernel_info(device=None) -> dict:
     """Registers a thread, resident blocks a SM, the SMs and threads a
     block of the f64 chunk kernel on the card; registers and blocks a SM
     of the scalar row kernel, the weighted chunk kernel and the split
-    kernel; and ``row_paths``: {"<floats a load>x<loads a lane>":
-    (registers, blocks a SM)} of every row path."""
+    kernel; ``row_paths``: {"<floats a load>x<loads a lane>": (registers,
+    blocks a SM)} of every row path (a warp a chunk), and
+    ``packed_paths``: {"<floats a load>/<lanes a chunk>": (registers,
+    blocks a SM)} of every packed path (narrow rows, ``row_lanes``)."""
     index = None if device is None else torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
@@ -111,18 +125,23 @@ def kernel_info(device=None) -> dict:
     rc = _lib().pull_contrib_info(index, ctypes.addressof(info))
     if rc != 0:
         raise RuntimeError(f"pull_contrib_info failed: CUDA error {rc}")
-    paths = {}
-    for vec, loads in ROW_PATHS.items():
+    def row_info(vec, loads, group):
         row = (ctypes.c_int * 2)()
-        rc = _lib().pull_rows_info(index, vec, loads, ctypes.addressof(row))
+        rc = _lib().pull_rows_info(index, vec, loads, group,
+                                   ctypes.addressof(row))
         if rc != 0:
             raise RuntimeError(f"pull_rows_info failed: CUDA error {rc}")
-        paths[f"{vec}x{loads}"] = (row[0], row[1])
+        return row[0], row[1]
+    paths = {f"{vec}x{loads}": row_info(vec, loads, WARP)
+             for vec, loads in ROW_PATHS.items()}
+    packed = {f"{vec}/{g}": row_info(vec, loads, g)
+              for vec, loads in ROW_PATHS.items() for g in PACKED_LANES}
     return dict(registers=info[0], blocks_per_sm=info[1], sms=info[2],
                 threads_per_block=info[3], row_registers=info[4],
                 row_blocks_per_sm=info[5], weighted_registers=info[6],
                 weighted_blocks_per_sm=info[7], split_registers=info[8],
-                split_blocks_per_sm=info[9], row_paths=paths)
+                split_blocks_per_sm=info[9], row_paths=paths,
+                packed_paths=packed)
 
 
 def _launch_kernel(order: PullOrder, ranks: torch.Tensor,
@@ -229,6 +248,10 @@ HOT_TAG = -2**31
 # load -> loads a lane a pass (a pass of 32 lanes covers 128, 640 or 256
 # columns: d = 128 and 602 in one pass)
 ROW_PATHS = {4: 1, 2: 10, 1: 8}
+# lanes a chunk of the packed row paths (csrc/pull_contrib.cu
+# PULL_ROWS_PACKED_PATHS), and of the wide one: a warp
+PACKED_LANES = (1, 2, 4, 8, 16)
+WARP = 32
 
 
 def row_path(d: int, data_ptr: int) -> Tuple[int, int]:
@@ -238,6 +261,13 @@ def row_path(d: int, data_ptr: int) -> Tuple[int, int]:
     vec = next(v for v in (4, 2, 1)
                if d % v == 0 and data_ptr % (4 * v) == 0)
     return vec, ROW_PATHS[vec]
+
+
+def row_lanes(d: int, vec: int) -> int:
+    """Lanes a chunk for rows of ``d`` f32 read ``vec`` floats a load: the
+    row's vectors rounded up to a power of two where they fill at most
+    half a warp (so a warp walks 32 / lanes chunks), else a warp."""
+    return next((g for g in PACKED_LANES if d // vec <= g), WARP)
 
 
 class HotSet(NamedTuple):
@@ -312,6 +342,16 @@ def cached_hot_set(order: PullOrder, n: int, d: int,
                       lambda: hot_set(order, n, rows, ranking))
 
 
+def row_plan(order: PullOrder, chunk_slots: int) -> ChunkPlan:
+    """The row sum's plan of ``order``: the chunks of its non-empty
+    segments only (``segment_ops.plan.live_chunk_plan``: over the slots
+    from the sorted keys where they are fewer than the rows, else over
+    ``ptr``), built at the first call on this order and K and then handed
+    back as is."""
+    return cached_live_plan(order.ptr, order.dst, order.src.shape[0],
+                            chunk_slots)
+
+
 def _launch_rows(order: PullOrder, x: torch.Tensor, chunk_slots: int,
                  hot_bytes: int) -> torch.Tensor:
     V, E = order.ptr.shape[0] - 1, order.src.shape[0]
@@ -329,14 +369,19 @@ def _launch_rows(order: PullOrder, x: torch.Tensor, chunk_slots: int,
     out = torch.empty(V, d, dtype=torch.float32, device=dev)
     if V == 0 or d == 0:
         return out
-    # the chunk plan of gated_spmm, over vertices and their sorted slots
-    plan = cached_plan(order.ptr, E, chunk_slots)
+    plan = row_plan(order, chunk_slots)
     hot = cached_hot_set(order, n, d, hot_bytes)
     # the tagged slots the kernel's first launch writes (live ones only)
     tagged = torch.empty_like(order.src) if hot.top.shape[0] else None
     vec, loads = row_path(d, x.data_ptr())
+    lanes = row_lanes(d, vec)
     partial = torch.empty(plan.num_partials * d, dtype=torch.float32,
                           device=dev)
+    # narrow rows into more rows than slots: the segments' sums are staged
+    # a row a first slot, and the fill writes every row of out (a sector
+    # written in parts by two launches costs the memory a read too)
+    staged = (torch.empty(E, d, dtype=torch.float32, device=dev)
+              if lanes < WARP and E < V else None)
     if dev.type == "meta":                 # the dry-run: no launch
         work.record("pull_rows", *work.pull_rows_work(V, E, min(n, E), d))
         return out
@@ -346,11 +391,13 @@ def _launch_rows(order: PullOrder, x: torch.Tensor, chunk_slots: int,
             torch.cuda.current_device(),
             *(t.data_ptr() for t in plan[:7]), order.src.data_ptr(),
             None if tagged is None else hot.tag.data_ptr(),
-            order.ptr[V:].data_ptr(),
+            order.ptr.data_ptr(),
             None if tagged is None else tagged.data_ptr(), E,
             x.data_ptr(), hot.top.data_ptr(), hot.top.shape[0],
-            out.data_ptr(), partial.data_ptr(), plan.window.shape[0],
-            plan.split_window.shape[0], V, d, vec, loads, stream)
+            out.data_ptr(), partial.data_ptr(),
+            None if staged is None else staged.data_ptr(),
+            plan.window.shape[0], plan.split_window.shape[0], V, d, vec,
+            loads, lanes, stream)
     if rc != 0:
         raise RuntimeError(f"pull_rows kernel launch failed: CUDA error "
                            f"{rc}")

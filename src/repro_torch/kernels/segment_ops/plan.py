@@ -21,13 +21,29 @@ An empty window is one chunk of no entry: it writes zeros.
 ``entry_start`` never changes after packing (``apply_batch_packed`` carries
 the same tensor on), so ``cached_plan`` builds a plan once per packed
 structure and K, and hands the same one back on every later call.
+
+``live_chunk_plan`` is the same plan for segments that are mostly empty
+(the row sum's, ``pull_contrib.pull_rows``: a table gradient sums 2.6 M
+ids into 39 M rows).  It lists only the chunks of non-empty segments, cut
+from each segment's first slot as ``chunk_plan`` cuts them, and numbers
+the partials as ``chunk_plan`` does (and ``pull_contrib.ref.chunk_rows``);
+the empty segments get no chunk (the row kernel fills their rows with
+zeros from ``ptr``).  Where the slots are fewer than the segments it is
+built from the sorted slots' keys, one pass over the slots and one gather
+of ``ptr`` at each of them: its work and memory are then O(ne), not O(nw)
+(a table gradient); else over the segments as ``chunk_plan`` is (a graph,
+whose slots outnumber its vertices).  Its bounds are
+
+    chunks    C = min(nw, ne) + ne // k
+    partials  P = ne // k
+    splits    S = min(nw, ne // (k + 1))
 """
 from __future__ import annotations
 
 import threading
 import weakref
-from typing import Any, Callable, Dict, NamedTuple, Tuple, TypeVar, \
-    Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, \
+    TypeVar, Union
 
 import torch
 
@@ -57,14 +73,28 @@ def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
     if k < 1:
         raise ValueError(f"chunk_plan: k must be >= 1, got {k}")
     nw = entry_start.shape[0] - 1
-    n_chunks, n_parts, n_splits = plan_sizes(nw, ne, k)
+    if nw == 0:
+        none = torch.zeros(0, dtype=torch.int32, device=entry_start.device)
+        return ChunkPlan(none, none, none, none, none, none, none, 0)
+    return _by_windows(entry_start, k, plan_sizes(nw, ne, k), 1)
+
+
+def _by_windows(entry_start: torch.Tensor, k: int, sizes: tuple,
+                least: int) -> ChunkPlan:
+    """The plan of ``sizes`` (C, P, S), built over the windows: window w
+    gets max(least, ceil(n_w / k)) chunks, found by a search of each chunk
+    slot in the windows' running chunk counts.  O(NW + C log NW)."""
+    nw = entry_start.shape[0] - 1
+    n_chunks, n_parts, n_splits = sizes
     dev = entry_start.device
     if nw == 0:
-        none = torch.zeros(0, dtype=torch.int32, device=dev)
-        return ChunkPlan(none, none, none, none, none, none, none, 0)
+        return ChunkPlan(*(torch.full((n,), nw, dtype=torch.int32,
+                                      device=dev)
+                           for n in (n_chunks,) * 4 + (n_splits,) * 3),
+                         num_partials=n_parts)
     start = entry_start.long()
     owned = start[1:] - start[:-1]
-    per_window = torch.clamp((owned + k - 1) // k, min=1)
+    per_window = torch.clamp((owned + k - 1) // k, min=least)
     last = torch.cumsum(per_window, 0)            # one past each window's
     c = torch.arange(n_chunks, device=dev)
     w = torch.searchsorted(last, c, right=True)   # nw for surplus slots
@@ -73,7 +103,7 @@ def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
     begin = start[wc] + j * k
     end = torch.minimum(begin + k, start[wc + 1])
     # partial slots: chunks 1.. of each window, in window then chunk order
-    parts = per_window - 1
+    parts = torch.clamp(per_window - 1, min=0)
     part0 = torch.cumsum(parts, 0) - parts
     part = torch.where(j > 0, part0[wc] + j - 1, torch.full_like(j, -1))
     s = torch.arange(n_splits, device=dev)
@@ -89,6 +119,84 @@ def chunk_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
         end=i32(end, w < nw), part=i32(part, w < nw),
         split_window=i32(sw, sw < nw), split_part=i32(part0[swc], sw < nw),
         split_count=i32(parts[swc], sw < nw), num_partials=n_parts)
+
+
+def live_plan_sizes(nw: int, ne: int, k: int) -> tuple:
+    """(C, P, S): ``live_chunk_plan``'s chunk, partial and split bounds."""
+    return min(nw, ne) + ne // k, ne // k, min(nw, ne // (k + 1))
+
+
+def live_chunk_plan(ptr: torch.Tensor, keys: Optional[torch.Tensor],
+                    ne: int, k: int) -> ChunkPlan:
+    """The plan of the non-empty segments ``[ptr[w], ptr[w+1])``
+    (int32[NW+1], ``ptr[NW]`` <= ``ne``) of ``ne`` sorted slots, cut into
+    chunks of at most ``k`` slots; ``keys`` (int[ne]) holds each slot's
+    segment, NW for a slot past ``ptr[NW]`` (``PullOrder.dst``), or is
+    None.  Built over the slots where there are fewer slots than segments
+    and the keys are given (O(ne)), else over the segments as
+    ``chunk_plan`` builds (O(NW + C log NW)): the same plan either way.  No
+    host read: every length is a bound (module doc); surplus slots hold
+    NW."""
+    if k < 1:
+        raise ValueError(f"live_chunk_plan: k must be >= 1, got {k}")
+    nw = ptr.shape[0] - 1
+    sizes = live_plan_sizes(nw, ne, k)
+    if keys is None or nw <= ne:
+        return _by_windows(ptr, k, sizes, 0)
+    return _by_slots(ptr, keys, ne, k, sizes)
+
+
+# slots of the plan's arrays that the slots starting no chunk write to, in
+# turn: one slot for them all would take every such write at one address
+_DUMP = 1024
+
+
+def _by_slots(ptr: torch.Tensor, keys: torch.Tensor, ne: int, k: int,
+              sizes: tuple) -> ChunkPlan:
+    """The plan of ``sizes`` (C, P, S), built over the ``ne`` sorted slots
+    from their keys: a slot starts a chunk where its offset in its segment
+    is a multiple of k, and each chunk's entry goes to its rank among the
+    chunk starts.  O(ne), with ``ptr`` read at the slots' keys only."""
+    nw = ptr.shape[0] - 1
+    n_chunks, n_parts, n_splits = sizes
+    dev = ptr.device
+    slot = torch.arange(ne, device=dev)
+    key = keys[:ne].long()
+    # each slot's segment bounds
+    kc = torch.clamp(key, max=nw - 1)
+    seg_begin = ptr.index_select(0, kc).long()
+    seg_end = ptr.index_select(0, kc + 1).long()
+    j = torch.div(slot - seg_begin, k, rounding_mode="floor")
+    chunk = (key < nw) & (slot - seg_begin == j * k)   # a chunk starts here
+    first = chunk & (j == 0)                           # a segment's chunk 0
+    c = torch.cumsum(chunk, 0) - 1                     # its chunk
+    # chunk c of segment ordinal o is partial c - o - 1 when it is not the
+    # segment's first: chunks 1.. of each segment, in segment then chunk
+    # order, as chunk_plan numbers them
+    part = torch.where(j > 0, c - torch.cumsum(first, 0), -1)
+    # the split segments: those with a chunk 1, in segment order
+    second = chunk & (j == 1)
+    dump = torch.remainder(slot, _DUMP)
+
+    def compact(at, size, value):
+        """int32[size]: ``value[i]`` at ``at[i]``, NW where no slot lands
+        (a slot that lands nowhere writes a dump slot past ``size``)."""
+        out = torch.full((size + _DUMP,), nw, dtype=torch.int32, device=dev)
+        return out.index_copy_(0, at, value.to(torch.int32))[:size]
+
+    at = torch.where(chunk, c, n_chunks + dump)
+    at_split = torch.where(second, torch.cumsum(second, 0) - 1,
+                           n_splits + dump)
+    count = torch.div(seg_end - seg_begin + k - 1, k,
+                      rounding_mode="floor") - 1
+    return ChunkPlan(
+        window=compact(at, n_chunks, key), begin=compact(at, n_chunks, slot),
+        end=compact(at, n_chunks, torch.minimum(slot + k, seg_end)),
+        part=compact(at, n_chunks, part),
+        split_window=compact(at_split, n_splits, key),
+        split_part=compact(at_split, n_splits, part),
+        split_count=compact(at_split, n_splits, count),
+        num_partials=n_parts)
 
 
 # id(tensor), or the ids of a tuple of tensors -> (weak references to
@@ -139,3 +247,11 @@ def cached_plan(entry_start: torch.Tensor, ne: int, k: int) -> ChunkPlan:
     host read."""
     return cached(entry_start, (ne, k),
                   lambda: chunk_plan(entry_start, ne, k))
+
+
+def cached_live_plan(ptr: torch.Tensor, keys: Optional[torch.Tensor],
+                     ne: int, k: int) -> ChunkPlan:
+    """``live_chunk_plan(ptr, keys, ne, k)``, built at the first call on
+    these tensors and then handed back as is."""
+    return cached(ptr if keys is None else (ptr, keys), ("live", ne, k),
+                  lambda: live_chunk_plan(ptr, keys, ne, k))

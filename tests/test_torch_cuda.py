@@ -1977,6 +1977,126 @@ def test_pull_rows_table_gradient_widths_on_card(cuda, d, path):
     assert float((out - plain).abs().max()) <= 1e-5 * scale
 
 
+def _sparse_order(dev, n=200_000, e=50_000, live=True):
+    """A slot order of ``e`` seeded ids into ``n`` rows, most rows empty:
+    a hot id of 300 slots (split at K = 64), 2,000 ids out of range (dead
+    slots, sorted last); with ``live=False`` every id out of range."""
+    from repro_torch.models.message import slot_order
+    rng = np.random.default_rng(e)
+    ids = rng.integers(0, n, e)
+    ids[:300] = 17
+    ids[300:2_300] = n + 5
+    if not live:
+        ids[:] = n
+    ids = torch.from_numpy(ids.astype(np.int32))
+    return slot_order(ids.to(dev), n)[0], slot_order(ids, n)[0]
+
+
+@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("d", [1, 2, 3, 10, 16, 64, 602])
+def test_pull_rows_sparse_destinations_bitwise(cuda, d, k):
+    """pull_rows over a slot order whose rows are mostly empty (the live
+    plan, the fill, the packed paths at d <= 64, a warp a chunk at 602):
+    bitwise the plain version on the CPU, and run to run."""
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    order, cpu_order = _sparse_order(cuda)
+    e = order.src.shape[0]
+    g = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (e, d)).astype(np.float32))
+    gc = g.to(cuda)
+    vec, _ = pc.row_path(d, gc.data_ptr())
+    assert pc.row_lanes(d, vec) == (32 if d == 602 else
+                                    {1: 1, 2: 1, 3: 4, 10: 8, 16: 4,
+                                     64: 16}[d])
+    before = pc.LAUNCH_COUNTS["pull_rows"]
+    out = pc.pull_rows(order, gc, chunk_slots=k, hot_bytes=0)
+    torch.cuda.synchronize()
+    assert pc.LAUNCH_COUNTS["pull_rows"] == before + 1
+    assert torch.equal(out.cpu(), pull_rows_ref(cpu_order, g, chunk_slots=k))
+    for _ in range(2):
+        assert torch.equal(pc.pull_rows(order, gc, chunk_slots=k,
+                                        hot_bytes=0), out)
+    empty = order.ptr[1:] == order.ptr[:-1]
+    assert int(empty.sum()) > order.ptr.shape[0] // 2
+    assert float(out[empty].abs().max()) == 0.0
+    info = pc.kernel_info()["packed_paths"]
+    assert set(info) == {f"{v}/{g}" for v in pc.ROW_PATHS
+                         for g in pc.PACKED_LANES}
+    assert all(r > 0 and b >= 1 for r, b in info.values())
+
+
+@pytest.mark.parametrize("d", [1, 10, 602])
+def test_pull_rows_no_live_slot_is_zero(cuda, d):
+    """An order with no live slot: no chunk, only the fill: +0.0 rows."""
+    order, _ = _sparse_order(cuda, live=False)
+    assert int(order.ptr[-1]) == 0
+    g = torch.randn(order.src.shape[0], d, device=cuda)
+    out = pc.pull_rows(order, g, hot_bytes=0)
+    assert out.shape == (order.ptr.shape[0] - 1, d)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert not bool(torch.signbit(out).any())
+
+
+@pytest.mark.parametrize("d,kind", [(1, "rmat"), (3, "hub"), (10, "rmat"),
+                                    (16, "hub"), (64, "rmat")])
+def test_pull_rows_packed_paths_hot_budgets_bitwise(cuda, d, kind):
+    """The packed paths with a hot set (tagged slots, L2 policies) over a
+    graph's order by dst: every budget bitwise budget 0 and the CPU's."""
+    from repro_torch.kernels.pull_contrib.ref import pull_rows_ref
+    order, x, xc = _rows_case(cuda, d, kind)
+    assert pc.row_lanes(d, pc.row_path(d, x.data_ptr())[0]) < 32
+    cpu = pull_rows_ref(PullOrder(*(t.cpu() for t in order)), xc)
+    for budget in (0, 4 * d * 1000, 4 * d * x.shape[0]):
+        out = pc.pull_rows(order, x, hot_bytes=budget)
+        assert torch.equal(pc.pull_rows(order, x, hot_bytes=budget), out)
+        assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("d", [1, 10])
+def test_pull_rows_meta_scratch_equals_card(cuda, d):
+    """The dry-run's branch (``meta``) allocates what the card's does: the
+    same tensors in the same order, and the same peak of live bytes (to the card
+    allocator's 512-byte rounding)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch.dryrun import Counter
+
+    class Allocs(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and not func.is_view:
+                self.made.append((tuple(out.shape), out.dtype))
+            return out
+
+    made, peaks = {}, {}
+    for dev in ("meta", cuda):
+        order, _ = _sparse_order(torch.device(dev))
+        g = torch.randn(order.src.shape[0], d).to(dev)
+        if dev == "meta":
+            # the inputs tracked from the start (a view of one, such as
+            # the keys' live prefix, is no new storage), then left out
+            inputs = [*order, g]
+            counter = Counter(memory=True, tracked=inputs)
+            with counter, Allocs() as allocs:
+                pc.pull_rows(order, g, hot_bytes=0)
+            peaks[dev] = counter.peak - sum(
+                t.untyped_storage().nbytes() for t in inputs)
+        else:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with Allocs() as allocs:
+                pc.pull_rows(order, g, hot_bytes=0)
+            torch.cuda.synchronize()
+            peaks[dev] = torch.cuda.max_memory_allocated() - base
+        made[dev] = allocs.made
+    assert made["meta"] == made[cuda]
+    assert abs(peaks[cuda] - peaks["meta"]) <= 512 * len(made["meta"])
+
+
 def test_deepfm_train_step_bitwise_on_card(cuda):
     """DeepFM's loss and gradients, then three train steps, at the full
     config's widths on a cut vocabulary, twice from the same state: all
